@@ -1,0 +1,124 @@
+"""Public wrappers around the port's attention kernels.
+
+Each wrapper applies the contract of its ``repro.kernels.ops`` counterpart
+on every path, then dispatches by device:
+
+  * a CPU tensor takes the plain PyTorch version in ``ref``;
+  * a CUDA tensor launches the Hopper kernel, or raises — there is no
+    fallback.
+
+``impl="ref"`` asks for the plain version on any device: the model's plain
+path, which ``chip_smoke.py`` holds the kernel path against on the card
+(the JAX wrappers' ``use_pallas=False``).
+
+The paged pools are updated in place and never padded per step; the TPU
+tileability guard and 128-lane padding of the JAX wrappers have no
+counterpart here.
+
+    out = ops.decode_attention(q, k, v, kv_len)                       # dense
+    out, kp, vp = ops.paged_decode_attention(q, kp, vp, bt, pos, kn, vn)
+    out, kp, vp = ops.paged_chunk_attention(q, kp, vp, bt, start, span,
+                                            kn, vn)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import paged_chunk_attention as _pchunk
+from repro_torch.kernels import paged_decode_attention as _pdec
+from repro_torch.kernels import ref
+
+KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
+           "paged_chunk_attention": _pchunk}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def _plain(x: torch.Tensor, impl: str) -> bool:
+    """True where the plain version runs: asked for, or a CPU tensor."""
+    if impl == "ref":
+        return True
+    if impl != "kernel":
+        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for tensors on {x.device}")
+
+
+def decode_attention(q, k, v, kv_len, *, scale: float | None = None,
+                     impl: str = "kernel"):
+    """q: [B, Hq, D]; k, v: [B, Hkv, S, D]; kv_len: i32[B] -> [B, Hq, D]."""
+    if _plain(q, impl):
+        return ref.decode_attention(q, k, v, kv_len, scale=scale)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return _dec.decode_attention(q.contiguous(), k, v,
+                                 kv_len.to(torch.int32).contiguous(),
+                                 scale=scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, k_new,
+                           v_new, *, scale: float | None = None,
+                           window: int | None = None, impl: str = "kernel"):
+    """Fused write-attend decode over a paged KV cache.
+
+    q: [B, Hq, D]; k_pages, v_pages: [P, Hkv, ps, D]; block_tables:
+    i32[B, maxp]; pos: i32[B]; k_new, v_new: [B, Hkv, D].  Returns
+    (out [B, Hq, D], k_pages, v_pages), the pools carrying the new token at
+    slot ``pos``.  ``pos`` is clamped to the table's capacity on both paths:
+    past it the last slot is rewritten instead of the table read out of
+    bounds.
+    """
+    ps = k_pages.shape[2]
+    pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
+    k_new = k_new.to(k_pages.dtype)
+    v_new = v_new.to(v_pages.dtype)
+    if _plain(q, impl):
+        return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                          pos, k_new, v_new, scale=scale,
+                                          window=window)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return _pdec.paged_decode_attention(
+        q.contiguous(), k_pages, v_pages,
+        block_tables.to(torch.int32).contiguous(),
+        pos.to(torch.int32).contiguous(), k_new.contiguous(),
+        v_new.contiguous(), scale=scale, window=window)
+
+
+def paged_chunk_attention(q, k_pages, v_pages, block_tables, start, span,
+                          k_new, v_new, *, scale: float | None = None,
+                          window: int | None = None, impl: str = "kernel"):
+    """Chunked mixed-step attention over a paged KV cache, writes fused.
+
+    q: [B, Hq, C, D]; k_pages, v_pages: [P, Hkv, ps, D]; block_tables:
+    i32[B, maxp]; start: i32[B] tokens already cached; span: i32[B] new
+    tokens; k_new, v_new: [B, Hkv, C, D].  Returns (out [B, Hq, C, D],
+    k_pages, v_pages) with the span written at slots ``start..start+span``.
+    ``start`` is clamped to the table's capacity and ``span`` clipped to
+    [0, C] on both paths.
+    """
+    ps = k_pages.shape[2]
+    start = start.clamp(max=block_tables.shape[1] * ps - 1)
+    span = span.clamp(0, q.shape[2])
+    k_new = k_new.to(k_pages.dtype)
+    v_new = v_new.to(v_pages.dtype)
+    if _plain(q, impl):
+        return ref.paged_chunk_attention(q, k_pages, v_pages, block_tables,
+                                         start, span, k_new, v_new,
+                                         scale=scale, window=window)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return _pchunk.paged_chunk_attention(
+        q.contiguous(), k_pages, v_pages,
+        block_tables.to(torch.int32).contiguous(),
+        start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
+        k_new.contiguous(), v_new.contiguous(), scale=scale, window=window)

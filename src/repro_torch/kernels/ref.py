@@ -1,0 +1,148 @@
+"""Plain PyTorch versions of the attention kernels (the correctness contract).
+
+Each function is the mathematical definition with no tiling, line for line
+in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
+``ops.py`` runs these, and on the card each CUDA kernel is held against
+them.  Accumulation is float32 and outputs come back in the query's dtype.
+
+Unlike the JAX oracles, which return fresh pools, the paged versions write
+the new K/V into the pools IN PLACE and return the same tensors — the port
+never copies a page pool per step.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _broadcast_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
+    """[B, Hkv, T, D] -> [B, Hq, T, D] by repeating groups (GQA)."""
+    return torch.repeat_interleave(k, n_q_heads // k.shape[1], dim=1)
+
+
+def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
+                  ) -> torch.Tensor:
+    """[P, Hkv, ps, D] pool through [B, maxp] tables -> [B, Hkv, maxp*ps, D].
+
+    ``-1`` entries read page 0 (``safe_bt`` of the JAX oracle): they are
+    not skipped, so kernel and oracle agree on what such a slot holds.
+    """
+    b = block_tables.shape[0]
+    _, hkv, _, d = pages.shape
+    g = pages[block_tables.clamp(min=0).long()]          # [B, maxp, Hkv, ps, D]
+    return g.movedim(2, 1).reshape(b, hkv, -1, d)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, scale: float | None = None
+                     ) -> torch.Tensor:
+    """Single-token decode attention against a (padded) dense KV cache.
+
+    q: [B, Hq, D]; k, v: [B, Hkv, S, D]; kv_len: i32[B] — valid prefix.
+    """
+    hq, d = q.shape[1], q.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    kb = _broadcast_kv(k, hq).float()
+    vb = _broadcast_kv(v, hq).float()
+    logits = torch.einsum("bhd,bhsd->bhs", q.float(), kb) * scale
+    s = k.shape[2]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < kv_len.to(q.device)[:, None])
+    logits = logits.masked_fill(~mask[:, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhs,bhsd->bhd", p, vb)
+    return out.to(q.dtype)
+
+
+def _scatter_rows(pages: torch.Tensor, pg: torch.Tensor, slot: torch.Tensor,
+                  rows: torch.Tensor, keep: torch.Tensor) -> None:
+    """pages[pg, :, slot, :] = rows where ``keep``; dropped writes vanish."""
+    pages[pg[keep].long(), :, slot[keep].long(), :] = rows[keep].to(pages.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           pos: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, scale: float | None = None,
+                           window: int | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token decode against a paged KV cache, write included.
+
+    q: [B, Hq, D]; k_pages, v_pages: [P, Hkv, ps, D] shared page pool;
+    block_tables: i32[B, maxp] page ids per row (-1 = unallocated);
+    pos: i32[B] tokens already cached; k_new, v_new: [B, Hkv, D].
+
+    Writes the new token's K/V into page ``block_tables[b, pos // ps]`` slot
+    ``pos % ps`` (dropped for -1 pages and positions past the table), then
+    attends over the row's ``pos + 1`` live tokens.
+    """
+    hq, d = q.shape[1], q.shape[2]
+    ps = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    pos = pos.to(q.device).long()
+
+    widx = (pos // ps).clamp(max=maxp - 1)
+    pg_w = block_tables.long().gather(1, widx[:, None])[:, 0]
+    keep = (pg_w >= 0) & (pos < maxp * ps)
+    slot_w = pos % ps
+    _scatter_rows(k_pages, pg_w, slot_w, k_new, keep)
+    _scatter_rows(v_pages, pg_w, slot_w, v_new, keep)
+
+    kb = _broadcast_kv(_gather_pages(k_pages, block_tables), hq).float()
+    vb = _broadcast_kv(_gather_pages(v_pages, block_tables), hq).float()
+    logits = torch.einsum("bhd,bhsd->bhs", q.float(), kb) * scale
+    cols = torch.arange(kb.shape[2], device=q.device)[None, :]
+    valid = cols < (pos + 1)[:, None]
+    if window is not None:
+        valid &= cols > (pos - window)[:, None]
+    logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhs,bhsd->bhd", p, vb)
+    return out.to(q.dtype), k_pages, v_pages
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_tables: torch.Tensor,
+                          start: torch.Tensor, span: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor,
+                          scale: float | None = None,
+                          window: int | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunked mixed-step attention against a paged KV cache, writes included.
+
+    q: [B, Hq, C, D] per-row query spans; k_pages, v_pages: [P, Hkv, ps, D];
+    block_tables: i32[B, maxp]; start: i32[B] tokens already cached per row;
+    span: i32[B] valid new tokens in [0, C]; k_new, v_new: [B, Hkv, C, D].
+
+    Writes the span's K/V into pages ``block_tables[b, (start+j) // ps]``
+    slot ``(start+j) % ps`` for j < span[b], then each query j attends over
+    the row's ``start + j + 1`` live tokens.  Dropped writes: -1 pages,
+    positions past the table, and j >= span.  Rows with span 0 write
+    nothing; outputs at j >= span are garbage.
+    """
+    b, hq, c, d = q.shape
+    ps = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    start = start.to(q.device).long()
+    span = span.to(q.device).long()
+
+    j = torch.arange(c, device=q.device)
+    tpos = start[:, None] + j[None, :]                               # [B, C]
+    pg = block_tables.long().gather(1, (tpos // ps).clamp(0, maxp - 1))
+    keep = (pg >= 0) & (tpos < maxp * ps) & (j[None, :] < span[:, None])
+    slot = tpos % ps
+    _scatter_rows(k_pages, pg, slot, k_new.transpose(1, 2), keep)
+    _scatter_rows(v_pages, pg, slot, v_new.transpose(1, 2), keep)
+
+    kb = _broadcast_kv(_gather_pages(k_pages, block_tables), hq).float()
+    vb = _broadcast_kv(_gather_pages(v_pages, block_tables), hq).float()
+    logits = torch.einsum("bhcd,bhsd->bhcs", q.float(), kb) * scale
+    cols = torch.arange(kb.shape[2], device=q.device)[None, None, :]
+    valid = cols <= tpos[:, :, None]                    # causal to query pos
+    if window is not None:
+        valid &= cols > (tpos[:, :, None] - window)
+    logits = logits.masked_fill(~valid[:, None], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhcs,bhsd->bhcd", p, vb)
+    return out.to(q.dtype), k_pages, v_pages

@@ -1,0 +1,77 @@
+"""Block assembly: pre-norm residual wiring of the ``attn`` block kind.
+
+The port runs layers in a Python loop (``lm._run_blocks``) where the JAX
+package scans over stacked groups.  Only the dense-attention kind is ported
+so far; every other kind raises NotImplementedError naming its ROADMAP.md
+queue 1 item.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.models import attention, common, ffn
+from repro_torch.models import cache as cache_mod
+from repro_torch.models.config import ModelConfig
+
+Params = Any
+
+
+class BlockCtx(NamedTuple):
+    """Per-call context shared by all blocks."""
+    positions: torch.Tensor               # [B, T] (or [T])
+    mask_full: Optional[torch.Tensor]     # bool[Tq, Tk] / [B, Tq, Tk] or None
+    mode: str = "full"                    # "full"|"prefill"|"decode"|"mixed"
+    pos: Optional[torch.Tensor] = None    # i32[B] cache fill level
+    impl: str = "kernel"
+    lengths: Optional[torch.Tensor] = None   # i32[B] ragged lengths / spans
+
+
+def check_kind(kind: str) -> None:
+    """Raise for a block kind the port does not run (yet)."""
+    if kind != "attn":
+        cache_mod.layout_for(kind, None, paged=False)   # names the item
+
+
+def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
+    check_kind(kind)
+    d = cfg.d_model
+    p = {"norm1": common.norm_init(d, cfg.norm_type, gen.device),
+         "attn": attention.init(gen, cfg)}
+    if not cfg.parallel_block:
+        p["norm2"] = common.norm_init(d, cfg.norm_type, gen.device)
+    p["ffn"] = ffn.init(gen, cfg)
+    return p
+
+
+def _norm(p, cfg, x):
+    return common.apply_norm(p, x, cfg.norm_type, cfg.norm_eps)
+
+
+def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
+                ctx: BlockCtx, cache: Params | None
+                ) -> tuple[torch.Tensor, Params | None]:
+    """Returns (x, cache).  Full attention: the window never applies."""
+    check_kind(kind)
+    h = _norm(p["norm1"], cfg, x)
+    local_cfg = cfg.replace(window=None)
+    if ctx.mode == "mixed":
+        a, cache = attention.mixed_step(p["attn"], local_cfg, h, cache,
+                                        ctx.pos, ctx.lengths, ctx.positions,
+                                        ctx.impl)
+    elif ctx.mode == "decode":
+        a, cache = attention.decode_step(p["attn"], local_cfg, h, cache,
+                                         ctx.pos, ctx.impl)
+    elif cache is not None:
+        a, cache = attention.prefill(p["attn"], local_cfg, h, cache,
+                                     ctx.mask_full, ctx.positions,
+                                     lengths=ctx.lengths)
+    else:
+        a = attention.forward(p["attn"], local_cfg, h, ctx.mask_full,
+                              ctx.positions)
+    if cfg.parallel_block:
+        return x + a + ffn.forward(p["ffn"], cfg, h), cache
+    x = x + a
+    f = ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x))
+    return x + f, cache

@@ -1,0 +1,276 @@
+"""CacheSpec: the typed registry of per-layer KV cache layouts.
+
+Every layer's cache is described by a :class:`CacheSpec` — its layout name
+plus typed leaves (name, shape, dtype, role) — built by a registered layout
+function; the cache itself is a plain dict ``{"layers": [layer, ...]}`` with
+one dict of tensors per layer, in execution order.  (The JAX cache stacks
+the layers of each pattern slot on a leading [G] axis for ``lax.scan``; the
+port runs a Python loop over layers and keeps them apart —
+``convert.cache_from_jax`` unstacks.)
+
+Layouts ported so far:
+  dense          [B, Hkv, S, D] K/V (ring when S < the positions written)
+  paged_mha      shared K/V pools [P, Hkv, ps, D] + block_tables [B, maxp]
+
+The windowed (ring), quantized, MLA, recurrent-state and cross-attention
+layouts of ``repro.models.cache`` raise NotImplementedError naming their
+ROADMAP.md queue 1 item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator
+
+import torch
+
+Params = Any
+
+ROLE_KV = "kv"
+ROLE_POOL = "pool"
+ROLE_TABLE = "table"
+
+KV_QUANT_MODES = ("off", "int8", "fp8")
+
+# Not yet ported: layout family -> ROADMAP.md queue 1 item.
+_LATER = {"local": "item 11 (remaining families)",
+          "moe": "item 11 (remaining families)",
+          "mla": "item 10 (MLA)", "mla_moe": "item 10 (MLA)",
+          "rglru": "item 11 (remaining families)",
+          "slstm": "item 11 (remaining families)",
+          "mlstm": "item 11 (remaining families)",
+          "xattn": "item 11 (remaining families)"}
+
+
+@dataclass(frozen=True)
+class Leaf:
+    """One typed cache array: its name, full shape, dtype, and role."""
+    name: str
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    role: str
+    fill: float = 0.0            # block tables init to -1, arrays to 0
+
+    def init(self, device) -> torch.Tensor:
+        return torch.full(self.shape, self.fill, dtype=self.dtype,
+                          device=device)
+
+
+@dataclass(frozen=True)
+class CacheSpec:
+    """Layout descriptor for one layer's cache."""
+    kind: str                    # block kind ("attn", ...)
+    layout: str                  # dense | paged_mha
+    leaves: tuple[Leaf, ...]
+    page_size: int = 0
+    num_pages: int = 0
+
+    def init(self, device) -> Params:
+        return {l.name: l.init(device) for l in self.leaves}
+
+
+# ---------------------------------------------------------------------------
+# Layout functions (the registry)
+# ---------------------------------------------------------------------------
+
+_LAYOUTS: dict[str, Callable[..., CacheSpec]] = {}
+
+
+def register_layout(name: str):
+    def deco(fn):
+        _LAYOUTS[name] = fn
+        return fn
+    return deco
+
+
+@register_layout("dense")
+def _dense(kind, cfg, batch, max_len, dtype, **_) -> CacheSpec:
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return CacheSpec(kind, "dense", (
+        Leaf("k", shape, dtype, ROLE_KV),
+        Leaf("v", shape, dtype, ROLE_KV),
+    ))
+
+
+@register_layout("paged_mha")
+def _paged_mha(kind, cfg, batch, max_len, dtype, *, page_size=64,
+               num_pages=None, **_) -> CacheSpec:
+    maxp = -(-max_len // page_size)
+    if num_pages is None:
+        num_pages = batch * maxp
+    pool = (num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+    return CacheSpec(kind, "paged_mha", (
+        Leaf("k_pages", pool, dtype, ROLE_POOL),
+        Leaf("v_pages", pool, dtype, ROLE_POOL),
+        Leaf("block_tables", (batch, maxp), torch.int32, ROLE_TABLE,
+             fill=-1),
+    ), page_size=page_size, num_pages=num_pages)
+
+
+# ---------------------------------------------------------------------------
+# Kind -> layout routing
+# ---------------------------------------------------------------------------
+
+def layer_kinds(cfg) -> list[str]:
+    """Block kind of every layer in execution order: the pattern repeated
+    ``pattern_groups`` times, then the tail remainder (JAX's scan order)."""
+    return list(cfg.block_pattern) * cfg.pattern_groups + list(
+        cfg.tail_blocks)
+
+
+def layout_for(kind: str, cfg, *, paged: bool) -> str:
+    """Which layout a block kind uses under the requested paging mode."""
+    if kind == "attn":
+        return "paged_mha" if paged else "dense"
+    if kind in _LATER:
+        raise NotImplementedError(
+            f"the {kind!r} cache layout is not ported yet: ROADMAP.md "
+            f"queue 1 {_LATER[kind]}")
+    raise ValueError(f"unknown block kind {kind}")
+
+
+def spec_for(kind: str, cfg, batch: int, max_len: int,
+             dtype=torch.bfloat16, *, paged: bool = False,
+             page_size: int = 64, num_pages: int | None = None,
+             kv_quant: str = "off") -> CacheSpec:
+    if kv_quant not in KV_QUANT_MODES:
+        raise ValueError(f"unknown kv_quant {kv_quant!r}: pick one of "
+                         f"{KV_QUANT_MODES}")
+    if kv_quant != "off":
+        raise NotImplementedError(
+            "quantized page pools are not ported yet: ROADMAP.md queue 1 "
+            "item 9 (quantized pools and the swap tier)")
+    layout = layout_for(kind, cfg, paged=paged)
+    return _LAYOUTS[layout](kind, cfg, batch, max_len, dtype,
+                            page_size=page_size, num_pages=num_pages)
+
+
+def model_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                      *, paged: bool = False, page_size: int = 64,
+                      num_pages: int | None = None,
+                      kv_quant: str = "off") -> dict[str, Any]:
+    """The registry for one model: {"layers": [spec per layer]}."""
+    return {"layers": [spec_for(kind, cfg, batch, max_len, dtype,
+                                paged=paged, page_size=page_size,
+                                num_pages=num_pages, kv_quant=kv_quant)
+                       for kind in layer_kinds(cfg)]}
+
+
+# ---------------------------------------------------------------------------
+# Layout detection + typed traversal
+# ---------------------------------------------------------------------------
+
+_LEAFSETS: dict[frozenset, str] = {
+    frozenset({"k", "v"}): "dense",
+    frozenset({"k_pages", "v_pages", "block_tables"}): "paged_mha",
+}
+
+PAGED_LAYOUTS = ("paged_mha",)
+_POOL_LEAVES = {"paged_mha": ("k_pages", "v_pages")}
+
+
+def layout_of(layer_cache) -> str | None:
+    """Layout name of one layer's cache dict (None if not a layer dict)."""
+    if not isinstance(layer_cache, dict):
+        return None
+    return _LEAFSETS.get(frozenset(layer_cache.keys()))
+
+
+def iter_layers(cache: Params, path: tuple[str, ...] = ()
+                ) -> Iterator[tuple[tuple[str, ...], str, dict]]:
+    """Yield (path, layout, layer_dict) for every recognized layer cache."""
+    if isinstance(cache, (list, tuple)):
+        for i, v in enumerate(cache):
+            yield from iter_layers(v, path + (str(i),))
+        return
+    if not isinstance(cache, dict):
+        return
+    layout = layout_of(cache)
+    if layout is not None:
+        yield path, layout, cache
+        return
+    for k, v in cache.items():
+        yield from iter_layers(v, path + (str(k),))
+
+
+def map_layers(cache: Params, fn, *, layouts: tuple[str, ...] | None = None
+               ) -> Params:
+    """Rebuild the cache tree with ``fn(path, layout, layer)`` applied to
+    every layer dict (matching ``layouts`` when given, all otherwise)."""
+    def rec(tree, path):
+        if isinstance(tree, (list, tuple)):
+            return [rec(v, path + (str(i),)) for i, v in enumerate(tree)]
+        if not isinstance(tree, dict):
+            return tree
+        layout = layout_of(tree)
+        if layout is not None:
+            if layouts is None or layout in layouts:
+                return fn(path, layout, tree)
+            return tree
+        return {k: rec(v, path + (str(k),)) for k, v in tree.items()}
+
+    return rec(cache, ())
+
+
+def pool_leaves(layout: str) -> tuple[str, ...]:
+    return _POOL_LEAVES.get(layout, ())
+
+
+# ---------------------------------------------------------------------------
+# Block tables: install / read / validate
+# ---------------------------------------------------------------------------
+
+def set_block_tables(cache: Params, block_tables) -> Params:
+    """Install one [B, maxp] block table into every paged layer.
+
+    Layers share the mapping (same tokens, same pages-per-row), so every
+    layer holds the same int32 tensor.  The shape is validated against each
+    layer's own table — a mismatched table would silently address the wrong
+    pages otherwise.
+    """
+    bt = torch.as_tensor(block_tables)
+    for path, layout, layer in iter_layers(cache):
+        if layout not in PAGED_LAYOUTS:
+            continue
+        want = tuple(layer["block_tables"].shape)
+        if tuple(bt.shape) != want:
+            raise ValueError(
+                f"block table shape {tuple(bt.shape)} does not match layer "
+                f"{'/'.join(path)} ({layout}): expected [B, maxp] = {want}")
+        bt = bt.to(device=layer["block_tables"].device, dtype=torch.int32)
+
+    def install(path, layout, layer):
+        return dict(layer, block_tables=bt)
+
+    return map_layers(cache, install, layouts=PAGED_LAYOUTS)
+
+
+def get_block_tables(cache: Params) -> torch.Tensor | None:
+    """The [B, maxp] block table shared by the paged layers (None if dense)."""
+    for _, layout, layer in iter_layers(cache):
+        if layout in PAGED_LAYOUTS:
+            return layer["block_tables"]
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Page copy (COW) — device-side page duplication across every paged layer
+# ---------------------------------------------------------------------------
+
+def copy_pages(cache: Params, src, dst) -> Params:
+    """Copy pool pages ``src[i] -> dst[i]`` in every paged layer, in place.
+
+    src/dst: i32[N] page ids (pad unused lanes with -1: those copies drop).
+    """
+    src = torch.as_tensor(src).long()
+    dst = torch.as_tensor(dst).long()
+    if src.shape != dst.shape or src.dim() != 1:
+        raise ValueError(
+            f"copy_pages: src/dst page-id vectors must be matching 1-D "
+            f"arrays: got src {tuple(src.shape)} vs dst {tuple(dst.shape)}")
+    keep = (src >= 0) & (dst >= 0)
+    for _, layout, layer in iter_layers(cache):
+        for name in pool_leaves(layout):
+            pool = layer[name]
+            s, d = src[keep].to(pool.device), dst[keep].to(pool.device)
+            pool[d] = pool[s]            # gather first, then scatter
+    return cache
