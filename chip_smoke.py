@@ -35,17 +35,24 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+from repro_torch.launch import workload  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
-# bf16 outputs: both sides round one float32 result to bf16 (2^-8
-# relative), and the float32 results differ in their last bits.
-KERNEL_ATOL = KERNEL_RTOL = 1e-2
+# Kernel against plain version, bf16 outputs: both round a float32 result
+# to bf16, and the float32 results differ in their last bits, so they may
+# land one bf16 step (2^-8 relative, within 2^-7 of |x|) apart.  The atol
+# covers sum-order differences at outputs near 0; the measured errors at
+# these shapes were 2e-3, 1.2e-4 and 5e-4 (PERF.md).
+KERNEL_ATOL, KERNEL_RTOL = 4e-3, 2 ** -7
 # Logits after 16 bf16 layers: the kernel and plain paths differ by bf16
 # rounding of the attention output, amplified through the residual stream.
 LOGITS_ATOL = 0.25
 
 # OLMo-1B attention shapes on the main path.
-B, H, D, PS, MAX_LEN, CHUNK = 8, 16, 128, 16, 1024, 64
+H, D = 16, 128
+B, PS, MAX_LEN, CHUNK = (workload.ENGINE[k] for k in (
+    "batch", "page_size", "max_len", "chunk_size"))
 
 
 def emit(obj) -> None:
@@ -148,10 +155,16 @@ def kernel_phase():
     if not (ok and bitwise):
         fail(f"paged_chunk_attention disagrees: max_abs_err {err}, pools "
              f"bitwise {bitwise}")
-    keys = int((start + span).sum())                # live keys walked
+    # Bytes the function must move: the cached K/V that rows with a span
+    # attend over (start keys each), the span's K/V read from k/v_new and
+    # written to the pools once, q read and out written at the span's
+    # queries, and those rows' live table entries.
+    run = span > 0
+    old, new = int(start[run].sum()), int(span.sum())
+    pages = int(sum(-(-int(n) // PS) for n in (start + span)[run]))
+    nbytes = (2 * old * H * D * 2 + 2 * 2 * new * H * D * 2
+              + 2 * new * H * D * 2 + pages * 4 + 2 * B * 4)
     qk = int(sum(s * st_ + s * (s + 1) // 2 for s, st_ in zip(span, start)))
-    nbytes = (2 * keys * H * D * 2 + 2 * q.numel() * 2
-              + 2 * int(span.sum()) * H * D * 2 * 2 + bt.numel() * 4)
     flops = 4 * qk * H * D
     bms, by = bound(nbytes, flops)
     rows.append(dict(
@@ -184,10 +197,12 @@ def kernel_phase():
     if not (ok and bitwise):
         fail(f"paged_decode_attention disagrees: max_abs_err {err}, pools "
              f"bitwise {bitwise}")
-    keys = int((pos + 1).sum())
-    nbytes = (2 * keys * H * D * 2 + 2 * q.numel() * 2 + 2 * B * H * D * 2 * 2
-              + bt.numel() * 4)
-    bms, by = bound(nbytes, 4 * keys * H * D)
+    # The pos cached keys, the new token's K/V read and written once, q
+    # and out, and the live table entries.
+    pages = int(sum(-(-int(n) // PS) for n in pos + 1))
+    nbytes = (2 * int(pos.sum()) * H * D * 2 + 2 * 2 * B * H * D * 2
+              + 2 * q.numel() * 2 + pages * 4 + B * 4)
+    bms, by = bound(nbytes, 4 * int((pos + 1).sum()) * H * D)
     rows.append(dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -314,28 +329,64 @@ def _first_step_errors(cfg, params):
     return out
 
 
+def _mid_run_check(cfg, params):
+    """One step of the scheduler's own run, from the first state that
+    holds decode rows and prompt chunks together after pages have grown
+    (its tables point unallocated slots at the trash page): the kernel path
+    and the plain path step from clones of that cache, and their logits
+    must agree as in the first-step check."""
+    from repro_torch.models import lm
+    eng = workload.engine(cfg, params, impl="kernel", device="cuda")
+    inner = eng._mixed
+    seen = {}
+
+    def probe(params_, cache, toks, start, span, gen=None):
+        sp = span.cpu()
+        if (not seen and eng.stats["grown_pages"] > 0
+                and bool((sp == 1).any()) and bool((sp > 1).any())):
+            lk, _ = lm.mixed_step(params_, cfg, toks, _clone(cache), start,
+                                  span, impl="kernel")
+            lr, _ = lm.mixed_step(params_, cfg, toks, _clone(cache), start,
+                                  span, impl="ref")
+            live = span > 0
+            seen.update(_compare_logits(lk[live], lr[live]),
+                        step=eng.stats["steps"], spans=sp.tolist(),
+                        grown_pages=eng.stats["grown_pages"],
+                        trash_entries=int((eng.host_bt
+                                           == eng.trash_page).sum()))
+        return inner(params_, cache, toks, start, span, gen)
+
+    eng._mixed = probe
+    for r in workload.requests(cfg.vocab_size):
+        eng.submit(r)
+    while not seen and eng.step():
+        pass
+    if not seen or seen["trash_entries"] == 0:
+        fail(f"the scheduler's run reached no mixed state to check: {seen}")
+    if not (np.isfinite(seen["max_abs_err"])
+            and seen["max_abs_err"] <= LOGITS_ATOL
+            and seen["clear_rows_agree"]):
+        fail(f"mid-run scheduler step: kernel path against the plain path "
+             f"{seen}")
+    return seen
+
+
 def serving_phase():
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
-    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 
-    cfg = configs.get("olmo-1b")
+    cfg = configs.get(workload.ARCH)
     t0 = time.perf_counter()
     params = lm.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    lens = rng.integers(32, 513, 16)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     results = {}
 
     def serve(impl):
-        eng = ContinuousBatchingEngine(cfg, params, batch=B, max_len=MAX_LEN,
-                                       page_size=PS, chunk_size=CHUNK,
-                                       impl=impl, device="cuda")
-        reqs = [Request(i, list(p), 32) for i, p in enumerate(prompts)]
+        eng = workload.engine(cfg, params, impl=impl, device="cuda")
+        reqs = workload.requests(cfg.vocab_size)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -350,10 +401,12 @@ def serving_phase():
     peak = torch.cuda.max_memory_allocated()
     if counts["paged_chunk_attention"] <= 0:
         fail("the scheduler never launched paged_chunk_attention")
-    if eng.stats["completed"] != 16 or any(
-            len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
-                                           for t in r.tokens) for r in reqs):
-        fail(f"scheduler did not answer all 16 requests: {eng.stats}")
+    n = workload.N_REQUESTS
+    if eng.stats["completed"] != n or any(
+            len(r.tokens) != workload.NEW_TOKENS
+            or not all(0 <= t < cfg.vocab_size for t in r.tokens)
+            for r in reqs):
+        fail(f"scheduler did not answer all {n} requests: {eng.stats}")
     _, reqs_ref, wall_ref, _ = serve("ref")
     results["scheduler"] = dict(
         requests=len(reqs), completed=eng.stats["completed"],
@@ -368,7 +421,9 @@ def serving_phase():
         greedy_agree_share=_agree_share([r.tokens for r in reqs],
                                         [r.tokens for r in reqs_ref]))
 
-    prompt = rng.integers(0, cfg.vocab_size, (B, 128))
+    results["scheduler_mid_run_step"] = _mid_run_check(cfg, params)
+
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, 128))
     for paged in (False, True):
         name = "engine_paged" if paged else "engine_dense"
         kernel = "paged_decode_attention" if paged else "decode_attention"

@@ -14,11 +14,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
-    """A numpy array as a tensor with the same bits (bf16 included)."""
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A numpy array as a tensor with the same bits (bf16 included), on
+    ``device`` (the card unless the caller passes ``"cpu"``)."""
+    device = resolve_device(device)
     a = np.array(a, order="C")            # a writable copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
@@ -55,8 +58,10 @@ def _unstack(groups: dict, tail: dict | None, cfg: ModelConfig,
     return layers
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
-    """A JAX ``lm.init`` tree (numpy leaves) -> the port's parameters."""
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """A JAX ``lm.init`` tree (numpy leaves) -> the port's parameters, on
+    the card unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     if "encoder" in tree:
         raise NotImplementedError(
             "encoder-decoder parameters are not ported yet: ROADMAP.md "
@@ -70,7 +75,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
     return p
 
 
-def cache_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
-    """A JAX ``lm.init_cache`` tree (numpy leaves) -> {"layers": [...]}."""
+def cache_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """A JAX ``lm.init_cache`` tree (numpy leaves) -> {"layers": [...]}, on
+    the card unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     return {"layers": _unstack(tree["groups"], tree.get("tail"), cfg,
                                device)}

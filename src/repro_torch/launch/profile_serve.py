@@ -1,9 +1,7 @@
 """Where the time of full-width paged serving goes, on one CUDA card.
 
-Runs the serving workload of ``chip_smoke.py`` — ``olmo-1b`` with seeded
-random bf16 weights, ``ContinuousBatchingEngine(batch=8, max_len=1024,
-page_size=16, chunk_size=64)``, 16 requests with prompts of 32–512 tokens
-and 32 new tokens each — once to warm up, then once under
+Runs the serving workload of ``launch/workload.py`` (the one
+``chip_smoke.py`` checks) once to warm up, once unprofiled, then once under
 ``torch.profiler``, and prints one JSON object: wall time with and without
 the profiler, device-busy time (kernel time summed over the profiled run)
 and its share of the unprofiled wall time, and device time by kernel.
@@ -16,22 +14,15 @@ import argparse
 import json
 import time
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs, resolve_device
 from repro_torch.kernels import build
+from repro_torch.launch import workload
 from repro_torch.models import lm
-from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
-
-
-def _requests(vocab: int, seed: int, n: int = 16) -> list[Request]:
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(32, 513, n)
-    return [Request(i, rng.integers(0, vocab, int(k)).tolist(), 32)
-            for i, k in enumerate(lens)]
+from repro_torch.serving.scheduler import ContinuousBatchingEngine
 
 
 def main() -> None:
@@ -42,16 +33,14 @@ def main() -> None:
 
     dev = resolve_device("cuda")
     build.build()
-    cfg = configs.get("olmo-1b")
+    cfg = configs.get(workload.ARCH)
     params = lm.init(cfg, seed=args.seed, device=dev)
 
     def run() -> tuple[ContinuousBatchingEngine, float]:
-        eng = ContinuousBatchingEngine(cfg, params, batch=8, max_len=1024,
-                                       page_size=16, chunk_size=64,
-                                       device=dev)
+        eng = workload.engine(cfg, params, device=dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        eng.run(_requests(cfg.vocab_size, args.seed))
+        eng.run(workload.requests(cfg.vocab_size, args.seed))
         torch.cuda.synchronize()
         return eng, time.perf_counter() - t
 

@@ -24,8 +24,8 @@ trash page in one step; its contents are unspecified.
 
 Dense mode (``paged=False``) runs the same composer against the
 [B, Hkv, S, D] cache.  Prefix sharing, speculative decoding, quantized
-pools, the swap tier, journaling, bounded queues, deadlines, replicated
-allocators and disaggregation roles are not ported yet: their options raise
+pools, the swap tier, journaling, bounded queues, deadlines and
+disaggregation roles are not ported yet: their options raise
 NotImplementedError naming the ROADMAP.md item.
 """
 from __future__ import annotations
@@ -42,7 +42,6 @@ from repro_torch import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import engine as engine_mod
-from repro_torch.serving.engine import PROMPT_BUCKETS, bucket_len  # noqa: F401
 
 Params = Any
 
@@ -77,24 +76,20 @@ class Reservation:
             self._pages = []
 
 
-def _row_ctx(row: Optional[int]) -> str:
-    return "" if row is None else f" (row {row})"
-
-
 class PageAllocator:
-    """Host-side refcounted page pool (unit = one page).
+    """Host-side page pool (unit = one page).
 
-    Pages are handed out at refcount 1; ``share`` adds a reference, ``free``
-    drops one and returns the page to the free list at zero.  ``reserve``
-    removes pages from the free list immediately, so a two-phase admit
-    cannot admit two requests against the same availability snapshot.
+    ``alloc`` hands pages out, ``free`` returns them (a second free of a
+    page raises).  ``reserve`` removes pages from the free list immediately,
+    so a two-phase admit cannot admit two requests against the same
+    availability snapshot.  Reference counts for shared prefix pages come
+    with prefix sharing (ROADMAP.md queue 1 item 7).
     """
 
     def __init__(self, num_pages: int):
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, -1, -1))
-        self._ref = np.zeros(num_pages, np.int32)
-        self._gen = np.zeros(num_pages, np.int64)
+        self._used = np.zeros(num_pages, bool)
 
     @property
     def available(self) -> int:
@@ -106,9 +101,7 @@ class PageAllocator:
         if n > len(self._free):
             return None
         pages, self._free = self._free[-n:][::-1], self._free[:-n]
-        for p in pages:
-            self._ref[p] = 1
-            self._gen[p] += 1
+        self._used[pages] = True
         return pages
 
     def reserve(self, n: int) -> Optional[Reservation]:
@@ -117,29 +110,13 @@ class PageAllocator:
             return None
         return Reservation(self, pages)
 
-    def share(self, pages: list[int], row: Optional[int] = None) -> None:
-        for p in pages:
-            if self._ref[p] <= 0:
-                raise ValueError(
-                    f"cannot share unallocated page {p}{_row_ctx(row)} "
-                    f"(refcount {int(self._ref[p])})")
-            self._ref[p] += 1
-
-    def refcount(self, page: int) -> int:
-        return int(self._ref[page])
-
-    def generation(self, page: int) -> int:
-        return int(self._gen[page])
-
     def free(self, pages: list[int], row: Optional[int] = None) -> None:
         for p in reversed(pages):
-            if self._ref[p] <= 0:
-                raise ValueError(
-                    f"double free of page {p}{_row_ctx(row)} "
-                    f"(refcount {int(self._ref[p])})")
-            self._ref[p] -= 1
-            if self._ref[p] == 0:
-                self._free.append(p)
+            if not self._used[p]:
+                where = "" if row is None else f" (row {row})"
+                raise ValueError(f"double free of page {p}{where}")
+            self._used[p] = False
+            self._free.append(p)
 
 
 @dataclass
@@ -182,8 +159,6 @@ class ContinuousBatchingEngine:
                  prefix_sharing: bool = False, chunk_size: int = 32,
                  token_budget: Optional[int] = None,
                  prefill_interleave: bool = True,
-                 allocator: Optional[Any] = None,
-                 prefix_cache: Optional[Any] = None,
                  max_queue: Optional[int] = None,
                  journal: Optional[Any] = None,
                  spec_decode: str = "off", kv_quant: str = "off",
@@ -198,9 +173,8 @@ class ContinuousBatchingEngine:
         if kv_quant != "off" or swap_tier_pages:
             raise _later("kv_quant / swap_tier_pages",
                          "item 9 (quantized pools and the swap tier)")
-        if (journal is not None or allocator is not None
-                or prefix_cache is not None or role != "mixed"):
-            raise _later("journal / allocator / prefix_cache / role",
+        if journal is not None or role != "mixed":
+            raise _later("journal / role",
                          "item 12 (replicated and disaggregated serving)")
         self.device = resolve_device(device)
         if params["embed"]["w"].device != self.device:

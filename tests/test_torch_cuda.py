@@ -7,9 +7,9 @@ CUDA card is present (decided at run time, never at import).  On the card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 outputs within 1e-5 (the kernel sums in another order
-than the plain matmul); bfloat16 outputs within 1e-2 + 1e-2·|x| (both
-round one float32 result to bf16, 2^-8 relative, and the float32 results
-differ in their last bits).  Pools must match bitwise.
+than the plain matmul); bfloat16 outputs within 4e-3 + 2^-7·|x| (both
+round one float32 result to bf16, and float32 results that differ in their
+last bits may land one bf16 step apart).  Pools must match bitwise.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ def card():
 
 def _tol(dtype):
     return (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
-            else dict(rtol=1e-2, atol=1e-2))
+            else dict(rtol=2 ** -7, atol=4e-3))
 
 
 def _t(a, dtype, dev):

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -42,7 +43,7 @@ def test_port_imports_neither_jax_nor_repro():
 def test_entry_points_without_a_device_raise_when_no_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is the card")
-    from repro_torch import configs
+    from repro_torch import configs, convert
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
     cfg = configs.reduced(configs.get("olmo-1b"), d_model=32, vocab=64)
@@ -53,6 +54,14 @@ def test_entry_points_without_a_device_raise_when_no_card():
     params = lm.init(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, params, batch=1, max_len=16)
+    tree = {"embed": {"table": np.zeros((4, 2), np.float32)},
+            "final_norm": {}, "groups": {}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_jax(tree, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.cache_from_jax({"groups": {}}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.to_tensor(np.zeros(2, np.float32))
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

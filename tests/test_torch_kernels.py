@@ -33,7 +33,7 @@ def _both(a, name):
     """One numpy array as (jax array, torch tensor) of dtype ``name``."""
     jdt, _ = DTYPES[name]
     j = jnp.asarray(a, jdt)
-    return j, convert.to_tensor(np.asarray(j))
+    return j, convert.to_tensor(np.asarray(j), device="cpu")
 
 
 def _np(x):

@@ -62,7 +62,8 @@ def models():
     out = {}
     for name, (jdt, _) in DTYPES.items():
         jpd = jax.tree.map(lambda x: x.astype(jdt), jp)
-        tp = convert.params_from_jax(jax.tree.map(np.asarray, jpd), tcfg)
+        tp = convert.params_from_jax(jax.tree.map(np.asarray, jpd), tcfg,
+                                     device="cpu")
         out[name] = (jcfg, jpd, tcfg, tp)
     return out
 
@@ -79,7 +80,8 @@ def _logits_close(want, got, dtype):
 
 
 def _caches_close(jcache, tcache, tcfg, dtype):
-    want = convert.cache_from_jax(jax.tree.map(np.asarray, jcache), tcfg)
+    want = convert.cache_from_jax(jax.tree.map(np.asarray, jcache), tcfg,
+                                  device="cpu")
     for lw, lt in zip(want["layers"], tcache["layers"]):
         assert lw.keys() == lt.keys()
         for name in lw:

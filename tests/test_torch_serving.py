@@ -40,7 +40,7 @@ def _models(dtype):
     jp = jax.tree.map(lambda x: x.astype(dtype),
                       jlm.init(jax.random.PRNGKey(0), jcfg))
     return jcfg, jp, tcfg, convert.params_from_jax(
-        jax.tree.map(np.asarray, jp), tcfg)
+        jax.tree.map(np.asarray, jp), tcfg, device="cpu")
 
 
 @pytest.fixture(scope="module")
