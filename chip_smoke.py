@@ -3,18 +3,28 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the three attention kernels from ``src/repro_torch/kernels/csrc``
+1. builds the five attention kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, started together);
 2. holds each kernel against its plain PyTorch version on the card at
    OLMo-1B's shapes (bf16, 16 heads of 128, page size 16, batch 8, contexts
-   up to 1024, chunk 64, ragged rows, -1 and trash-page table entries) and
-   times kernel, plain version, and the PyTorch library call where one
-   computes the same function;
+   up to 1024, chunk 64, ragged rows, -1 and trash-page table entries; the
+   two quantized-pool kernels for int8 and fp8 pools) and times kernel,
+   plain version, and the PyTorch library call where one computes the same
+   function;
 3. serves ``olmo-1b`` at full width with seeded random bf16 weights:
-   ``ContinuousBatchingEngine`` answers 16 requests, ``Engine.generate``
-   decodes on a dense and on a paged cache; each path runs once through the
-   kernels (launch counts must be > 0) and once through the plain versions,
-   and the two must agree.
+   ``ContinuousBatchingEngine`` answers 16 requests (bf16 pools, then int8
+   pools), ``Engine.generate`` decodes on a dense and on a paged cache;
+   each path runs once through the kernels (launch counts must be > 0) and
+   once through the plain versions, and the two must agree;
+4. runs the CodeCRDT agent trial (``agents/orchestrator.run_task``) on
+   ``olmo-1b`` at full width, 4 agents on ``dashboard``: (a) parallel,
+   paged, chunked, int8 pools, allgather merge; (b) as (a) with the delta
+   merge; (c) as (a), sequential; (d) parallel on the dense cache with
+   token-by-token replay.  Every run must converge; (a) and (b) must give
+   the same document and (b) ship fewer bytes; from one mid-trial state of
+   (a), captured in a fifth, untimed run, a mixed step runs through the
+   kernels and through the plain versions, layer by layer from the same
+   inputs (pools bitwise but for the trash page) and end to end (logits).
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -53,6 +63,12 @@ LOGITS_ATOL = 0.25
 H, D = 16, 128
 B, PS, MAX_LEN, CHUNK = (workload.ENGINE[k] for k in (
     "batch", "page_size", "max_len", "chunk_size"))
+
+# The agent trial at full width (phase 4).
+TRIAL = dict(n_agents=4, kv="paged", prefill="chunked", page_size=16,
+             chunk_size=32, max_len=1024, kv_quant="int8")
+TRIAL_TASK = "dashboard"
+STEP_VALVE = 20_000
 
 
 def emit(obj) -> None:
@@ -121,8 +137,112 @@ def _paged_case(rng, lens):
 
 def _pools_equal(a, b, trash) -> bool:
     """Bitwise, every page but the trash page (its contents are
-    unspecified when several rows write it)."""
+    unspecified when several rows write it); int8 / fp8 pools compare
+    their bytes."""
+    if a.element_size() == 1:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
     return torch.equal(a[:trash], b[:trash])
+
+
+def _quant_case(rng, lens, qdtype):
+    """[k_pages, k_scales, v_pages, v_scales] (the wrappers' order): pools
+    holding quantized random rows and their f32 scales, and tables as
+    ``_paged_case``'s."""
+    from repro_torch.kernels import ref
+    kp, vp, bt, trash = _paged_case(rng, lens)
+    kq, ks = ref.quantize_rows(kp, qdtype)
+    vq, vs = ref.quantize_rows(vp, qdtype)
+    return [kq, ks, vq, vs], bt, trash
+
+
+def quant_kernel_rows(rng):
+    """The two quantized-pool kernels against their plain versions, int8
+    and fp8, at the shapes of the float kernels' checks.  The row reports
+    the int8 pools (the trial's); fp8 adds its own error and times."""
+    from repro_torch.kernels import ops
+    scale = D ** -0.5
+    rows = []
+    start = np.array([0, 100, 300, 447, 700, 900, 959, 64])
+    span = np.array([64, 64, 1, 1, 0, 30, 64, 17])
+    pos = np.array([1023, 17, 300, 511, 640, 5, 999, 128])
+    specs = {
+        "paged_chunk_attention_quant": dict(
+            lens=start + span, qshape=(B, H, CHUNK, D), kvshape=(B, H, CHUNK, D),
+            idx=(torch.as_tensor(start, dtype=torch.int32, device="cuda"),
+                 torch.as_tensor(span, dtype=torch.int32, device="cuda")),
+            op=ops.paged_chunk_attention_quant,
+            source="src/repro_torch/kernels/csrc/paged_chunk_attention_quant.cu",
+            replaces="src/repro/kernels/paged_chunk_attention.py:389"),
+        "paged_decode_attention_quant": dict(
+            lens=pos + 1, qshape=(B, H, D), kvshape=(B, H, D),
+            idx=(torch.as_tensor(pos, dtype=torch.int32, device="cuda"),),
+            op=ops.paged_decode_attention_quant,
+            source="src/repro_torch/kernels/csrc/paged_decode_attention_quant.cu",
+            replaces="src/repro/kernels/paged_decode_attention.py:355"),
+    }
+    for name, sp in specs.items():
+        row = dict(name=name, route="cuda", source=sp["source"],
+                   replaces=sp["replaces"], library_ms=None)
+        q = torch.randn(sp["qshape"], device="cuda").bfloat16()
+        kn = torch.randn(sp["kvshape"], device="cuda").bfloat16()
+        vn = torch.randn(sp["kvshape"], device="cuda").bfloat16()
+        for qname, qdtype in (("int8", torch.int8),
+                              ("fp8", torch.float8_e4m3fn)):
+            pools, bt, trash = _quant_case(rng, sp["lens"], qdtype)
+            twin = [t.clone() for t in pools]
+            o1 = sp["op"](q, *pools, bt, *sp["idx"], kn, vn,
+                          scale=scale)[0]
+            o2 = sp["op"](q, *twin, bt, *sp["idx"], kn, vn,
+                          scale=scale, impl="ref")[0]
+            if len(sp["idx"]) == 2:         # chunk: defined at j < span
+                live = (torch.arange(CHUNK, device="cuda")[None, :]
+                        < sp["idx"][1][:, None])[:, None, :, None]
+                o1, o2 = torch.where(live, o1, 0), torch.where(live, o2, 0)
+            err, ok = close(o1, o2)
+            bitwise = all(_pools_equal(a, b, trash)
+                          for a, b in zip(pools, twin))
+            if not (ok and bitwise):
+                fail(f"{name} ({qname}) disagrees: max_abs_err {err}, pools "
+                     f"and scales bitwise {bitwise}")
+            # Timed through the wrapper, as the model calls it.
+            ms = cuda_ms(lambda: sp["op"](q, *pools, bt, *sp["idx"], kn, vn,
+                                          scale=scale))
+            plain_ms = cuda_ms(lambda: sp["op"](q, *twin, bt, *sp["idx"],
+                                                kn, vn, scale=scale,
+                                                impl="ref"))
+            if qname == "int8":
+                row.update(shapes=f"q{list(sp['qshape'])} bf16, int8 pools "
+                                  f"[{trash + 1},{H},{PS},{D}] + f32 scales",
+                           max_abs_err=err, pools_bitwise=bitwise, ms=ms,
+                           plain_ms=plain_ms)
+            else:
+                row.update(fp8_max_abs_err=err, fp8_pools_bitwise=bitwise,
+                           fp8_ms=ms, fp8_plain_ms=plain_ms)
+        # Bytes the function must move, one byte per pool value plus 4 B of
+        # scale per pool row: the cached K/V rows of rows that attend, the
+        # new rows read at their dtype (bf16) and written quantized once, q
+        # read and out written at the defined queries, and the live table
+        # entries.
+        if len(sp["idx"]) == 2:
+            run = span > 0
+            old, new = int(start[run].sum()), int(span.sum())
+            pages = int(sum(-(-int(n) // PS) for n in (start + span)[run]))
+            qk = int(sum(s_ * st_ + s_ * (s_ + 1) // 2
+                         for s_, st_ in zip(span, start)))
+            nidx = 2 * B * 4
+        else:
+            old, new = int(pos.sum()), B
+            pages = int(sum(-(-int(n) // PS) for n in pos + 1))
+            qk = int((pos + 1).sum())
+            nidx = B * 4
+        row_bytes = D * 1 + 4
+        nbytes = (2 * old * H * row_bytes
+                  + 2 * new * H * D * kn.element_size()
+                  + 2 * new * H * row_bytes + 2 * new * H * D * 2
+                  + pages * 4 + nidx)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * qk * H * D)
+        rows.append(row)
+    return rows
 
 
 def kernel_phase():
@@ -250,6 +370,7 @@ def kernel_phase():
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: lib(q[:, :, None], k, v, attn_mask=mask,
                                        scale=scale))))
+    rows += quant_kernel_rows(rng)
     return rows
 
 
@@ -293,9 +414,9 @@ def _first_step_errors(cfg, params):
     out = {}
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 128)),
                              device="cuda")
-    for paged in (False, True):
+    for paged, quant in ((False, "off"), (True, "off"), (True, "int8")):
         cache = lm.init_cache(cfg, B, MAX_LEN, paged=paged, page_size=PS,
-                              device="cuda")
+                              kv_quant=quant, device="cuda")
         if paged:
             cache = lm.set_block_tables(cache, attention.default_block_tables(
                 B, MAX_LEN, PS, "cuda"))
@@ -305,7 +426,9 @@ def _first_step_errors(cfg, params):
         twin = _clone(cache)
         lk, _ = lm.decode_step(params, cfg, tok, cache, pos, impl="kernel")
         lr, _ = lm.decode_step(params, cfg, tok, twin, pos, impl="ref")
-        name = "paged_decode_attention" if paged else "decode_attention"
+        sfx = "_quant" if quant != "off" else ""
+        name = ("paged_decode_attention" if paged
+                else "decode_attention") + sfx
         out[name] = _compare_logits(lk, lr)
         if paged:
             twin = _clone(cache)
@@ -318,8 +441,8 @@ def _first_step_errors(cfg, params):
             lr, _ = lm.mixed_step(params, cfg, toks, twin, pos + 1, span,
                                   impl="ref")
             live = span > 0
-            out["paged_chunk_attention"] = _compare_logits(lk[live],
-                                                           lr[live])
+            out["paged_chunk_attention" + sfx] = _compare_logits(lk[live],
+                                                                 lr[live])
     for name, c in out.items():
         if not (np.isfinite(c["max_abs_err"])
                 and c["max_abs_err"] <= LOGITS_ATOL
@@ -384,8 +507,8 @@ def serving_phase():
     init_s = time.perf_counter() - t0
     results = {}
 
-    def serve(impl):
-        eng = workload.engine(cfg, params, impl=impl, device="cuda")
+    def serve(impl, **kw):
+        eng = workload.engine(cfg, params, impl=impl, device="cuda", **kw)
         reqs = workload.requests(cfg.vocab_size)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -423,6 +546,19 @@ def serving_phase():
 
     results["scheduler_mid_run_step"] = _mid_run_check(cfg, params)
 
+    # The same workload over int8 page pools (paged_chunk_attention_quant).
+    eng, reqs, wall, counts = serve("kernel", kv_quant="int8")
+    if counts["paged_chunk_attention_quant"] <= 0:
+        fail("the int8 scheduler never launched paged_chunk_attention_quant")
+    if eng.stats["completed"] != n or any(
+            len(r.tokens) != workload.NEW_TOKENS for r in reqs):
+        fail(f"int8 scheduler did not answer all {n} requests: {eng.stats}")
+    results["scheduler_int8"] = dict(
+        completed=eng.stats["completed"], steps=eng.stats["steps"],
+        gen_tokens=eng.stats["gen_tokens"], wall_s=wall,
+        tokens_per_s=eng.stats["gen_tokens"] / wall,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=counts)
+
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, 128))
     for paged in (False, True):
         name = "engine_paged" if paged else "engine_dense"
@@ -452,7 +588,171 @@ def serving_phase():
                                             streams["ref"]))
     results["first_step_logits"] = _first_step_errors(cfg, params)
     results["init_s"] = init_s
-    return results
+    return cfg, params, results
+
+
+# ---------------------------------------------------------------------------
+# The agent trial at full width
+# ---------------------------------------------------------------------------
+
+def _mid_trial_check(cfg, params, snap) -> dict:
+    """One mixed step from a captured mid-trial state, through the kernels
+    and through the plain versions.  Layer by layer from the same inputs
+    (the kernel path's hidden state): each layer's pools and scales must
+    match bitwise but for the trash page.  End to end (each path its own):
+    the logits as ``_compare_logits``."""
+    from repro_torch.models import blocks, cache as cache_mod, lm
+    from repro_torch.models.blocks import BlockCtx
+    toks, start, span, cache, trash = (snap[k] for k in (
+        "toks", "start", "span", "cache", "trash"))
+    live_rows = span > 0
+    lk, _ = lm.mixed_step(params, cfg, toks, _clone(cache), start, span,
+                          impl="kernel")
+    lr, _ = lm.mixed_step(params, cfg, toks, _clone(cache), start, span,
+                          impl="ref")
+    out = _compare_logits(lk[live_rows], lr[live_rows])
+    c = toks.shape[1]
+    x = lm._embed(params, cfg, toks)
+    positions = start[:, None] + torch.arange(c, dtype=start.dtype,
+                                              device="cuda")[None, :]
+    ctx = BlockCtx(positions=positions, mask_full=None, mode="mixed",
+                   pos=start, impl="kernel", lengths=span)
+    live = (torch.arange(c, device="cuda")[None, :] < span[:, None])
+    bitwise, block_err = True, 0.0
+    for kind, lp, lc in zip(cache_mod.layer_kinds(cfg), params["layers"],
+                            cache["layers"]):
+        ak = {k: t.clone() for k, t in lc.items()}
+        ar = {k: t.clone() for k, t in lc.items()}
+        xk, ak = blocks.block_apply(kind, lp, cfg, x, ctx, ak)
+        xr, ar = blocks.block_apply(kind, lp, cfg, x, ctx._replace(impl="ref"),
+                                    ar)
+        for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+            bitwise &= _pools_equal(ak[name], ar[name], trash)
+        block_err = max(block_err, float(
+            (xk.float() - xr.float()).abs()[live].max()))
+        x = xk
+    out.update(pools_bitwise_per_layer=bitwise, max_block_err=block_err,
+               spans=span.tolist(), shared_prefix_pages=snap["shared"],
+               trash_entries=snap["trash_entries"])
+    if not (bitwise and np.isfinite(out["max_abs_err"])
+            and out["max_abs_err"] <= LOGITS_ATOL
+            and out["clear_rows_agree"]):
+        fail(f"mid-trial mixed step: kernel path against the plain path "
+             f"{out}")
+    return out
+
+
+class _Captured(Exception):
+    """Ends the capture run once its mid-trial state is held."""
+
+
+def _capture_mid_trial(cfg, params, task) -> dict:
+    """Run (a)'s configuration until the first mixed step whose state has
+    shared prefix pages, trash-page table slots, and decode rows beside a
+    prompt chunk; return a copy of that state.  A run of its own, so the
+    timed runs pay nothing for the capture."""
+    from repro_torch.agents import orchestrator
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import scheduler as sched_mod
+    mappers, snap = [], {}
+    base_mapper = sched_mod.PrefixPageMapper
+    base_mixed = engine_mod.make_mixed_step_fn
+
+    class Mapper(base_mapper):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            mappers.append(self)
+
+    def capturing(cfg_, **kw):
+        inner = base_mixed(cfg_, **kw)
+
+        def step(params_, cache, toks, start, span, gen=None):
+            m = mappers[-1]
+            if m.shared_pages > 0 and (m.host_bt == m.trash_page).any():
+                sp = span.cpu().numpy()
+                if (sp > 1).any() and (sp == 1).any():
+                    snap.update(toks=toks.clone(), start=start.clone(),
+                                span=span.clone(), cache=_clone(cache),
+                                trash=m.trash_page, shared=m.shared_pages,
+                                trash_entries=int((m.host_bt
+                                                   == m.trash_page).sum()))
+                    raise _Captured
+            return inner(params_, cache, toks, start, span, gen)
+        return step
+
+    sched_mod.PrefixPageMapper = Mapper
+    engine_mod.make_mixed_step_fn = capturing
+    try:
+        orchestrator.run_task(cfg, params, task, device="cuda",
+                              **{**TRIAL, "mode": "parallel",
+                                 "merge": "allgather"})
+    except _Captured:
+        pass
+    finally:
+        sched_mod.PrefixPageMapper = base_mapper
+        engine_mod.make_mixed_step_fn = base_mixed
+    if not snap:
+        fail("trial (a) reached no mid-trial state to check")
+    return snap
+
+
+def trial_phase(cfg, params) -> tuple[dict, dict]:
+    """The four full-width trial runs, then the mid-trial check from a
+    state captured in a run of its own; returns (results, launch counts of
+    run (a), the quantized kernels' main path)."""
+    from repro_torch.agents import orchestrator
+    from repro_torch.agents.tasks import TASKS
+    from repro_torch.kernels import ops
+    task = TASKS[TRIAL_TASK]
+    runs = {"a": dict(mode="parallel", merge="allgather"),
+            "b": dict(mode="parallel", merge="delta"),
+            "c": dict(mode="sequential", merge="allgather"),
+            "d": dict(mode="parallel", merge="allgather", kv="dense",
+                      prefill="replay", kv_quant="off")}
+    results = {}
+    for name, kw in runs.items():
+        kw = {**TRIAL, **kw}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = orchestrator.run_task(cfg, params, task, device="cuda", **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        res = dict(run=name, task=task.name, mode=r.mode, n_agents=r.n_agents,
+                   kv=r.kv_mode, prefill=r.prefill_mode,
+                   kv_quant=kw["kv_quant"], merge=r.merge_strategy,
+                   wall_s=r.wall_s, steps=r.steps, gen_tokens=r.gen_tokens,
+                   replay_tokens=r.replay_tokens,
+                   tokens_per_s=r.tokens_per_s,
+                   invalidations=r.invalidations,
+                   claim_collisions=r.claim_collisions,
+                   sync_rounds=r.sync_rounds, sync_bytes=r.sync_bytes,
+                   shared_prefix_pages=r.shared_prefix_pages,
+                   semantic_conflicts=r.semantic_conflicts,
+                   declared_symbols=r.declared_symbols,
+                   converged=r.converged, digest=r.digest,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches=counts)
+        emit({"trial": res})
+        if not (r.converged and r.steps <= STEP_VALVE
+                and r.gen_tokens >= task.n_todos):
+            fail(f"trial ({name}) did not finish: {res}")
+        results[name] = res
+    a, b = results["a"], results["b"]
+    if a["digest"] != b["digest"] or a["gen_tokens"] != b["gen_tokens"]:
+        fail(f"trial (a) and (b) differ: digests {a['digest']} / "
+             f"{b['digest']}, tokens {a['gen_tokens']} / {b['gen_tokens']}")
+    if not b["sync_bytes"] < a["sync_bytes"]:
+        fail(f"delta merge shipped {b['sync_bytes']} bytes, allgather "
+             f"{a['sync_bytes']}")
+    for k in ("paged_chunk_attention_quant", "paged_decode_attention_quant"):
+        if a["launches"][k] <= 0:
+            fail(f"trial (a) never launched {k}")
+    if results["d"]["launches"]["decode_attention"] <= 0:
+        fail("trial (d) never launched decode_attention")
+    snap = _capture_mid_trial(cfg, params, task)
+    results["mid_trial_step"] = _mid_trial_check(cfg, params, snap)
+    return results, a["launches"]
 
 
 def main() -> int:
@@ -477,18 +777,27 @@ def main() -> int:
     emit({"kernel_check": [{k: row[k] for k in ("name", "max_abs_err",
                                                  "ms", "plain_ms")}
                            for row in kernels]})
-    serving = serving_phase()
+    cfg, params, serving = serving_phase()
+    emit({"serving": serving, "card": card})
+    trial, trial_counts = trial_phase(cfg, params)
+    emit({"trial_mid_step": trial["mid_trial_step"], "card": card})
+    # Launches: the float kernels on the serving workload, the quantized
+    # kernels on trial (a), each path's counts read right after its run.
     launches = {"paged_chunk_attention":
                 serving["scheduler"]["launches"]["paged_chunk_attention"],
                 "paged_decode_attention":
                 serving["engine_paged"]["launches"]["paged_decode_attention"],
                 "decode_attention":
-                serving["engine_dense"]["launches"]["decode_attention"]}
+                serving["engine_dense"]["launches"]["decode_attention"],
+                "paged_chunk_attention_quant":
+                trial_counts["paged_chunk_attention_quant"],
+                "paged_decode_attention_quant":
+                trial_counts["paged_decode_attention_quant"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["kernel_ms"] = row["ms"]
         emit({"kernel": row["name"], **row})
-    emit({"serving": serving, "card": card})
+    emit({"card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

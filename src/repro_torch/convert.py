@@ -2,7 +2,9 @@
 
 Input trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the
 JAX side; this module imports no JAX).  bfloat16 leaves (ml_dtypes) move
-through a 16-bit integer view, so every bit arrives as it left.  The JAX
+through a 16-bit integer view and float8_e4m3fn leaves (quantized page
+pools) through a uint8 view, so every bit arrives as it left; int8 pools
+and their f32 scales move as they are.  The JAX
 trees stack the layers of each block-pattern slot on a leading [G] axis
 (``jax.vmap`` in ``lm.init``, the scan in ``lm.init_cache``); the port keeps
 one dict per layer in execution order, so groups are unstacked here.
@@ -23,16 +25,18 @@ def to_tensor(a, device=None) -> torch.Tensor:
     ``device`` (the card unless the caller passes ``"cpu"``)."""
     device = resolve_device(device)
     a = np.array(a, order="C")            # a writable copy
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
-            device)
+    views = {"bfloat16": (np.int16, torch.bfloat16),
+             "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+    if a.dtype.name in views:
+        np_view, dtype = views[a.dtype.name]
+        return torch.from_numpy(a.view(np_view)).view(dtype).to(device)
     return torch.from_numpy(a).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as numpy; bf16 comes back as float32 (exact)."""
+    """A tensor as numpy; bf16 and fp8 come back as float32 (exact)."""
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
         t = t.float()
     return t.numpy()
 

@@ -26,7 +26,8 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("decode_attention", "paged_decode_attention",
-           "paged_chunk_attention")
+           "paged_chunk_attention", "paged_decode_attention_quant",
+           "paged_chunk_attention_quant")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,6 +101,7 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
 # -- binding helpers shared by the kernel wrappers ---------------------------
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+QUANT_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -131,6 +133,14 @@ def check_dims(kernel: str, dtype: torch.dtype, head_dim: int) -> int:
         raise ValueError(f"{kernel}: head_dim {head_dim} is not supported "
                          f"{HEAD_DIMS}")
     return DTYPE_CODES[dtype]
+
+
+def check_quant(kernel: str, dtype: torch.dtype) -> int:
+    """The kernel's code for a quantized pool dtype; raises on others."""
+    if dtype not in QUANT_CODES:
+        raise ValueError(f"{kernel}: pool dtype {dtype} is not supported "
+                         f"(int8, float8_e4m3fn)")
+    return QUANT_CODES[dtype]
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

@@ -4,7 +4,9 @@
 // query rows (a GQA group times a query tile), tile by tile:
 //   1. gather KT keys and values token by token through an addressing
 //      functor (a block table for the paged pools, a stride for the dense
-//      cache) into shared memory as float, 16 bytes a thread per load;
+//      cache) into shared memory as float, 16 bytes a thread per load
+//      (attend_kv takes the loader as a parameter: the quantized pools'
+//      loader multiplies each int8/fp8 row by its f32 scale there);
 //   2. score every (query row, key) pair in float32, masking keys past the
 //      query's position and outside the window;
 //   3. online softmax, one warp per query row (running max, sum, rescale);
@@ -56,11 +58,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 struct PagedKeys {
   const int* bt_row;
   int hkv, h, ps, d;
-  __device__ __forceinline__ size_t off(int t) const {
+  // Pool row of key t: its index in a [P, Hkv, ps] scale pool.
+  __device__ __forceinline__ size_t row(int t) const {
     int page = bt_row[t / ps];
     if (page < 0) page = 0;
-    return ((static_cast<size_t>(page) * hkv + h) * ps + (t % ps)) * d;
+    return (static_cast<size_t>(page) * hkv + h) * ps + (t % ps);
   }
+  __device__ __forceinline__ size_t off(int t) const { return row(t) * d; }
 };
 
 // Element offset of key t in a dense cache [B, Hkv, S, D] for one (b, h).
@@ -82,16 +86,42 @@ struct RowSet {
   int on[QR];
 };
 
-template <typename T, int D, class Keys>
-__device__ __forceinline__ void attend(const T* __restrict__ q,
-                                       T* __restrict__ out,
-                                       const T* __restrict__ kpool,
-                                       const T* __restrict__ vpool,
-                                       const Keys keys, const RowSet& rows,
-                                       const int nrows, const int key_cap,
-                                       const float scale, const int window) {
+// Key/value loader of a float (f32 or bf16) pool or cache: one 16-byte
+// load of K and of V per (key, chunk), converted to float.
+template <typename T, class Keys>
+struct RawKV {
+  static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  const T* __restrict__ kpool;
+  const T* __restrict__ vpool;
+  Keys keys;
+  __device__ __forceinline__ void load(int t, int part, float* kd,
+                                       float* vd) const {
+    const size_t o = keys.off(t) + part * VEC;
+    const uint4 kraw = *reinterpret_cast<const uint4*>(kpool + o);
+    const uint4 vraw = *reinterpret_cast<const uint4*>(vpool + o);
+    const T* ke = reinterpret_cast<const T*>(&kraw);
+    const T* ve = reinterpret_cast<const T*>(&vraw);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      kd[e] = to_f(ke[e]);
+      vd[e] = to_f(ve[e]);
+    }
+  }
+};
+
+// attend() over any key/value loader KV: KV::VEC elements per load of key
+// t's chunk ``part`` into kd/vd as float (see RawKV; the quantized pools'
+// loader dequantizes there).
+template <typename T, int D, class KV>
+__device__ __forceinline__ void attend_kv(const T* __restrict__ q,
+                                          T* __restrict__ out, const KV kv,
+                                          const RowSet& rows,
+                                          const int nrows, const int key_cap,
+                                          const float scale,
+                                          const int window) {
   static_assert(NT % D == 0 && D % 8 == 0, "head_dim must divide NT");
-  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
+  constexpr int VEC = KV::VEC;            // elements per 16-byte load
+  static_assert(D % VEC == 0, "head_dim must hold whole 16-byte loads");
   constexpr int CHUNKS = D / VEC;         // 16-byte loads per key row
   constexpr int ACC = QR * D / NT;        // P·V accumulators per thread
   constexpr int RSTEP = NT / D;           // rows between them
@@ -133,18 +163,17 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
   for (int t0 = lo; t0 < hi; t0 += KT) {
     for (int i = tid; i < KT * CHUNKS; i += NT) {
       const int c = i / CHUNKS, part = i % CHUNKS, t = t0 + c;
-      uint4 kraw = make_uint4(0, 0, 0, 0), vraw = make_uint4(0, 0, 0, 0);
+      float kf[VEC], vf[VEC];
       if (t < hi) {
-        const size_t o = keys.off(t) + part * VEC;
-        kraw = *reinterpret_cast<const uint4*>(kpool + o);
-        vraw = *reinterpret_cast<const uint4*>(vpool + o);
+        kv.load(t, part, kf, vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
       }
-      const T* ke = reinterpret_cast<const T*>(&kraw);
-      const T* ve = reinterpret_cast<const T*>(&vraw);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        k_s[c][part * VEC + e] = to_f(ke[e]);
-        v_s[c][part * VEC + e] = to_f(ve[e]);
+        k_s[c][part * VEC + e] = kf[e];
+        v_s[c][part * VEC + e] = vf[e];
       }
     }
     __syncthreads();
@@ -202,6 +231,19 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
       out[rows.off[r] + d] = from_f<T>(l > 0.f ? acc[a] / l : 0.f);
     }
   }
+}
+
+// attend() over a float pool or cache of q's dtype.
+template <typename T, int D, class Keys>
+__device__ __forceinline__ void attend(const T* __restrict__ q,
+                                       T* __restrict__ out,
+                                       const T* __restrict__ kpool,
+                                       const T* __restrict__ vpool,
+                                       const Keys keys, const RowSet& rows,
+                                       const int nrows, const int key_cap,
+                                       const float scale, const int window) {
+  attend_kv<T, D>(q, out, RawKV<T, Keys>{kpool, vpool, keys}, rows, nrows,
+                  key_cap, scale, window);
 }
 
 // The fused write of the paged kernels, as its own launch: grid (B, Hkv);

@@ -19,6 +19,10 @@ counterpart here.
     out, kp, vp = ops.paged_decode_attention(q, kp, vp, bt, pos, kn, vn)
     out, kp, vp = ops.paged_chunk_attention(q, kp, vp, bt, start, span,
                                             kn, vn)
+    out, kp, vp, ks, vs = ops.paged_decode_attention_quant(
+        q, kp, ks, vp, vs, bt, pos, kn, vn)              # int8 / fp8 pools
+    out, kp, vp, ks, vs = ops.paged_chunk_attention_quant(
+        q, kp, ks, vp, vs, bt, start, span, kn, vn)
 """
 from __future__ import annotations
 
@@ -26,11 +30,15 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import paged_chunk_attention as _pchunk
+from repro_torch.kernels import paged_chunk_attention_quant as _pchunk_q
 from repro_torch.kernels import paged_decode_attention as _pdec
+from repro_torch.kernels import paged_decode_attention_quant as _pdec_q
 from repro_torch.kernels import ref
 
 KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
-           "paged_chunk_attention": _pchunk}
+           "paged_chunk_attention": _pchunk,
+           "paged_decode_attention_quant": _pdec_q,
+           "paged_chunk_attention_quant": _pchunk_q}
 
 
 def launch_counts() -> dict[str, int]:
@@ -119,6 +127,61 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, start, span,
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     return _pchunk.paged_chunk_attention(
         q.contiguous(), k_pages, v_pages,
+        block_tables.to(torch.int32).contiguous(),
+        start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
+        k_new.contiguous(), v_new.contiguous(), scale=scale, window=window)
+
+
+def paged_decode_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
+                                 block_tables, pos, k_new, v_new, *,
+                                 scale: float | None = None,
+                                 window: int | None = None,
+                                 impl: str = "kernel"):
+    """Quantized-pool fused write-attend decode.
+
+    The contract of ``paged_decode_attention`` with int8 / float8_e4m3fn
+    pools and f32 row scales (k/v_scales: [P, Hkv, ps]) beside them; k/v_new
+    arrive float32 or bf16 and are quantized in the fused write.  Returns
+    (out, k_pages, v_pages, k_scales, v_scales), pools and scales in place.
+    ``pos`` is clamped to the table's capacity on both paths.
+    """
+    ps = k_pages.shape[2]
+    pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
+    if _plain(q, impl):
+        return ref.paged_decode_attention_quant(
+            q, k_pages, k_scales, v_pages, v_scales, block_tables, pos,
+            k_new, v_new, scale=scale, window=window)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return _pdec_q.paged_decode_attention_quant(
+        q.contiguous(), k_pages, k_scales, v_pages, v_scales,
+        block_tables.to(torch.int32).contiguous(),
+        pos.to(torch.int32).contiguous(), k_new.contiguous(),
+        v_new.contiguous(), scale=scale, window=window)
+
+
+def paged_chunk_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
+                                block_tables, start, span, k_new, v_new, *,
+                                scale: float | None = None,
+                                window: int | None = None,
+                                impl: str = "kernel"):
+    """Quantized-pool chunked mixed-step attention.
+
+    The contract of ``paged_chunk_attention`` with int8 / float8_e4m3fn
+    pools and f32 row scales; k/v_new arrive float32 or bf16 [B, Hkv, C, D]
+    and are quantized in the fused multi-slot write.  Returns (out, k_pages,
+    v_pages, k_scales, v_scales).  ``start`` is clamped to the table's
+    capacity and ``span`` clipped to [0, C] on both paths.
+    """
+    ps = k_pages.shape[2]
+    start = start.clamp(max=block_tables.shape[1] * ps - 1)
+    span = span.clamp(0, q.shape[2])
+    if _plain(q, impl):
+        return ref.paged_chunk_attention_quant(
+            q, k_pages, k_scales, v_pages, v_scales, block_tables, start,
+            span, k_new, v_new, scale=scale, window=window)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return _pchunk_q.paged_chunk_attention_quant(
+        q.contiguous(), k_pages, k_scales, v_pages, v_scales,
         block_tables.to(torch.int32).contiguous(),
         start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
         k_new.contiguous(), v_new.contiguous(), scale=scale, window=window)

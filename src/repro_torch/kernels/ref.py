@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels (the correctness contract).
+"""Plain PyTorch versions of the attention kernels (the correctness contract),
+float and quantized pools.
 
 Each function is the mathematical definition with no tiling, line for line
 in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
@@ -146,3 +147,113 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhcs,bhsd->bhcd", p, vb)
     return out.to(q.dtype), k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Quantized page pools
+# ---------------------------------------------------------------------------
+#
+# A quantized pool stores one f32 scale per pool row (page, KV head, slot),
+# symmetric over the feature axis.  Writing a row quantizes it against its
+# own abs-max; the attend reads dequantize_rows of the pools.  The scale is
+# never zero (an all-zero row takes 1.0), and int8 rounds half to even.
+
+INT8_QMAX = 127.0
+FP8_QMAX = 448.0                    # e4m3 finite max
+
+
+def quant_qmax(dtype: torch.dtype) -> float:
+    """Symmetric representable max the row scale maps abs-max onto."""
+    if dtype == torch.int8:
+        return INT8_QMAX
+    if dtype == torch.float8_e4m3fn:
+        return FP8_QMAX
+    raise ValueError(f"unsupported quantized pool dtype {dtype}")
+
+
+def quantize_rows(x: torch.Tensor, dtype: torch.dtype
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize rows of ``x`` ([..., D] float) along the last axis.
+
+    Returns ``(q [..., D] dtype, scale [...] f32)`` with
+    ``x ~= q * scale[..., None]``.  The scale multiplies abs-max by the
+    float32 reciprocal of qmax explicitly (not abs-max / qmax), as the JAX
+    oracle does, so scales are bitwise the same everywhere."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    qmax = quant_qmax(dtype)
+    inv = torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
+    scale = torch.where(amax > 0, amax * inv, torch.ones_like(amax))
+    scaled = xf / scale[..., None]
+    if dtype == torch.int8:
+        q = torch.round(scaled).clamp(-qmax, qmax).to(torch.int8)
+    else:
+        q = scaled.to(dtype)
+    return q, scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_rows`: ``q [..., D] * scale [...]`` -> f32."""
+    return q.float() * scale.float()[..., None]
+
+
+def paged_decode_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
+                                 block_tables, pos, k_new, v_new,
+                                 scale: float | None = None,
+                                 window: int | None = None):
+    """Quantized ``paged_decode_attention``: pools [P, Hkv, ps, D] int8/fp8
+    + scales [P, Hkv, ps]; k/v_new arrive float and are quantized into slot
+    ``pos`` (pools and scales written in place), then the float32 attend
+    runs over the dequantized pools.  Returns (out, k_pages, v_pages,
+    k_scales, v_scales)."""
+    ps = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    pos = pos.to(q.device).long()
+    kq, ks = quantize_rows(k_new, k_pages.dtype)          # [B,Hkv,D],[B,Hkv]
+    vq, vs = quantize_rows(v_new, v_pages.dtype)
+    widx = (pos // ps).clamp(max=maxp - 1)
+    pg_w = block_tables.long().gather(1, widx[:, None])[:, 0]
+    keep = (pg_w >= 0) & (pos < maxp * ps)
+    slot_w = pos % ps
+    for pool, scl, rows, srows in ((k_pages, k_scales, kq, ks),
+                                   (v_pages, v_scales, vq, vs)):
+        _scatter_rows(pool, pg_w, slot_w, rows, keep)
+        scl[pg_w[keep], :, slot_w[keep]] = srows[keep]
+    out, _, _ = paged_decode_attention(
+        q, dequantize_rows(k_pages, k_scales),
+        dequantize_rows(v_pages, v_scales), block_tables, pos,
+        dequantize_rows(kq, ks), dequantize_rows(vq, vs), scale=scale,
+        window=window)
+    return out, k_pages, v_pages, k_scales, v_scales
+
+
+def paged_chunk_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
+                                block_tables, start, span, k_new, v_new,
+                                scale: float | None = None,
+                                window: int | None = None):
+    """Quantized ``paged_chunk_attention``: the span's K/V rows quantize per
+    (row, token, head) into the pools and scales (in place), then the
+    float32 attend runs over the dequantized pools.  Returns (out, k_pages,
+    v_pages, k_scales, v_scales)."""
+    c = q.shape[2]
+    ps = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    start = start.to(q.device).long()
+    span = span.to(q.device).long()
+    kq, ks = quantize_rows(k_new.transpose(1, 2), k_pages.dtype)  # [B,C,Hkv,.]
+    vq, vs = quantize_rows(v_new.transpose(1, 2), v_pages.dtype)
+    j = torch.arange(c, device=q.device)
+    tpos = start[:, None] + j[None, :]                               # [B, C]
+    pg = block_tables.long().gather(1, (tpos // ps).clamp(0, maxp - 1))
+    keep = (pg >= 0) & (tpos < maxp * ps) & (j[None, :] < span[:, None])
+    slot = tpos % ps
+    for pool, scl, rows, srows in ((k_pages, k_scales, kq, ks),
+                                   (v_pages, v_scales, vq, vs)):
+        _scatter_rows(pool, pg, slot, rows, keep)
+        scl[pg[keep], :, slot[keep]] = srows[keep]
+    out, _, _ = paged_chunk_attention(
+        q, dequantize_rows(k_pages, k_scales),
+        dequantize_rows(v_pages, v_scales), block_tables, start, span,
+        dequantize_rows(kq, ks).transpose(1, 2),
+        dequantize_rows(vq, vs).transpose(1, 2), scale=scale, window=window)
+    return out, k_pages, v_pages, k_scales, v_scales

@@ -4,10 +4,12 @@ token-budget mixed step, over a dense or a paged KV cache.
 
 The decode and mixed steps run the port's attention kernels through
 ``kernels.ops``: ``paged_chunk_attention`` (mixed step, paged cache),
-``paged_decode_attention`` (decode, paged cache) and ``decode_attention``
-(decode, dense cache).  ``impl="kernel"`` lets the tensor's device choose
-(the Hopper kernel on a CUDA tensor, the plain version on a CPU tensor);
-``impl="ref"`` takes the plain version everywhere.
+``paged_decode_attention`` (decode, paged cache), their ``_quant``
+counterparts over int8 / fp8 pools with row scales (``paged_mha_q8`` and
+``paged_mha_fp8`` caches) and ``decode_attention`` (decode, dense cache).
+``impl="kernel"`` lets the tensor's device choose (the Hopper kernel on a
+CUDA tensor, the plain version on a CPU tensor); ``impl="ref"`` takes the
+plain version everywhere.
 
 Caches are updated in place: the functions return the same layer dict
 whose tensors they wrote.
@@ -19,6 +21,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
@@ -126,10 +129,16 @@ def _paged_prefill_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
     if lengths is not None:
         keep &= tpos[None, :] < lengths.to(k.device)[:, None]
     slot = (tpos % ps)[None, :].expand_as(pg)
+    quantized = "k_scales" in cache
     for name, new in (("k_pages", k), ("v_pages", v)):
         pool = cache[name]
-        pool[pg[keep], :, slot[keep], :] = new.transpose(1, 2)[keep].to(
-            pool.dtype)
+        rows = new.transpose(1, 2)[keep]                    # [N, Hkv, D]
+        if quantized:
+            # Per-row scales ride beside the values, written through the
+            # same drop rule, so untouched rows stay bit for bit.
+            rows, srows = kref.quantize_rows(rows, pool.dtype)
+            cache[cache_mod.SCALE_LEAF[name]][pg[keep], :, slot[keep]] = srows
+        pool[pg[keep], :, slot[keep], :] = rows.to(pool.dtype)
     return cache
 
 
@@ -148,7 +157,7 @@ def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     out = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5)
     proj = common.dense(p["wo"], _merge_heads(out))
     layout = cache_mod.layout_of(cache)
-    if layout == "paged_mha":
+    if layout in cache_mod.PAGED_LAYOUTS:
         return proj, _paged_prefill_write(cache, k, v, lengths)
     if layout != "dense":
         raise NotImplementedError(f"prefill into a {layout} cache")
@@ -180,8 +189,20 @@ def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
 
 def _not_ported(layout) -> NotImplementedError:
     return NotImplementedError(
-        f"attention over a {layout!r} cache is not ported yet (quantized "
-        "pools: ROADMAP.md queue 1 item 9; MLA: item 10)")
+        f"attention over a {layout!r} cache is not ported yet (MLA: "
+        "ROADMAP.md queue 1 item 10)")
+
+
+def _paged_attend(float_op, quant_op, cache: Params, q, idx, k, v, **kw):
+    """Fused write + block-table walk over a paged cache: ``float_op`` on
+    float pools, ``quant_op`` (the row scales beside the pools) on int8 /
+    fp8 pools.  ``idx`` is (pos,) or (start, span).  Returns the output."""
+    if "k_scales" in cache:
+        return quant_op(q, cache["k_pages"], cache["k_scales"],
+                        cache["v_pages"], cache["v_scales"],
+                        cache["block_tables"], *idx, k, v, **kw)[0]
+    return float_op(q, cache["k_pages"], cache["v_pages"],
+                    cache["block_tables"], *idx, k, v, **kw)[0]
 
 
 def mixed_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
@@ -201,10 +222,11 @@ def mixed_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     q, k, v = _qkv(p, cfg, x, positions)
     scale = cfg.head_dim ** -0.5
     layout = cache_mod.layout_of(cache)
-    if layout == "paged_mha":
-        out, _, _ = kops.paged_chunk_attention(
-            q, cache["k_pages"], cache["v_pages"], cache["block_tables"],
-            start, span, k, v, scale=scale, window=cfg.window, impl=impl)
+    if layout in cache_mod.PAGED_LAYOUTS:
+        out = _paged_attend(kops.paged_chunk_attention,
+                            kops.paged_chunk_attention_quant, cache, q,
+                            (start, span), k, v, scale=scale,
+                            window=cfg.window, impl=impl)
         return common.dense(p["wo"], _merge_heads(out).to(x.dtype)), cache
     if layout != "dense":
         raise _not_ported(layout)
@@ -245,16 +267,15 @@ def decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     q, k, v = _qkv(p, cfg, x, pos[:, None])
     scale = cfg.head_dim ** -0.5
     layout = cache_mod.layout_of(cache)
-    if layout == "paged_mha":
-        # Fused write + block-table walk.  pos is clamped to the table's
-        # capacity: past it the last slot is rewritten (defined, still
-        # wrong output — callers bound generation) instead of an
-        # out-of-bounds table read corrupting a live page.
-        cap = cache["block_tables"].shape[-1] * cache["k_pages"].shape[-2]
-        out, _, _ = kops.paged_decode_attention(
-            q[:, :, 0], cache["k_pages"], cache["v_pages"],
-            cache["block_tables"], pos.clamp(max=cap - 1), k[:, :, 0],
-            v[:, :, 0], scale=scale, window=cfg.window, impl=impl)
+    if layout in cache_mod.PAGED_LAYOUTS:
+        # The ops wrappers clamp pos to the table's capacity: past it the
+        # last slot is rewritten (defined, still wrong output — callers
+        # bound generation) instead of an out-of-bounds table read
+        # corrupting a live page.
+        out = _paged_attend(kops.paged_decode_attention,
+                            kops.paged_decode_attention_quant, cache,
+                            q[:, :, 0], (pos,), k[:, :, 0], v[:, :, 0],
+                            scale=scale, window=cfg.window, impl=impl)
         out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
         return common.dense(p["wo"], out), cache
     if layout != "dense":

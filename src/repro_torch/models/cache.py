@@ -11,10 +11,13 @@ port runs a Python loop over layers and keeps them apart —
 Layouts ported so far:
   dense          [B, Hkv, S, D] K/V (ring when S < the positions written)
   paged_mha      shared K/V pools [P, Hkv, ps, D] + block_tables [B, maxp]
+  paged_mha_q8   paged_mha with int8 pools and f32 row scales
+                 k_scales / v_scales [P, Hkv, ps] (fill 1.0)
+  paged_mha_fp8  the same with float8_e4m3fn pools
 
-The windowed (ring), quantized, MLA, recurrent-state and cross-attention
-layouts of ``repro.models.cache`` raise NotImplementedError naming their
-ROADMAP.md queue 1 item.
+The windowed (ring), MLA, recurrent-state and cross-attention layouts of
+``repro.models.cache`` raise NotImplementedError naming their ROADMAP.md
+queue 1 item.
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ Params = Any
 
 ROLE_KV = "kv"
 ROLE_POOL = "pool"
+ROLE_SCALE = "scale"
 ROLE_TABLE = "table"
 
 KV_QUANT_MODES = ("off", "int8", "fp8")
+SCALE_LEAF = {"k_pages": "k_scales", "v_pages": "v_scales"}
 
 # Not yet ported: layout family -> ROADMAP.md queue 1 item.
 _LATER = {"local": "item 11 (remaining families)",
@@ -106,6 +111,37 @@ def _paged_mha(kind, cfg, batch, max_len, dtype, *, page_size=64,
     ), page_size=page_size, num_pages=num_pages)
 
 
+def _quantized(base: str, layout: str, qdtype, kind, cfg, batch, max_len,
+               dtype, **kw) -> CacheSpec:
+    """Derive a quantized layout from its float layout: pool leaves store
+    the quantized dtype and each gains an f32 scale leaf of the pool shape
+    minus the feature axis (one scale per pool row within each page).
+    Scales init to 1.0: a scale is never zero, even for untouched pages."""
+    spec = _LAYOUTS[base](kind, cfg, batch, max_len, dtype, **kw)
+    leaves: list[Leaf] = []
+    for l in spec.leaves:
+        if l.role != ROLE_POOL:
+            leaves.append(l)
+            continue
+        leaves.append(Leaf(l.name, l.shape, qdtype, ROLE_POOL))
+        leaves.append(Leaf(SCALE_LEAF[l.name], l.shape[:-1], torch.float32,
+                           ROLE_SCALE, fill=1.0))
+    return CacheSpec(kind, layout, tuple(leaves), page_size=spec.page_size,
+                     num_pages=spec.num_pages)
+
+
+@register_layout("paged_mha_q8")
+def _paged_mha_q8(kind, cfg, batch, max_len, dtype, **kw) -> CacheSpec:
+    return _quantized("paged_mha", "paged_mha_q8", torch.int8, kind, cfg,
+                      batch, max_len, dtype, **kw)
+
+
+@register_layout("paged_mha_fp8")
+def _paged_mha_fp8(kind, cfg, batch, max_len, dtype, **kw) -> CacheSpec:
+    return _quantized("paged_mha", "paged_mha_fp8", torch.float8_e4m3fn,
+                      kind, cfg, batch, max_len, dtype, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Kind -> layout routing
 # ---------------------------------------------------------------------------
@@ -128,18 +164,25 @@ def layout_for(kind: str, cfg, *, paged: bool) -> str:
     raise ValueError(f"unknown block kind {kind}")
 
 
+def quant_layout(layout: str, kv_quant: str) -> str:
+    """Quantized variant of a paged layout (identity for 'off' and for
+    non-paged layouts: a dense cache rewrites whole rows per step, so only
+    page pools quantize)."""
+    if kv_quant in (None, "", "off"):
+        return layout
+    if kv_quant not in KV_QUANT_MODES:
+        raise ValueError(f"unknown kv_quant {kv_quant!r}: pick one of "
+                         f"{KV_QUANT_MODES}")
+    if layout != "paged_mha":
+        return layout
+    return layout + ("_q8" if kv_quant == "int8" else "_fp8")
+
+
 def spec_for(kind: str, cfg, batch: int, max_len: int,
              dtype=torch.bfloat16, *, paged: bool = False,
              page_size: int = 64, num_pages: int | None = None,
              kv_quant: str = "off") -> CacheSpec:
-    if kv_quant not in KV_QUANT_MODES:
-        raise ValueError(f"unknown kv_quant {kv_quant!r}: pick one of "
-                         f"{KV_QUANT_MODES}")
-    if kv_quant != "off":
-        raise NotImplementedError(
-            "quantized page pools are not ported yet: ROADMAP.md queue 1 "
-            "item 9 (quantized pools and the swap tier)")
-    layout = layout_for(kind, cfg, paged=paged)
+    layout = quant_layout(layout_for(kind, cfg, paged=paged), kv_quant)
     return _LAYOUTS[layout](kind, cfg, batch, max_len, dtype,
                             page_size=page_size, num_pages=num_pages)
 
@@ -162,17 +205,30 @@ def model_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 _LEAFSETS: dict[frozenset, str] = {
     frozenset({"k", "v"}): "dense",
     frozenset({"k_pages", "v_pages", "block_tables"}): "paged_mha",
+    # int8 and fp8 share leaf names; layout_of tells them by pool dtype.
+    frozenset({"k_pages", "v_pages", "k_scales", "v_scales",
+               "block_tables"}): "paged_mha_q8",
 }
 
-PAGED_LAYOUTS = ("paged_mha",)
-_POOL_LEAVES = {"paged_mha": ("k_pages", "v_pages")}
+# Every leaf that travels with its pages (pools AND their scales), so page
+# copies move values and scales together.
+_POOL_LEAVES = {"paged_mha": ("k_pages", "v_pages"),
+                "paged_mha_q8": ("k_pages", "v_pages", "k_scales",
+                                 "v_scales"),
+                "paged_mha_fp8": ("k_pages", "v_pages", "k_scales",
+                                  "v_scales")}
+PAGED_LAYOUTS = tuple(_POOL_LEAVES)
 
 
 def layout_of(layer_cache) -> str | None:
     """Layout name of one layer's cache dict (None if not a layer dict)."""
     if not isinstance(layer_cache, dict):
         return None
-    return _LEAFSETS.get(frozenset(layer_cache.keys()))
+    name = _LEAFSETS.get(frozenset(layer_cache.keys()))
+    if (name == "paged_mha_q8"
+            and layer_cache["k_pages"].dtype == torch.float8_e4m3fn):
+        return "paged_mha_fp8"
+    return name
 
 
 def iter_layers(cache: Params, path: tuple[str, ...] = ()

@@ -156,7 +156,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_quant: str = "off", device=None) -> Params:
     """{"layers": [layer cache, ...]} on ``device`` (the card unless
     ``device="cpu"``).  ``paged=True`` gives every attention layer its own
-    page pool of ``num_pages`` pages and a block table (all -1)."""
+    page pool of ``num_pages`` pages and a block table (all -1);
+    ``kv_quant="int8"|"fp8"`` stores those pools quantized, with f32 row
+    scales beside them."""
     dev = resolve_device(device)
     specs = cache_specs(cfg, batch, max_len, dtype, paged=paged,
                         page_size=page_size, num_pages=num_pages,

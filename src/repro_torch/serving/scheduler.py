@@ -23,15 +23,20 @@ reach a live page through an unmapped slot.  Several rows may write the
 trash page in one step; its contents are unspecified.
 
 Dense mode (``paged=False``) runs the same composer against the
-[B, Hkv, S, D] cache.  Prefix sharing, speculative decoding, quantized
-pools, the swap tier, journaling, bounded queues, deadlines and
-disaggregation roles are not ported yet: their options raise
-NotImplementedError naming the ROADMAP.md item.
+[B, Hkv, S, D] cache; ``kv_quant="int8"|"fp8"`` stores the pools quantized
+with f32 row scales (``paged_chunk_attention_quant`` on the card).
+COW prefix sharing, speculative decoding, the swap tier, journaling,
+bounded queues, deadlines and disaggregation roles are not ported yet:
+their options raise NotImplementedError naming the ROADMAP.md item.
+
+``PageAllocator`` (refcounted), ``PrefixCache`` and ``PrefixPageMapper``
+also serve the agent trial (``agents/orchestrator.run_task``): each agent's
+(re-)contextualization maps its row's pages with longest-prefix reuse.
 """
 from __future__ import annotations
 
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -76,20 +81,29 @@ class Reservation:
             self._pages = []
 
 
-class PageAllocator:
-    """Host-side page pool (unit = one page).
+def _row_ctx(row: Optional[int]) -> str:
+    """Error-message suffix naming the engine row an allocator misuse came
+    from (allocators are row-agnostic; callers pass the context)."""
+    return "" if row is None else f" (row {row})"
 
-    ``alloc`` hands pages out, ``free`` returns them (a second free of a
-    page raises).  ``reserve`` removes pages from the free list immediately,
-    so a two-phase admit cannot admit two requests against the same
-    availability snapshot.  Reference counts for shared prefix pages come
-    with prefix sharing (ROADMAP.md queue 1 item 7).
+
+class PageAllocator:
+    """Host-side refcounted page pool (unit = one page).
+
+    Pages are handed out at refcount 1; ``share`` adds a reference (prefix
+    sharing), ``free`` drops one and returns the page to the free list at
+    zero (a free of an unreferenced page raises).  ``generation`` bumps on
+    every fresh hand-out so stale prefix entries can detect reuse.
+    ``reserve`` removes pages from the free list immediately, so a
+    two-phase admit cannot admit two requests against the same
+    availability snapshot.
     """
 
     def __init__(self, num_pages: int):
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, -1, -1))
-        self._used = np.zeros(num_pages, bool)
+        self._ref = np.zeros(num_pages, np.int32)
+        self._gen = np.zeros(num_pages, np.int64)
 
     @property
     def available(self) -> int:
@@ -101,7 +115,9 @@ class PageAllocator:
         if n > len(self._free):
             return None
         pages, self._free = self._free[-n:][::-1], self._free[:-n]
-        self._used[pages] = True
+        for p in pages:
+            self._ref[p] = 1
+            self._gen[p] += 1
         return pages
 
     def reserve(self, n: int) -> Optional[Reservation]:
@@ -110,13 +126,157 @@ class PageAllocator:
             return None
         return Reservation(self, pages)
 
+    def share(self, pages: list[int], row: Optional[int] = None) -> None:
+        for p in pages:
+            if self._ref[p] <= 0:
+                raise ValueError(
+                    f"cannot share unallocated page {p}{_row_ctx(row)} "
+                    f"(refcount {int(self._ref[p])})")
+            self._ref[p] += 1
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
+
+    def generation(self, page: int) -> int:
+        return int(self._gen[page])
+
     def free(self, pages: list[int], row: Optional[int] = None) -> None:
         for p in reversed(pages):
-            if not self._used[p]:
-                where = "" if row is None else f" (row {row})"
-                raise ValueError(f"double free of page {p}{where}")
-            self._used[p] = False
-            self._free.append(p)
+            if self._ref[p] <= 0:
+                raise ValueError(
+                    f"double free of page {p}{_row_ctx(row)} "
+                    f"(refcount {int(self._ref[p])})")
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                self._free.append(p)
+
+
+PREFIX_CACHE_ENTRIES = 4096   # LRU cap of PrefixCache's index
+
+
+class PrefixCache:
+    """Longest-prefix index from prompt tokens to resident full pages.
+
+    Full pages chain through keys ``tuple(tokens[:k*ps])`` (page k-1 holds
+    positions [(k-1)·ps, k·ps) and its KV depends on the whole prefix).
+    Entries carry (page, generation) and are pruned lazily when the page
+    was freed or re-allocated.  The map is LRU-bounded at
+    ``PREFIX_CACHE_ENTRIES``: hits refresh recency, inserts past the cap
+    evict the coldest key.
+    Eviction only forgets a sharing opportunity.  (JAX's boundary-page
+    index serves COW prefix sharing in the scheduler, ROADMAP.md queue 1
+    item 7; ``PrefixPageMapper`` shares full pages only.)
+    """
+
+    def __init__(self, allocator: PageAllocator, page_size: int):
+        self._allocator = allocator
+        self.page_size = page_size
+        self._chain: OrderedDict[tuple, tuple[int, int]] = OrderedDict()
+
+    def _get(self, key: tuple) -> Optional[int]:
+        """Validated lookup: refreshes recency on hit, prunes on miss."""
+        entry = self._chain.get(key)
+        if entry is not None:
+            page, gen = entry
+            if (self._allocator.refcount(page) > 0
+                    and self._allocator.generation(page) == gen):
+                self._chain.move_to_end(key)
+                return page
+        self._chain.pop(key, None)
+        return None
+
+    def lookup(self, tokens: list[int]) -> list[int]:
+        """Longest shareable run of full pages for ``tokens``."""
+        ps = self.page_size
+        pages: list[int] = []
+        for k in range(1, len(tokens) // ps + 1):
+            page = self._get(tuple(tokens[:k * ps]))
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def register(self, tokens: list[int], pages: list[int]) -> None:
+        """Index the full pages of a row's prompt."""
+        ps = self.page_size
+        for k in range(1, min(len(tokens) // ps, len(pages)) + 1):
+            key = tuple(tokens[:k * ps])
+            if self._get(key) is None:
+                self._chain[key] = (pages[k - 1],
+                                    self._allocator.generation(pages[k - 1]))
+                while len(self._chain) > PREFIX_CACHE_ENTRIES:
+                    self._chain.popitem(last=False)
+
+
+class PrefixPageMapper:
+    """Shared-prefix page mapping for a fixed-row agent engine (no COW).
+
+    The orchestrator's agents re-contextualize in place: each (re-)prefill
+    remaps the row's pages, sharing the full pages of any previously
+    registered identical prefix — the CodeCRDT task/TODO prompt header —
+    and allocating private pages for the rest of the row's horizon.  Only
+    pages strictly below the row's first decode write are shared, so no
+    copy-on-write is needed.  The pool holds ``(num_rows + 1) * maxp``
+    pages (a row transiently holds old + new mappings during remap);
+    unmapped table slots point at ``trash_page``, which lies past it.
+    """
+
+    def __init__(self, num_rows: int, maxp: int, page_size: int,
+                 trash_page: int):
+        self.allocator = PageAllocator((num_rows + 1) * maxp)
+        if trash_page < self.allocator.num_pages:
+            raise ValueError(
+                f"trash_page {trash_page} lies inside the allocatable pool "
+                f"[0, {self.allocator.num_pages}): decode writes of unmapped "
+                "rows would corrupt live pages")
+        self.prefix_cache = PrefixCache(self.allocator, page_size)
+        self.page_size = page_size
+        self.maxp = maxp
+        self.trash_page = trash_page
+        self.host_bt = np.full((num_rows, maxp), trash_page, np.int32)
+        self._row_pages: list[list[int]] = [[] for _ in range(num_rows)]
+        self.shared_pages = 0
+        self._dirty = True                # initial table needs installing
+
+    def map_row(self, row: int, tokens: list[int], horizon: int) -> int:
+        """Remap ``row`` for a prompt of ``tokens`` and a total horizon of
+        ``horizon`` positions (prompt + generation budget).  Returns the
+        number of pages shared with previously mapped prompts."""
+        ps = self.page_size
+        npages = min(-(-horizon // ps), self.maxp)
+        n_write = len(tokens) // ps       # decode writes from page n_write
+        shared = self.prefix_cache.lookup(tokens)[:n_write]
+        fresh = self.allocator.alloc(npages - len(shared))
+        if fresh is None:
+            raise RuntimeError("agent page pool exhausted")
+        self.allocator.share(shared)
+        pages = shared + fresh
+        old = self._row_pages[row]
+        self._row_pages[row] = pages
+        self.host_bt[row, :] = self.trash_page
+        self.host_bt[row, :len(pages)] = pages
+        if old:
+            self.allocator.free(old)      # after remap: self-prefix shares
+        self.prefix_cache.register(tokens[:n_write * ps], pages[:n_write])
+        self.shared_pages += len(shared)
+        self._dirty = True
+        return len(shared)
+
+    def free_row(self, row: int) -> None:
+        if self._row_pages[row]:
+            self.allocator.free(self._row_pages[row])
+            self._row_pages[row] = []
+        self.host_bt[row, :] = self.trash_page
+        self._dirty = True
+
+    def install(self, cache: Params) -> Params:
+        """Install the host block table into ``cache`` iff it changed since
+        the last install (one host-to-device copy per batch of remaps)."""
+        if self._dirty:
+            cache = lm.set_block_tables(cache,
+                                        torch.from_numpy(self.host_bt.copy()))
+            self._dirty = False
+        return cache
 
 
 @dataclass
@@ -170,9 +330,11 @@ class ContinuousBatchingEngine:
             raise _later("max_queue", "item 7 (bounded queues, shedding)")
         if spec_decode != "off":
             raise _later("spec_decode", "item 8 (speculative decoding)")
-        if kv_quant != "off" or swap_tier_pages:
-            raise _later("kv_quant / swap_tier_pages",
-                         "item 9 (quantized pools and the swap tier)")
+        if swap_tier_pages:
+            raise _later("swap_tier_pages", "item 9 (the swap tier)")
+        if kv_quant != "off" and not paged:
+            raise ValueError("kv_quant requires paged=True (quantized "
+                             "layouts are page-pool layouts)")
         if journal is not None or role != "mixed":
             raise _later("journal / role",
                          "item 12 (replicated and disaggregated serving)")
@@ -200,6 +362,7 @@ class ContinuousBatchingEngine:
             self.cache = lm.init_cache(cfg, batch, max_len, paged=True,
                                        page_size=page_size,
                                        num_pages=num_pages + 1,
+                                       kv_quant=kv_quant,
                                        device=self.device)
             self.host_bt = np.full((batch, self.maxp), self.trash_page,
                                    np.int32)

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each Hopper kernel against its plain PyTorch
-version on the same CUDA inputs.
+version on the same CUDA inputs (the quantized-pool kernels for int8 and
+fp8-e4m3 pools included).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -9,7 +10,8 @@ CUDA card is present (decided at run time, never at import).  On the card:
 Tolerances: float32 outputs within 1e-5 (the kernel sums in another order
 than the plain matmul); bfloat16 outputs within 4e-3 + 2^-7·|x| (both
 round one float32 result to bf16, and float32 results that differ in their
-last bits may land one bf16 step apart).  Pools must match bitwise.
+last bits may land one bf16 step apart).  Pools (and the quantized
+pools' scales) must match bitwise.
 """
 from __future__ import annotations
 
@@ -162,3 +164,121 @@ def test_kernels_reject_what_they_cannot_take(card):
     with pytest.raises(ValueError, match="dtype"):
         ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
                                                  device=card))
+
+
+QDTYPES = [torch.int8, torch.float8_e4m3fn]
+
+
+def _quant_inputs(r, b, hkv, ps, maxp, d, qdtype, dev):
+    """Quantized pools holding quantized random rows, their f32 scales and
+    a block table with -1 entries."""
+    kp, vp, bt = _paged_inputs(r, b, hkv, ps, maxp, d, torch.float32, dev)
+    kq, ks = ref.quantize_rows(kp, qdtype)
+    vq, vs = ref.quantize_rows(vp, qdtype)
+    return kq, ks, vq, vs, bt
+
+
+def _same_bits(a, b):
+    if a.dtype in (torch.int8, torch.float8_e4m3fn):
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("case", CHUNK_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_chunk_quant_kernel_matches_plain(card, case, dtype, qdtype):
+    """Pools and scales bitwise (the quantizing write), outputs within the
+    tolerance (the walk over dequantized rows); span 0, -1 entries,
+    windows, page sizes 8 and 16, head_dim 16-128."""
+    b, hq, hkv, ps, maxp, d, c, window = case
+    r = np.random.default_rng(4)
+    q = _t(r.normal(size=(b, hq, c, d)), dtype, card)
+    kq, ks, vq, vs, bt = _quant_inputs(r, b, hkv, ps, maxp, d, qdtype, card)
+    start = r.integers(0, maxp * ps - 1, b)
+    start[-1] = maxp * ps + 3               # past capacity: the clamp
+    span = r.integers(0, c + 1, b)
+    span[0], span[1] = c, 0                 # a full chunk and an idle row
+    start, span = _t(start, torch.int32, card), _t(span, torch.int32, card)
+    kn = _t(r.normal(size=(b, hkv, c, d)), dtype, card)
+    vn = _t(r.normal(size=(b, hkv, c, d)), dtype, card)
+    plain = [t.clone() for t in (kq, ks, vq, vs)]
+    before = ops.launch_counts()["paged_chunk_attention_quant"]
+    o1, *pools1 = ops.paged_chunk_attention_quant(
+        q, kq, ks, vq, vs, bt, start, span, kn, vn, window=window)
+    assert ops.launch_counts()["paged_chunk_attention_quant"] == before + 1
+    o2, *pools2 = ops.paged_chunk_attention_quant(
+        q, plain[0], plain[1], plain[2], plain[3], bt, start, span, kn, vn,
+        window=window, impl="ref")
+    torch.cuda.synchronize()
+    assert all(_same_bits(x, y) for x, y in zip(pools1, pools2))
+    j = torch.arange(c, device=card)[None, :]
+    live = ((j < span.clamp(0, c)[:, None])
+            & (start.clamp(max=maxp * ps - 1)[:, None] + j < maxp * ps))
+    live = live[:, None, :, None]
+    torch.testing.assert_close(torch.where(live, o1, 0).float(),
+                               torch.where(live, o2, 0).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("case", DECODE_PAGED_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_quant_kernel_matches_plain(card, case, dtype, qdtype):
+    b, hq, hkv, ps, maxp, d, window = case
+    r = np.random.default_rng(5)
+    q = _t(r.normal(size=(b, hq, d)), dtype, card)
+    kq, ks, vq, vs, bt = _quant_inputs(r, b, hkv, ps, maxp, d, qdtype, card)
+    pos = r.integers(0, maxp * ps, b)
+    pos[-1] = maxp * ps + 5                 # past capacity: the clamp
+    pos = _t(pos, torch.int32, card)
+    kn = _t(r.normal(size=(b, hkv, d)), dtype, card)
+    vn = _t(r.normal(size=(b, hkv, d)), dtype, card)
+    plain = [t.clone() for t in (kq, ks, vq, vs)]
+    before = ops.launch_counts()["paged_decode_attention_quant"]
+    o1, *pools1 = ops.paged_decode_attention_quant(
+        q, kq, ks, vq, vs, bt, pos, kn, vn, window=window)
+    assert ops.launch_counts()["paged_decode_attention_quant"] == before + 1
+    o2, *pools2 = ops.paged_decode_attention_quant(
+        q, plain[0], plain[1], plain[2], plain[3], bt, pos, kn, vn,
+        window=window, impl="ref")
+    torch.cuda.synchronize()
+    assert all(_same_bits(x, y) for x, y in zip(pools1, pools2))
+    torch.testing.assert_close(o1.float(), o2.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("dtype,kvdtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_quant_kernels_take_new_rows_at_their_own_dtype(card, dtype, kvdtype,
+                                                        qdtype):
+    """k/v_new of another dtype than q are quantized from their own values
+    (no cast to q's dtype): pools and scales bitwise the plain version's."""
+    b, hq, hkv, ps, maxp, d, c = 3, 4, 2, 8, 4, 64, 8
+    r = np.random.default_rng(6)
+    kq, ks, vq, vs, bt = _quant_inputs(r, b, hkv, ps, maxp, d, qdtype, card)
+    start = _t(r.integers(0, maxp * ps - c, b), torch.int32, card)
+    span = _t([c, 3, 1], torch.int32, card)
+    pos = start.clone()
+    for args, op in (((start, span), ops.paged_chunk_attention_quant),
+                     ((pos,), ops.paged_decode_attention_quant)):
+        shape = (b, hkv, c, d) if len(args) == 2 else (b, hkv, d)
+        q = _t(r.normal(size=(b, hq) + shape[2:]), dtype, card)
+        kn = _t(r.normal(size=shape), kvdtype, card)
+        vn = _t(r.normal(size=shape), kvdtype, card)
+        plain = [t.clone() for t in (kq, ks, vq, vs)]
+        _, *pools1 = op(q, kq, ks, vq, vs, bt, *args, kn, vn)
+        _, *pools2 = op(q, *plain, bt, *args, kn, vn, impl="ref")
+        torch.cuda.synchronize()
+        assert all(_same_bits(x, y) for x, y in zip(pools1, pools2))
+
+
+def test_quant_kernels_reject_float_pools(card):
+    q = torch.zeros(1, 2, 32, device=card)
+    kp = torch.zeros(2, 2, 8, 32, device=card, dtype=torch.bfloat16)
+    sc = torch.ones(2, 2, 8, device=card)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=card)
+    pos = torch.zeros(1, dtype=torch.int32, device=card)
+    kn = torch.zeros(1, 2, 32, device=card)
+    with pytest.raises(ValueError, match="pool dtype"):
+        ops.paged_decode_attention_quant(q, kp, sc, kp, sc, bt, pos, kn, kn)

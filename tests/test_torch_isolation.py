@@ -62,6 +62,13 @@ def test_entry_points_without_a_device_raise_when_no_card():
         convert.cache_from_jax({"groups": {}}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.to_tensor(np.zeros(2, np.float32))
+    from repro_torch.agents import orchestrator
+    from repro_torch.agents.tasks import TASKS
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        orchestrator.run_task(cfg, params, TASKS["tic_tac_toe"],
+                              mode="sequential")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        orchestrator.make_sim_llm()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

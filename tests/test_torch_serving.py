@@ -148,7 +148,7 @@ def test_scheduler_streams_and_counters_match_jax(f32, scenario):
 
 @pytest.mark.parametrize("option", [
     dict(prefix_sharing=True), dict(spec_decode="ngram"),
-    dict(kv_quant="int8"), dict(swap_tier_pages=4), dict(max_queue=2),
+    dict(spec_decode="doc"), dict(swap_tier_pages=4), dict(max_queue=2),
     dict(journal=print), dict(role="prefill")])
 def test_scheduler_options_not_ported_name_their_roadmap_item(f32, option):
     _, _, tcfg, tp = f32
