@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the five attention kernels from ``src/repro_torch/kernels/csrc``
+1. builds the nine attention kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, started together);
-2. holds each kernel against its plain PyTorch version on the card at
-   OLMo-1B's shapes (bf16, 16 heads of 128, page size 16, batch 8, contexts
-   up to 1024, chunk 64, ragged rows, -1 and trash-page table entries; the
-   two quantized-pool kernels for int8 and fp8 pools) and times kernel,
-   plain version, and the PyTorch library call where one computes the same
-   function;
+2. holds each kernel against its plain PyTorch version on the card at the
+   workloads' shapes and times kernel, plain version, and the PyTorch
+   library call where one computes the same function: the five MHA kernels
+   at OLMo-1B's (bf16, 16 heads of 128, page size 16, batch 8, contexts up
+   to 1024, chunk 64, ragged rows, -1 and trash-page table entries; the
+   two quantized-pool kernels for int8 and fp8 pools), the four paged-MLA
+   kernels at DeepSeek-V2-Lite's (16 heads over a 512 + 64 latent row,
+   pool rows of 640; bf16, int8 and fp8 pools);
 3. serves ``olmo-1b`` at full width with seeded random bf16 weights:
    ``ContinuousBatchingEngine`` answers 16 requests (bf16 pools, then int8
    pools), ``Engine.generate`` decodes on a dense and on a paged cache;
@@ -24,7 +26,12 @@
    the same document and (b) ship fewer bytes; from one mid-trial state of
    (a), captured in a fifth, untimed run, a mixed step runs through the
    kernels and through the plain versions, layer by layer from the same
-   inputs (pools bitwise but for the trash page) and end to end (logits).
+   inputs (pools bitwise but for the trash page) and end to end (logits);
+5. serves the MLA workload (``workload.mla_config()``: DeepSeek-V2-Lite at
+   full width with dense FFNs, seeded random bf16 weights): the scheduler
+   on bf16 and int8 latent pools, ``Engine.generate`` on dense and paged
+   latent caches, the first-step logits of the paged routes against the
+   plain path; then trial run (e), (a)'s configuration on that model.
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -245,6 +252,121 @@ def quant_kernel_rows(rng):
     return rows
 
 
+# DeepSeek-V2-Lite's MLA widths (workload.mla_config()): 16 heads over a
+# latent row of r = 512 (ckv) + rd = 64 (krope), padded to Dp = 640 in the
+# pool; the absorbed queries and the contexts are float32.
+MLA_R, MLA_RD, MLA_DP = 512, 64, 640
+# MLA kernel against plain version: float32 contexts from the same float32
+# products, summed in another order.
+MLA_ATOL, MLA_RTOL = 1e-5, 1e-5
+
+
+def mla_close(a, b) -> tuple[float, bool]:
+    err = (a - b).abs()
+    return float(err.max()), bool((err <= MLA_ATOL + MLA_RTOL * b.abs()).all())
+
+
+def mla_kernel_rows(rng):
+    """The four paged-MLA kernels against their plain versions at the
+    workload's shapes: bf16 pools for the float pair, int8 (and fp8, an
+    extra error and time) for the ``_quant`` pair; ragged rows, -1 and
+    trash-page table entries.  Timed through ``ops``, as the model calls
+    them (the wrapper's concat of q_abs and q_rope into one float32 q
+    included)."""
+    from repro_torch.kernels import ops, ref
+    scale = (128 + MLA_RD) ** -0.5
+    lw = MLA_R + MLA_RD
+    start = np.array([0, 100, 300, 447, 700, 900, 959, 64])
+    span = np.array([64, 64, 1, 1, 0, 30, 64, 17])
+    pos = np.array([1023, 17, 300, 511, 640, 5, 999, 128])
+    chunk_idx = (torch.as_tensor(start, dtype=torch.int32, device="cuda"),
+                 torch.as_tensor(span, dtype=torch.int32, device="cuda"))
+    dec_idx = (torch.as_tensor(pos, dtype=torch.int32, device="cuda"),)
+    src = "src/repro_torch/kernels/csrc/"
+    specs = [
+        ("paged_mla_chunk", chunk_idx, start + span, (B, H, CHUNK),
+         "paged_chunk_attention.py:531"),
+        ("paged_mla_decode", dec_idx, pos + 1, (B, H),
+         "paged_mla_decode.py:136"),
+        ("paged_mla_chunk_quant", chunk_idx, start + span, (B, H, CHUNK),
+         "paged_chunk_attention.py:695"),
+        ("paged_mla_decode_quant", dec_idx, pos + 1, (B, H),
+         "paged_mla_decode.py:270")]
+    rows = []
+    for name, idx, lens, qs, tpu in specs:
+        quant = name.endswith("_quant")
+        op = getattr(ops, name)
+        q_abs = torch.randn(qs + (MLA_R,), device="cuda")
+        q_rope = torch.randn(qs + (MLA_RD,), device="cuda")
+        new_shape = (B, CHUNK, MLA_DP) if len(qs) == 3 else (B, MLA_DP)
+        new = torch.randn(new_shape, device="cuda").bfloat16()
+        new[..., lw:] = 0                       # the model's pad columns
+        bt = torch.as_tensor(_tables(rng, lens, B * (MAX_LEN // PS)),
+                             device="cuda")
+        trash = B * (MAX_LEN // PS)
+        row = dict(name=name, route="cuda", source=f"{src}{name}.cu",
+                   replaces=f"src/repro/kernels/{tpu}", library_ms=None)
+        for qname, qdtype in ((("int8", torch.int8),
+                               ("fp8", torch.float8_e4m3fn)) if quant
+                              else (("bf16", torch.bfloat16),)):
+            pool = torch.randn((trash + 1, PS, MLA_DP), device="cuda")
+            pools = (list(ref.quantize_rows(pool, qdtype)) if quant
+                     else [pool.bfloat16()])
+            twin = [t.clone() for t in pools]
+            c1 = op(q_abs, q_rope, *pools, bt, *idx, new, scale=scale)[0]
+            c2 = op(q_abs, q_rope, *twin, bt, *idx, new, scale=scale,
+                    impl="ref")[0]
+            if len(idx) == 2:               # chunk: defined at j < span
+                live = (torch.arange(CHUNK, device="cuda")[None, :]
+                        < idx[1][:, None])[:, None, :, None]
+                c1, c2 = torch.where(live, c1, 0), torch.where(live, c2, 0)
+            err, ok = mla_close(c1, c2)
+            bitwise = all(_pools_equal(a, b, trash)
+                          for a, b in zip(pools, twin))
+            if not (ok and bitwise):
+                fail(f"{name} ({qname}) disagrees: max_abs_err {err}, pools "
+                     f"and scales bitwise {bitwise}")
+            ms = cuda_ms(lambda: op(q_abs, q_rope, *pools, bt, *idx, new,
+                                    scale=scale))
+            plain_ms = cuda_ms(lambda: op(q_abs, q_rope, *twin, bt, *idx,
+                                          new, scale=scale, impl="ref"))
+            if qname == "fp8":
+                row.update(fp8_max_abs_err=err, fp8_pools_bitwise=bitwise,
+                           fp8_ms=ms, fp8_plain_ms=plain_ms)
+            else:
+                row.update(shapes=f"q_abs{list(q_abs.shape)} + q_rope f32, "
+                                  f"{qname} pool [{trash + 1},{PS},{MLA_DP}]"
+                                  + (" + f32 scales" if quant else ""),
+                           max_abs_err=err, pools_bitwise=bitwise, ms=ms,
+                           plain_ms=plain_ms)
+        # Bytes the function must move: the live r + rd columns of the
+        # cached rows that queries attend (one byte plus 4 B of scale per
+        # row for a quantized pool), the new Dp-wide rows read at their
+        # dtype (bf16) and written once, q read and ctx written in float32
+        # at the defined queries, and the live table entries.  Operations:
+        # 2·(L + r) per (query head, attended row).
+        if len(idx) == 2:
+            run = span > 0
+            old, nnew = int(start[run].sum()), int(span.sum())
+            pages = int(sum(-(-int(n) // PS) for n in (start + span)[run]))
+            pairs = int(sum(s_ * st_ + s_ * (s_ + 1) // 2
+                            for s_, st_ in zip(span, start)))
+            nidx = 2 * B * 4
+        else:
+            old, nnew = int(pos.sum()), B
+            pages = int(sum(-(-int(n) // PS) for n in pos + 1))
+            pairs = int((pos + 1).sum())
+            nidx = B * 4
+        cached = lw + 4 if quant else lw * 2
+        written = MLA_DP + 4 if quant else MLA_DP * 2
+        nbytes = (old * cached + nnew * (MLA_DP * 2 + written)
+                  + nnew * H * (lw + MLA_R) * 4 + pages * 4 + nidx)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 2 * pairs * H * (lw + MLA_R))
+        rows.append(row)
+    return rows
+
+
 def kernel_phase():
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ops, ref
@@ -371,6 +493,7 @@ def kernel_phase():
         library_ms=cuda_ms(lambda: lib(q[:, :, None], k, v, attn_mask=mask,
                                        scale=scale))))
     rows += quant_kernel_rows(rng)
+    rows += mla_kernel_rows(rng)
     return rows
 
 
@@ -406,15 +529,27 @@ def _compare_logits(lk, lr) -> dict:
                 clear_rows_agree=bool(same[clear].all()))
 
 
-def _first_step_errors(cfg, params):
+# The kernel of each route of the first-step check: (paged, kv_quant) ->
+# (decode kernel, mixed-step kernel or None).
+OLMO_ROUTES = {(False, "off"): ("decode_attention", None),
+               (True, "off"): ("paged_decode_attention",
+                               "paged_chunk_attention"),
+               (True, "int8"): ("paged_decode_attention_quant",
+                                "paged_chunk_attention_quant")}
+MLA_ROUTES = {(True, "off"): ("paged_mla_decode", "paged_mla_chunk"),
+              (True, "int8"): ("paged_mla_decode_quant",
+                               "paged_mla_chunk_quant")}
+
+
+def _first_step_errors(cfg, params, routes):
     """One kernel-path step against the plain path from the same state,
-    for each of the three attention routes."""
+    for each route: a decode step, then (paged) a mixed step."""
     from repro_torch.models import attention, lm
     rng = np.random.default_rng(1)
     out = {}
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 128)),
                              device="cuda")
-    for paged, quant in ((False, "off"), (True, "off"), (True, "int8")):
+    for (paged, quant), (dec_name, chunk_name) in routes.items():
         cache = lm.init_cache(cfg, B, MAX_LEN, paged=paged, page_size=PS,
                               kv_quant=quant, device="cuda")
         if paged:
@@ -426,11 +561,8 @@ def _first_step_errors(cfg, params):
         twin = _clone(cache)
         lk, _ = lm.decode_step(params, cfg, tok, cache, pos, impl="kernel")
         lr, _ = lm.decode_step(params, cfg, tok, twin, pos, impl="ref")
-        sfx = "_quant" if quant != "off" else ""
-        name = ("paged_decode_attention" if paged
-                else "decode_attention") + sfx
-        out[name] = _compare_logits(lk, lr)
-        if paged:
+        out[dec_name] = _compare_logits(lk, lr)
+        if chunk_name is not None:
             twin = _clone(cache)
             span = torch.as_tensor([64, 33, 1, 1, 0, 64, 17, 2],
                                    dtype=torch.int32, device="cuda")
@@ -441,8 +573,7 @@ def _first_step_errors(cfg, params):
             lr, _ = lm.mixed_step(params, cfg, toks, twin, pos + 1, span,
                                   impl="ref")
             live = span > 0
-            out["paged_chunk_attention" + sfx] = _compare_logits(lk[live],
-                                                                 lr[live])
+            out[chunk_name] = _compare_logits(lk[live], lr[live])
     for name, c in out.items():
         if not (np.isfinite(c["max_abs_err"])
                 and c["max_abs_err"] <= LOGITS_ATOL
@@ -494,99 +625,142 @@ def _mid_run_check(cfg, params):
     return seen
 
 
-def serving_phase():
-    from repro_torch import configs
+def _serve(cfg, params, impl, **kw):
+    """The workload's 16 requests through its scheduler; returns (engine,
+    requests, wall s, launch counts of this run)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import lm
-    from repro_torch.serving.engine import Engine
-
-    cfg = configs.get(workload.ARCH)
-    t0 = time.perf_counter()
-    params = lm.init(cfg, seed=0, device="cuda")
+    eng = workload.engine(cfg, params, impl=impl, device="cuda", **kw)
+    reqs = workload.requests(cfg.vocab_size)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t, ops.launch_counts()
 
-    def serve(impl, **kw):
-        eng = workload.engine(cfg, params, impl=impl, device="cuda", **kw)
-        reqs = workload.requests(cfg.vocab_size)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = ops.launch_counts()
-        return eng, reqs, wall, counts
 
-    eng, reqs, wall, counts = serve("kernel")
-    peak = torch.cuda.max_memory_allocated()
-    if counts["paged_chunk_attention"] <= 0:
-        fail("the scheduler never launched paged_chunk_attention")
+def _check_answered(cfg, eng, reqs, label) -> None:
     n = workload.N_REQUESTS
     if eng.stats["completed"] != n or any(
             len(r.tokens) != workload.NEW_TOKENS
             or not all(0 <= t < cfg.vocab_size for t in r.tokens)
             for r in reqs):
-        fail(f"scheduler did not answer all {n} requests: {eng.stats}")
-    _, reqs_ref, wall_ref, _ = serve("ref")
+        fail(f"{label} did not answer all {n} requests: {eng.stats}")
+
+
+def _serve_report(eng, wall, counts) -> dict:
+    st = eng.stats
+    return dict(completed=st["completed"], steps=st["steps"],
+                gen_tokens=st["gen_tokens"],
+                prefill_tokens=st["prefill_tokens"],
+                prefill_chunks=st["prefill_chunks"],
+                peak_pages=st["peak_pages"], wall_s=wall,
+                tokens_per_s=st["gen_tokens"] / wall,
+                prompt_and_gen_tokens_per_s=(st["gen_tokens"]
+                                             + st["prefill_tokens"]) / wall,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches=counts)
+
+
+def _engine_generate(cfg, params, paged, kernel) -> dict:
+    """``Engine.generate`` (8 rows of 128 prompt tokens, 16 steps) through
+    the kernels and through the plain versions; ``kernel`` (None: the
+    route runs none) must have launched in the kernel run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, 128))
+    streams = {}
+    for impl in ("kernel", "ref"):
+        e = Engine(cfg, params, batch=B, max_len=MAX_LEN, paged=paged,
+                   page_size=PS, impl=impl, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        streams[impl] = e.generate(prompt, steps=16).cpu().numpy()
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            counts = ops.launch_counts()
+            wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated()
+            if kernel is not None and counts[kernel] <= 0:
+                fail(f"Engine(paged={paged}) never launched {kernel}")
+        del e
+    return dict(rows=B, prompt_len=128, steps=16, wall_s=wall,
+                tokens_per_s=B * 16 / wall, peak_mem_bytes=peak,
+                launches=counts,
+                greedy_agree_share=_agree_share(streams["kernel"],
+                                                streams["ref"]))
+
+
+def _init_params(cfg):
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def serving_phase():
+    from repro_torch import configs
+
+    cfg = configs.get(workload.ARCH)
+    params, init_s = _init_params(cfg)
+    results = {}
+    eng, reqs, wall, counts = _serve(cfg, params, "kernel")
+    if counts["paged_chunk_attention"] <= 0:
+        fail("the scheduler never launched paged_chunk_attention")
+    _check_answered(cfg, eng, reqs, "scheduler")
+    report = _serve_report(eng, wall, counts)
+    _, reqs_ref, wall_ref, _ = _serve(cfg, params, "ref")
     results["scheduler"] = dict(
-        requests=len(reqs), completed=eng.stats["completed"],
-        steps=eng.stats["steps"], gen_tokens=eng.stats["gen_tokens"],
-        prefill_tokens=eng.stats["prefill_tokens"],
-        prefill_chunks=eng.stats["prefill_chunks"],
-        peak_pages=eng.stats["peak_pages"], wall_s=wall,
-        tokens_per_s=eng.stats["gen_tokens"] / wall,
-        prompt_and_gen_tokens_per_s=(eng.stats["gen_tokens"]
-                                     + eng.stats["prefill_tokens"]) / wall,
-        peak_mem_bytes=peak, launches=counts, plain_wall_s=wall_ref,
+        report, requests=len(reqs), plain_wall_s=wall_ref,
         greedy_agree_share=_agree_share([r.tokens for r in reqs],
                                         [r.tokens for r in reqs_ref]))
 
     results["scheduler_mid_run_step"] = _mid_run_check(cfg, params)
 
     # The same workload over int8 page pools (paged_chunk_attention_quant).
-    eng, reqs, wall, counts = serve("kernel", kv_quant="int8")
+    eng, reqs, wall, counts = _serve(cfg, params, "kernel", kv_quant="int8")
     if counts["paged_chunk_attention_quant"] <= 0:
         fail("the int8 scheduler never launched paged_chunk_attention_quant")
-    if eng.stats["completed"] != n or any(
-            len(r.tokens) != workload.NEW_TOKENS for r in reqs):
-        fail(f"int8 scheduler did not answer all {n} requests: {eng.stats}")
-    results["scheduler_int8"] = dict(
-        completed=eng.stats["completed"], steps=eng.stats["steps"],
-        gen_tokens=eng.stats["gen_tokens"], wall_s=wall,
-        tokens_per_s=eng.stats["gen_tokens"] / wall,
-        peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=counts)
+    _check_answered(cfg, eng, reqs, "int8 scheduler")
+    results["scheduler_int8"] = _serve_report(eng, wall, counts)
 
-    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, 128))
-    for paged in (False, True):
-        name = "engine_paged" if paged else "engine_dense"
-        kernel = "paged_decode_attention" if paged else "decode_attention"
-        streams = {}
-        for impl in ("kernel", "ref"):
-            e = Engine(cfg, params, batch=B, max_len=MAX_LEN, paged=paged,
-                       page_size=PS, impl=impl, device="cuda")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ops.reset_launch_counts()
-            t = time.perf_counter()
-            streams[impl] = e.generate(prompt, steps=16).cpu().numpy()
-            torch.cuda.synchronize()
-            if impl == "kernel":
-                counts = ops.launch_counts()
-                wall = time.perf_counter() - t
-                peak = torch.cuda.max_memory_allocated()
-                if counts[kernel] <= 0:
-                    fail(f"Engine({name}) never launched {kernel}")
-            del e
-        results[name] = dict(
-            rows=B, prompt_len=128, steps=16, wall_s=wall,
-            tokens_per_s=B * 16 / wall, peak_mem_bytes=peak,
-            launches=counts,
-            greedy_agree_share=_agree_share(streams["kernel"],
-                                            streams["ref"]))
-    results["first_step_logits"] = _first_step_errors(cfg, params)
+    results["engine_dense"] = _engine_generate(cfg, params, False,
+                                               "decode_attention")
+    results["engine_paged"] = _engine_generate(cfg, params, True,
+                                               "paged_decode_attention")
+    results["first_step_logits"] = _first_step_errors(cfg, params,
+                                                      OLMO_ROUTES)
+    results["init_s"] = init_s
+    return cfg, params, results
+
+
+def mla_serving_phase():
+    """The MLA workload (``workload.mla_config()``, full width): the
+    scheduler on bf16 and on int8 latent pools, ``Engine.generate`` on the
+    dense and the paged latent cache, and the first-step kernel-vs-plain
+    logits of the two paged routes."""
+    cfg = workload.mla_config()
+    params, init_s = _init_params(cfg)
+    results = {}
+    for quant, kernel, name in (("off", "paged_mla_chunk", "scheduler"),
+                                ("int8", "paged_mla_chunk_quant",
+                                 "scheduler_int8")):
+        eng, reqs, wall, counts = _serve(cfg, params, "kernel",
+                                         kv_quant=quant)
+        if counts[kernel] <= 0:
+            fail(f"the MLA {name} never launched {kernel}")
+        _check_answered(cfg, eng, reqs, f"MLA {name}")
+        results[name] = _serve_report(eng, wall, counts)
+    # The dense latent cache runs no kernel (plain matmuls, as in JAX).
+    results["engine_dense"] = _engine_generate(cfg, params, False, None)
+    results["engine_paged"] = _engine_generate(cfg, params, True,
+                                               "paged_mla_decode")
+    results["first_step_logits"] = _first_step_errors(cfg, params,
+                                                      MLA_ROUTES)
     results["init_s"] = init_s
     return cfg, params, results
 
@@ -696,48 +870,51 @@ def _capture_mid_trial(cfg, params, task) -> dict:
     return snap
 
 
+def _run_trial(cfg, params, task, name, kw) -> dict:
+    """One full-width trial run; it must converge within the step valve."""
+    from repro_torch.agents import orchestrator
+    from repro_torch.kernels import ops
+    kw = {**TRIAL, **kw}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    r = orchestrator.run_task(cfg, params, task, device="cuda", **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    res = dict(run=name, model=cfg.name, task=task.name, mode=r.mode,
+               n_agents=r.n_agents, kv=r.kv_mode, prefill=r.prefill_mode,
+               kv_quant=kw["kv_quant"], merge=r.merge_strategy,
+               wall_s=r.wall_s, steps=r.steps, gen_tokens=r.gen_tokens,
+               replay_tokens=r.replay_tokens, tokens_per_s=r.tokens_per_s,
+               invalidations=r.invalidations,
+               claim_collisions=r.claim_collisions,
+               sync_rounds=r.sync_rounds, sync_bytes=r.sync_bytes,
+               shared_prefix_pages=r.shared_prefix_pages,
+               semantic_conflicts=r.semantic_conflicts,
+               declared_symbols=r.declared_symbols,
+               converged=r.converged, digest=r.digest,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=counts)
+    emit({"trial": res})
+    if not (r.converged and r.steps <= STEP_VALVE
+            and r.gen_tokens >= task.n_todos):
+        fail(f"trial ({name}) did not finish: {res}")
+    return res
+
+
 def trial_phase(cfg, params) -> tuple[dict, dict]:
     """The four full-width trial runs, then the mid-trial check from a
     state captured in a run of its own; returns (results, launch counts of
     run (a), the quantized kernels' main path)."""
-    from repro_torch.agents import orchestrator
     from repro_torch.agents.tasks import TASKS
-    from repro_torch.kernels import ops
     task = TASKS[TRIAL_TASK]
     runs = {"a": dict(mode="parallel", merge="allgather"),
             "b": dict(mode="parallel", merge="delta"),
             "c": dict(mode="sequential", merge="allgather"),
             "d": dict(mode="parallel", merge="allgather", kv="dense",
                       prefill="replay", kv_quant="off")}
-    results = {}
-    for name, kw in runs.items():
-        kw = {**TRIAL, **kw}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        r = orchestrator.run_task(cfg, params, task, device="cuda", **kw)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        res = dict(run=name, task=task.name, mode=r.mode, n_agents=r.n_agents,
-                   kv=r.kv_mode, prefill=r.prefill_mode,
-                   kv_quant=kw["kv_quant"], merge=r.merge_strategy,
-                   wall_s=r.wall_s, steps=r.steps, gen_tokens=r.gen_tokens,
-                   replay_tokens=r.replay_tokens,
-                   tokens_per_s=r.tokens_per_s,
-                   invalidations=r.invalidations,
-                   claim_collisions=r.claim_collisions,
-                   sync_rounds=r.sync_rounds, sync_bytes=r.sync_bytes,
-                   shared_prefix_pages=r.shared_prefix_pages,
-                   semantic_conflicts=r.semantic_conflicts,
-                   declared_symbols=r.declared_symbols,
-                   converged=r.converged, digest=r.digest,
-                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                   launches=counts)
-        emit({"trial": res})
-        if not (r.converged and r.steps <= STEP_VALVE
-                and r.gen_tokens >= task.n_todos):
-            fail(f"trial ({name}) did not finish: {res}")
-        results[name] = res
+    results = {name: _run_trial(cfg, params, task, name, kw)
+               for name, kw in runs.items()}
     a, b = results["a"], results["b"]
     if a["digest"] != b["digest"] or a["gen_tokens"] != b["gen_tokens"]:
         fail(f"trial (a) and (b) differ: digests {a['digest']} / "
@@ -753,6 +930,20 @@ def trial_phase(cfg, params) -> tuple[dict, dict]:
     snap = _capture_mid_trial(cfg, params, task)
     results["mid_trial_step"] = _mid_trial_check(cfg, params, snap)
     return results, a["launches"]
+
+
+def mla_trial(cfg, params) -> dict:
+    """Trial run (e): (a)'s configuration (parallel, paged, chunked, int8
+    pools, allgather) on the MLA model; its mixed steps run
+    paged_mla_chunk_quant and the outliner's decode steps
+    paged_mla_decode_quant."""
+    from repro_torch.agents.tasks import TASKS
+    res = _run_trial(cfg, params, TASKS[TRIAL_TASK], "e",
+                     dict(mode="parallel", merge="allgather"))
+    for k in ("paged_mla_chunk_quant", "paged_mla_decode_quant"):
+        if res["launches"][k] <= 0:
+            fail(f"trial (e) never launched {k}")
+    return res
 
 
 def main() -> int:
@@ -781,9 +972,23 @@ def main() -> int:
     emit({"serving": serving, "card": card})
     trial, trial_counts = trial_phase(cfg, params)
     emit({"trial_mid_step": trial["mid_trial_step"], "card": card})
-    # Launches: the float kernels on the serving workload, the quantized
-    # kernels on trial (a), each path's counts read right after its run.
-    launches = {"paged_chunk_attention":
+    del params                  # the MLA model takes the card's memory next
+    torch.cuda.empty_cache()
+    mla_cfg, mla_params, mla_serving = mla_serving_phase()
+    emit({"mla_serving": mla_serving, "card": card})
+    trial_e = mla_trial(mla_cfg, mla_params)
+    # Launches: the float kernels on the serving workloads, the quantized
+    # kernels on trials (a) and (e), each path's counts read right after
+    # its run.
+    launches = {"paged_mla_chunk":
+                mla_serving["scheduler"]["launches"]["paged_mla_chunk"],
+                "paged_mla_decode":
+                mla_serving["engine_paged"]["launches"]["paged_mla_decode"],
+                "paged_mla_chunk_quant":
+                trial_e["launches"]["paged_mla_chunk_quant"],
+                "paged_mla_decode_quant":
+                trial_e["launches"]["paged_mla_decode_quant"],
+                "paged_chunk_attention":
                 serving["scheduler"]["launches"]["paged_chunk_attention"],
                 "paged_decode_attention":
                 serving["engine_paged"]["launches"]["paged_decode_attention"],

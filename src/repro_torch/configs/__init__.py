@@ -8,11 +8,12 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.olmo_1b import CONFIG as olmo_1b
+from repro_torch.configs import deepseek_v2_lite_16b, olmo_1b
 from repro_torch.models.config import (EncoderConfig, MLAConfig, ModelConfig,
                                        MoEConfig)
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [olmo_1b]}
+ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (olmo_1b, deepseek_v2_lite_16b)}
 
 
 def get(name: str) -> ModelConfig:

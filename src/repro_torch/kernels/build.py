@@ -27,7 +27,9 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("decode_attention", "paged_decode_attention",
            "paged_chunk_attention", "paged_decode_attention_quant",
-           "paged_chunk_attention_quant")
+           "paged_chunk_attention_quant", "paged_mla_decode",
+           "paged_mla_chunk", "paged_mla_decode_quant",
+           "paged_mla_chunk_quant")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -124,15 +126,46 @@ def ptr(kernel: str, name: str, t: torch.Tensor, device: torch.device, *,
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_dims(kernel: str, dtype: torch.dtype, head_dim: int) -> int:
-    """The kernel's dtype code; raises on a dtype or head_dim it lacks."""
+def dtype_code(kernel: str, dtype: torch.dtype) -> int:
+    """The kernel's code for a float dtype; raises on others."""
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{kernel}: dtype {dtype} is not supported "
                          f"(float32, bfloat16)")
+    return DTYPE_CODES[dtype]
+
+
+def check_dims(kernel: str, dtype: torch.dtype, head_dim: int) -> int:
+    """The kernel's dtype code; raises on a dtype or head_dim it lacks."""
+    code = dtype_code(kernel, dtype)
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{kernel}: head_dim {head_dim} is not supported "
                          f"{HEAD_DIMS}")
-    return DTYPE_CODES[dtype]
+    return code
+
+
+MLA_MAX_R = 512        # value columns: at most 4 per thread of 128
+MLA_MAX_L = 1024       # live latent width: q and key tiles in shared memory
+
+
+def check_mla(kernel: str, q: torch.Tensor, latent_pages: torch.Tensor,
+              r: int) -> tuple[int, int, int]:
+    """(r, rd, Dp) of an MLA call; raises on what the kernels cannot take:
+    q not float32, widths past the kernels' limits, or a pool row that is
+    not whole 16-byte loads."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"{kernel}: q is {q.dtype}, expected float32 "
+                         f"(concat(q_abs, q_rope))")
+    rd = q.shape[-1] - r
+    dp = latent_pages.shape[-1]
+    if not 0 < r <= MLA_MAX_R or rd < 0 or r + rd > MLA_MAX_L:
+        raise ValueError(f"{kernel}: kv_lora_rank {r} / rope_dim {rd} not "
+                         f"supported (r <= {MLA_MAX_R}, r + rd <= "
+                         f"{MLA_MAX_L})")
+    if dp < r + rd or (dp * latent_pages.element_size()) % 16:
+        raise ValueError(f"{kernel}: latent pool width {dp} must hold "
+                         f"r + rd = {r + rd} features in whole 16-byte "
+                         f"loads")
+    return r, rd, dp
 
 
 def check_quant(kernel: str, dtype: torch.dtype) -> int:

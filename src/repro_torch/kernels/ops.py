@@ -23,6 +23,14 @@ counterpart here.
         q, kp, ks, vp, vs, bt, pos, kn, vn)              # int8 / fp8 pools
     out, kp, vp, ks, vs = ops.paged_chunk_attention_quant(
         q, kp, ks, vp, vs, bt, start, span, kn, vn)
+    ctx, lp = ops.paged_mla_decode(q_abs, q_rope, lp, bt, pos, ln,
+                                   scale=s)              # MLA latent pool
+    ctx, lp = ops.paged_mla_chunk(q_abs, q_rope, lp, bt, start, span, ln,
+                                  scale=s)
+    ctx, lp, ls = ops.paged_mla_decode_quant(q_abs, q_rope, lp, ls, bt, pos,
+                                             ln, scale=s)
+    ctx, lp, ls = ops.paged_mla_chunk_quant(q_abs, q_rope, lp, ls, bt,
+                                            start, span, ln, scale=s)
 """
 from __future__ import annotations
 
@@ -33,12 +41,19 @@ from repro_torch.kernels import paged_chunk_attention as _pchunk
 from repro_torch.kernels import paged_chunk_attention_quant as _pchunk_q
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import paged_decode_attention_quant as _pdec_q
+from repro_torch.kernels import paged_mla_chunk as _mchunk
+from repro_torch.kernels import paged_mla_chunk_quant as _mchunk_q
+from repro_torch.kernels import paged_mla_decode as _mdec
+from repro_torch.kernels import paged_mla_decode_quant as _mdec_q
 from repro_torch.kernels import ref
 
 KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
            "paged_chunk_attention": _pchunk,
            "paged_decode_attention_quant": _pdec_q,
-           "paged_chunk_attention_quant": _pchunk_q}
+           "paged_chunk_attention_quant": _pchunk_q,
+           "paged_mla_decode": _mdec, "paged_mla_chunk": _mchunk,
+           "paged_mla_decode_quant": _mdec_q,
+           "paged_mla_chunk_quant": _mchunk_q}
 
 
 def launch_counts() -> dict[str, int]:
@@ -185,3 +200,123 @@ def paged_chunk_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
         block_tables.to(torch.int32).contiguous(),
         start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
         k_new.contiguous(), v_new.contiguous(), scale=scale, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Paged MLA: absorbed-weight attention over a latent page pool [P, ps, Dp]
+# ---------------------------------------------------------------------------
+
+def _mla_widths(q_abs, q_rope, latent_pages) -> tuple[int, int]:
+    r, rd = q_abs.shape[-1], q_rope.shape[-1]
+    dp = latent_pages.shape[-1]
+    if dp < r + rd:
+        raise ValueError(f"latent pool width {dp} < kv_lora_rank + rope_dim "
+                         f"= {r + rd}")
+    return r, rd
+
+
+def _mla_q(q_abs, q_rope) -> torch.Tensor:
+    """The kernels' query: concat(q_abs, q_rope) in float32, one
+    contraction over the latent row's r + rd live features."""
+    return torch.cat([q_abs.float(), q_rope.float()], dim=-1).contiguous()
+
+
+def paged_mla_decode(q_abs, q_rope, latent_pages, block_tables, pos,
+                     latent_new, *, scale: float, impl: str = "kernel"):
+    """Fused write-attend MLA decode over a paged latent cache.
+
+    q_abs: [B, H, r] absorbed queries; q_rope: [B, H, rd]; latent_pages:
+    [P, ps, Dp] with Dp >= r + rd; block_tables: i32[B, maxp]; pos: i32[B];
+    latent_new: [B, Dp].  Returns (ctx [B, H, r] float32, latent_pages)
+    with the token's row written at slot ``pos`` in place.  ``pos`` is
+    clamped to the table's capacity on both paths.
+    """
+    r, _ = _mla_widths(q_abs, q_rope, latent_pages)
+    ps = latent_pages.shape[1]
+    pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
+    latent_new = latent_new.to(latent_pages.dtype)
+    if _plain(q_abs, impl):
+        return ref.paged_mla_decode(q_abs, q_rope, latent_pages,
+                                    block_tables, pos, latent_new, r=r,
+                                    scale=scale)
+    return _mdec.paged_mla_decode(
+        _mla_q(q_abs, q_rope), latent_pages,
+        block_tables.to(torch.int32).contiguous(),
+        pos.to(torch.int32).contiguous(), latent_new.contiguous(), r=r,
+        scale=scale)
+
+
+def paged_mla_chunk(q_abs, q_rope, latent_pages, block_tables, start, span,
+                    latent_new, *, scale: float, impl: str = "kernel"):
+    """Chunked mixed-step MLA over a paged latent cache, span write fused.
+
+    q_abs: [B, H, C, r]; q_rope: [B, H, C, rd]; latent_pages: [P, ps, Dp]
+    with Dp >= r + rd; block_tables: i32[B, maxp]; start/span: i32[B];
+    latent_new: [B, C, Dp].  Returns (ctx [B, H, C, r] float32,
+    latent_pages) with the span written in place.  ``start`` is clamped to
+    the table's capacity and ``span`` clipped to [0, C] on both paths.
+    """
+    r, _ = _mla_widths(q_abs, q_rope, latent_pages)
+    ps = latent_pages.shape[1]
+    start = start.clamp(max=block_tables.shape[1] * ps - 1)
+    span = span.clamp(0, q_abs.shape[2])
+    latent_new = latent_new.to(latent_pages.dtype)
+    if _plain(q_abs, impl):
+        return ref.paged_mla_chunk(q_abs, q_rope, latent_pages,
+                                   block_tables, start, span, latent_new,
+                                   r=r, scale=scale)
+    return _mchunk.paged_mla_chunk(
+        _mla_q(q_abs, q_rope), latent_pages,
+        block_tables.to(torch.int32).contiguous(),
+        start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
+        latent_new.contiguous(), r=r, scale=scale)
+
+
+def paged_mla_decode_quant(q_abs, q_rope, latent_pages, latent_scales,
+                           block_tables, pos, latent_new, *, scale: float,
+                           impl: str = "kernel"):
+    """Quantized-pool fused write-attend MLA decode.
+
+    The contract of ``paged_mla_decode`` with an int8 / float8_e4m3fn
+    latent pool and f32 row scales (latent_scales: [P, ps]); latent_new
+    arrives float32 or bf16 [B, Dp] and is quantized, pad columns
+    included, in the fused write.  Returns (ctx, latent_pages,
+    latent_scales), pool and scales in place.
+    """
+    r, _ = _mla_widths(q_abs, q_rope, latent_pages)
+    ps = latent_pages.shape[1]
+    pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
+    if _plain(q_abs, impl):
+        return ref.paged_mla_decode_quant(
+            q_abs, q_rope, latent_pages, latent_scales, block_tables, pos,
+            latent_new, r=r, scale=scale)
+    return _mdec_q.paged_mla_decode_quant(
+        _mla_q(q_abs, q_rope), latent_pages, latent_scales,
+        block_tables.to(torch.int32).contiguous(),
+        pos.to(torch.int32).contiguous(), latent_new.contiguous(), r=r,
+        scale=scale)
+
+
+def paged_mla_chunk_quant(q_abs, q_rope, latent_pages, latent_scales,
+                          block_tables, start, span, latent_new, *,
+                          scale: float, impl: str = "kernel"):
+    """Quantized-pool chunked mixed-step MLA.
+
+    The contract of ``paged_mla_chunk`` with an int8 / float8_e4m3fn
+    latent pool and f32 row scales [P, ps]; latent_new arrives float32 or
+    bf16 [B, C, Dp] and is quantized in the fused multi-slot write.
+    Returns (ctx, latent_pages, latent_scales).
+    """
+    r, _ = _mla_widths(q_abs, q_rope, latent_pages)
+    ps = latent_pages.shape[1]
+    start = start.clamp(max=block_tables.shape[1] * ps - 1)
+    span = span.clamp(0, q_abs.shape[2])
+    if _plain(q_abs, impl):
+        return ref.paged_mla_chunk_quant(
+            q_abs, q_rope, latent_pages, latent_scales, block_tables, start,
+            span, latent_new, r=r, scale=scale)
+    return _mchunk_q.paged_mla_chunk_quant(
+        _mla_q(q_abs, q_rope), latent_pages, latent_scales,
+        block_tables.to(torch.int32).contiguous(),
+        start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
+        latent_new.contiguous(), r=r, scale=scale)

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the attention kernels (the correctness contract),
-float and quantized pools.
+float and quantized pools, MHA and MLA.
 
 Each function is the mathematical definition with no tiling, line for line
 in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
 ``ops.py`` runs these, and on the card each CUDA kernel is held against
-them.  Accumulation is float32 and outputs come back in the query's dtype.
+them.  Accumulation is float32; the MHA outputs come back in the query's
+dtype, the MLA contexts in float32 (as JAX's).
 
 Unlike the JAX oracles, which return fresh pools, the paged versions write
 the new K/V into the pools IN PLACE and return the same tensors — the port
@@ -60,6 +61,27 @@ def _scatter_rows(pages: torch.Tensor, pg: torch.Tensor, slot: torch.Tensor,
     pages[pg[keep].long(), :, slot[keep].long(), :] = rows[keep].to(pages.dtype)
 
 
+def _token_slot(block_tables, pos, ps: int):
+    """Page, slot and keep mask of the token write at ``pos``: -1 pages and
+    positions past the table drop."""
+    maxp = block_tables.shape[1]
+    widx = (pos // ps).clamp(max=maxp - 1)
+    pg = block_tables.long().gather(1, widx[:, None])[:, 0]
+    return pg, pos % ps, (pg >= 0) & (pos < maxp * ps)
+
+
+def _span_slots(block_tables, start, span, c: int, ps: int):
+    """Pages, slots and the keep mask of the span writes: token j < span[b]
+    of row b goes to page bt[b, (start+j)//ps] slot (start+j)%ps; -1 pages,
+    positions past the table and j >= span drop.  Also the positions."""
+    maxp = block_tables.shape[1]
+    j = torch.arange(c, device=start.device)
+    tpos = start[:, None] + j[None, :]                               # [B, C]
+    pg = block_tables.long().gather(1, (tpos // ps).clamp(0, maxp - 1))
+    keep = (pg >= 0) & (tpos < maxp * ps) & (j[None, :] < span[:, None])
+    return pg, tpos % ps, keep, tpos
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            pos: torch.Tensor, k_new: torch.Tensor,
@@ -78,14 +100,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """
     hq, d = q.shape[1], q.shape[2]
     ps = k_pages.shape[2]
-    maxp = block_tables.shape[1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     pos = pos.to(q.device).long()
 
-    widx = (pos // ps).clamp(max=maxp - 1)
-    pg_w = block_tables.long().gather(1, widx[:, None])[:, 0]
-    keep = (pg_w >= 0) & (pos < maxp * ps)
-    slot_w = pos % ps
+    pg_w, slot_w, keep = _token_slot(block_tables, pos, ps)
     _scatter_rows(k_pages, pg_w, slot_w, k_new, keep)
     _scatter_rows(v_pages, pg_w, slot_w, v_new, keep)
 
@@ -123,16 +141,11 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """
     b, hq, c, d = q.shape
     ps = k_pages.shape[2]
-    maxp = block_tables.shape[1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     start = start.to(q.device).long()
     span = span.to(q.device).long()
 
-    j = torch.arange(c, device=q.device)
-    tpos = start[:, None] + j[None, :]                               # [B, C]
-    pg = block_tables.long().gather(1, (tpos // ps).clamp(0, maxp - 1))
-    keep = (pg >= 0) & (tpos < maxp * ps) & (j[None, :] < span[:, None])
-    slot = tpos % ps
+    pg, slot, keep, tpos = _span_slots(block_tables, start, span, c, ps)
     _scatter_rows(k_pages, pg, slot, k_new.transpose(1, 2), keep)
     _scatter_rows(v_pages, pg, slot, v_new.transpose(1, 2), keep)
 
@@ -207,14 +220,10 @@ def paged_decode_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
     runs over the dequantized pools.  Returns (out, k_pages, v_pages,
     k_scales, v_scales)."""
     ps = k_pages.shape[2]
-    maxp = block_tables.shape[1]
     pos = pos.to(q.device).long()
     kq, ks = quantize_rows(k_new, k_pages.dtype)          # [B,Hkv,D],[B,Hkv]
     vq, vs = quantize_rows(v_new, v_pages.dtype)
-    widx = (pos // ps).clamp(max=maxp - 1)
-    pg_w = block_tables.long().gather(1, widx[:, None])[:, 0]
-    keep = (pg_w >= 0) & (pos < maxp * ps)
-    slot_w = pos % ps
+    pg_w, slot_w, keep = _token_slot(block_tables, pos, ps)
     for pool, scl, rows, srows in ((k_pages, k_scales, kq, ks),
                                    (v_pages, v_scales, vq, vs)):
         _scatter_rows(pool, pg_w, slot_w, rows, keep)
@@ -237,16 +246,11 @@ def paged_chunk_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
     v_pages, k_scales, v_scales)."""
     c = q.shape[2]
     ps = k_pages.shape[2]
-    maxp = block_tables.shape[1]
     start = start.to(q.device).long()
     span = span.to(q.device).long()
     kq, ks = quantize_rows(k_new.transpose(1, 2), k_pages.dtype)  # [B,C,Hkv,.]
     vq, vs = quantize_rows(v_new.transpose(1, 2), v_pages.dtype)
-    j = torch.arange(c, device=q.device)
-    tpos = start[:, None] + j[None, :]                               # [B, C]
-    pg = block_tables.long().gather(1, (tpos // ps).clamp(0, maxp - 1))
-    keep = (pg >= 0) & (tpos < maxp * ps) & (j[None, :] < span[:, None])
-    slot = tpos % ps
+    pg, slot, keep, _ = _span_slots(block_tables, start, span, c, ps)
     for pool, scl, rows, srows in ((k_pages, k_scales, kq, ks),
                                    (v_pages, v_scales, vq, vs)):
         _scatter_rows(pool, pg, slot, rows, keep)
@@ -257,3 +261,119 @@ def paged_chunk_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
         dequantize_rows(kq, ks).transpose(1, 2),
         dequantize_rows(vq, vs).transpose(1, 2), scale=scale, window=window)
     return out, k_pages, v_pages, k_scales, v_scales
+
+
+# ---------------------------------------------------------------------------
+# Paged MLA (absorbed-weight attention over a latent page pool)
+# ---------------------------------------------------------------------------
+#
+# A latent pool [P, ps, Dp] stores one row concat([ckv; krope]) per token in
+# its first r + rd features (Dp is padded to a multiple of 128 at init; the
+# pad columns are copied with the row and never scored).  Every head's
+# query scores the same row: logits = q_abs·ckv + q_rope·krope, and the
+# context is softmax·ckv, r wide, in float32.
+
+def _gather_latent(pages: torch.Tensor, block_tables: torch.Tensor
+                   ) -> torch.Tensor:
+    """[P, ps, Dp] pool through [B, maxp] tables -> [B, maxp*ps, Dp]; -1
+    entries read page 0, as in ``_gather_pages``."""
+    b = block_tables.shape[0]
+    return pages[block_tables.clamp(min=0).long()].reshape(
+        b, -1, pages.shape[-1])
+
+
+def _mla_attend(q_abs, q_rope, lg, tpos, r: int, scale: float):
+    """q_abs: [B, H, C, r]; q_rope: [B, H, C, rd]; lg: gathered latent rows
+    [B, S, Dp]; tpos: [B, C] query positions (keys <= tpos attend)."""
+    rd = q_rope.shape[-1]
+    ckv = lg[..., :r].float()
+    krope = lg[..., r:r + rd].float()
+    logits = (torch.einsum("bhcr,bsr->bhcs", q_abs.float(), ckv)
+              + torch.einsum("bhcr,bsr->bhcs", q_rope.float(), krope)) * scale
+    cols = torch.arange(lg.shape[1], device=lg.device)[None, None, :]
+    valid = cols <= tpos[:, :, None]
+    logits = logits.masked_fill(~valid[:, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhcs,bsr->bhcr", probs, ckv)
+
+
+def paged_mla_chunk(q_abs, q_rope, latent_pages, block_tables, start, span,
+                    latent_new, *, r: int, scale: float):
+    """Chunked mixed-step MLA against a paged latent cache, writes included.
+
+    q_abs: [B, H, C, r] absorbed queries; q_rope: [B, H, C, rd];
+    latent_pages: [P, ps, Dp]; block_tables: i32[B, maxp]; start/span:
+    i32[B]; latent_new: [B, C, Dp].  Writes the span's latent rows (in
+    place), then query j attends over the row's start + j + 1 rows.
+    Returns (ctx [B, H, C, r] float32, latent_pages); ctx at j >= span is
+    garbage."""
+    ps = latent_pages.shape[1]
+    start = start.to(q_abs.device).long()
+    span = span.to(q_abs.device).long()
+    pg, slot, keep, tpos = _span_slots(block_tables, start, span,
+                                       latent_new.shape[1], ps)
+    latent_pages[pg[keep], slot[keep]] = latent_new[keep].to(
+        latent_pages.dtype)
+    ctx = _mla_attend(q_abs, q_rope, _gather_latent(latent_pages,
+                                                    block_tables),
+                      tpos, r, scale)
+    return ctx, latent_pages
+
+
+def paged_mla_decode(q_abs, q_rope, latent_pages, block_tables, pos,
+                     latent_new, *, r: int, scale: float):
+    """Single-token MLA decode against a paged latent cache, write included.
+
+    q_abs: [B, H, r]; q_rope: [B, H, rd]; latent_pages: [P, ps, Dp];
+    block_tables: i32[B, maxp]; pos: i32[B]; latent_new: [B, Dp].  Writes
+    the token's row at slot ``pos`` (dropped for -1 pages and past the
+    table), then attends over the row's pos + 1 rows.  Returns (ctx
+    [B, H, r] float32, latent_pages)."""
+    ps = latent_pages.shape[1]
+    pos = pos.to(q_abs.device).long()
+    pg, slot, keep = _token_slot(block_tables, pos, ps)
+    latent_pages[pg[keep], slot[keep]] = latent_new[keep].to(
+        latent_pages.dtype)
+    ctx = _mla_attend(q_abs[:, :, None], q_rope[:, :, None],
+                      _gather_latent(latent_pages, block_tables),
+                      pos[:, None], r, scale)
+    return ctx[:, :, 0], latent_pages
+
+
+def paged_mla_chunk_quant(q_abs, q_rope, latent_pages, latent_scales,
+                          block_tables, start, span, latent_new, *,
+                          r: int, scale: float):
+    """Quantized ``paged_mla_chunk``: latent pool [P, ps, Dp] int8/fp8 +
+    f32 scales [P, ps].  The span's Dp-wide rows (pad columns included)
+    quantize per row into the pool and scales in place; the attend runs
+    over the dequantized pool.  Returns (ctx, latent_pages,
+    latent_scales)."""
+    ps = latent_pages.shape[1]
+    start = start.to(q_abs.device).long()
+    span = span.to(q_abs.device).long()
+    lq, ls = quantize_rows(latent_new, latent_pages.dtype)    # [B,C,Dp],[B,C]
+    pg, slot, keep, _ = _span_slots(block_tables, start, span,
+                                    latent_new.shape[1], ps)
+    latent_pages[pg[keep], slot[keep]] = lq[keep]
+    latent_scales[pg[keep], slot[keep]] = ls[keep]
+    ctx, _ = paged_mla_chunk(
+        q_abs, q_rope, dequantize_rows(latent_pages, latent_scales),
+        block_tables, start, span, dequantize_rows(lq, ls), r=r, scale=scale)
+    return ctx, latent_pages, latent_scales
+
+
+def paged_mla_decode_quant(q_abs, q_rope, latent_pages, latent_scales,
+                           block_tables, pos, latent_new, *, r: int,
+                           scale: float):
+    """Quantized ``paged_mla_decode``: the token's Dp-wide row quantizes
+    into slot ``pos``.  Returns (ctx, latent_pages, latent_scales)."""
+    ps = latent_pages.shape[1]
+    pos = pos.to(q_abs.device).long()
+    lq, ls = quantize_rows(latent_new, latent_pages.dtype)      # [B,Dp],[B]
+    pg, slot, keep = _token_slot(block_tables, pos, ps)
+    latent_pages[pg[keep], slot[keep]] = lq[keep]
+    latent_scales[pg[keep], slot[keep]] = ls[keep]
+    ctx, _ = paged_mla_decode(
+        q_abs, q_rope, dequantize_rows(latent_pages, latent_scales),
+        block_tables, pos, dequantize_rows(lq, ls), r=r, scale=scale)
+    return ctx, latent_pages, latent_scales

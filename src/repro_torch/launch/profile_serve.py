@@ -1,12 +1,15 @@
 """Where the time of full-width paged serving goes, on one CUDA card.
 
-Runs the serving workload of ``launch/workload.py`` (the one
-``chip_smoke.py`` checks) once to warm up, once unprofiled, then once under
-``torch.profiler``, and prints one JSON object: wall time with and without
-the profiler, device-busy time (kernel time summed over the profiled run)
-and its share of the unprofiled wall time, and device time by kernel.
+Runs a serving workload of ``launch/workload.py`` (the ones
+``chip_smoke.py`` checks: ``--model olmo``, OLMo-1B, or ``--model mla``,
+DeepSeek-V2-Lite with dense FFNs) once to warm up, once unprofiled, then
+once under ``torch.profiler``, and prints one JSON object: wall time with
+and without the profiler, device-busy time (kernel time summed over the
+profiled run) and its share of the unprofiled wall time, and device time
+by kernel.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--top 15]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--model olmo|mla] [--top 15]
 """
 from __future__ import annotations
 
@@ -27,13 +30,15 @@ from repro_torch.serving.scheduler import ContinuousBatchingEngine
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="olmo", choices=["olmo", "mla"])
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
     build.build()
-    cfg = configs.get(workload.ARCH)
+    cfg = (configs.get(workload.ARCH) if args.model == "olmo"
+           else workload.mla_config())
     params = lm.init(cfg, seed=args.seed, device=dev)
 
     def run() -> tuple[ContinuousBatchingEngine, float]:
@@ -58,7 +63,7 @@ def main() -> None:
     rows.sort(reverse=True)
     busy_us = sum(t for t, _, _ in rows)
     print(json.dumps({
-        "card": torch.cuda.get_device_name(dev),
+        "card": torch.cuda.get_device_name(dev), "model": cfg.name,
         "steps": eng.stats["steps"], "gen_tokens": eng.stats["gen_tokens"],
         "prefill_tokens": eng.stats["prefill_tokens"],
         "wall_s": wall_plain, "wall_s_profiled": wall,

@@ -113,22 +113,27 @@ def default_block_tables(batch: int, max_len: int, page_size: int,
                         device=device).reshape(batch, maxp)
 
 
+def _prefill_slots(bt: torch.Tensor, t: int, ps: int,
+                   lengths: Optional[torch.Tensor]):
+    """Pages, slots and keep mask, each [B, T], of a prompt's cache writes
+    through the block tables ``bt``.  Dropped: -1 table entries, positions
+    past the table, and positions >= lengths[b] (right-padding of a ragged
+    batch), so a prefill touches only the prefilled rows' pages."""
+    maxp = bt.shape[1]
+    tpos = torch.arange(t, device=bt.device)
+    pg = bt.long()[:, (tpos // ps).clamp(max=maxp - 1)]
+    keep = (pg >= 0) & (tpos[None, :] < maxp * ps)
+    if lengths is not None:
+        keep &= tpos[None, :] < lengths.to(bt.device)[:, None]
+    return pg, (tpos % ps)[None, :].expand_as(pg), keep
+
+
 def _paged_prefill_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
                          lengths: Optional[torch.Tensor]) -> Params:
     """Scatter a prompt's K/V ([B, Hkv, T, D]) into the row's pages, in
-    place.  Dropped: -1 table entries, positions past the table, and
-    positions >= lengths[b] (right-padding of a ragged batch), so a prefill
-    touches only the prefilled rows' pages."""
-    bt = cache["block_tables"]
-    ps = cache["k_pages"].shape[2]
-    maxp = bt.shape[1]
-    t = k.shape[2]
-    tpos = torch.arange(t, device=k.device)
-    pg = bt.long()[:, (tpos // ps).clamp(max=maxp - 1)]          # [B, T]
-    keep = (pg >= 0) & (tpos[None, :] < maxp * ps)
-    if lengths is not None:
-        keep &= tpos[None, :] < lengths.to(k.device)[:, None]
-    slot = (tpos % ps)[None, :].expand_as(pg)
+    place, through ``_prefill_slots``."""
+    pg, slot, keep = _prefill_slots(cache["block_tables"], k.shape[2],
+                                    cache["k_pages"].shape[2], lengths)
     quantized = "k_scales" in cache
     for name, new in (("k_pages", k), ("v_pages", v)):
         pool = cache[name]
@@ -187,10 +192,10 @@ def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     return proj, cache
 
 
-def _not_ported(layout) -> NotImplementedError:
-    return NotImplementedError(
-        f"attention over a {layout!r} cache is not ported yet (MLA: "
-        "ROADMAP.md queue 1 item 10)")
+def _wrong_layout(layout) -> ValueError:
+    return ValueError(
+        f"the attn kind runs on dense and paged_mha caches, not on a "
+        f"{layout!r} cache")
 
 
 def _paged_attend(float_op, quant_op, cache: Params, q, idx, k, v, **kw):
@@ -229,7 +234,7 @@ def mixed_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
                             window=cfg.window, impl=impl)
         return common.dense(p["wo"], _merge_heads(out).to(x.dtype)), cache
     if layout != "dense":
-        raise _not_ported(layout)
+        raise _wrong_layout(layout)
     # Dense cache: no ring wrap (S >= start + span).  Write the span via a
     # position gather (slot s takes span token s - start when that offset
     # lies in [0, span)), then attend with the paged oracle's masks.
@@ -279,7 +284,7 @@ def decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
         out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
         return common.dense(p["wo"], out), cache
     if layout != "dense":
-        raise _not_ported(layout)
+        raise _wrong_layout(layout)
     # Ring indexing: token at absolute position p lives at slot p % S (the
     # identity for unbounded caches).
     s = cache["k"].shape[2]

@@ -1,9 +1,10 @@
-"""Block assembly: pre-norm residual wiring of the ``attn`` block kind.
+"""Block assembly: pre-norm residual wiring of the ``attn`` and ``mla``
+block kinds.
 
 The port runs layers in a Python loop (``lm._run_blocks``) where the JAX
-package scans over stacked groups.  Only the dense-attention kind is ported
-so far; every other kind raises NotImplementedError naming its ROADMAP.md
-queue 1 item.
+package scans over stacked groups.  Dense attention (``attn``) and latent
+attention with a dense FFN (``mla``) are ported so far; every other kind
+raises NotImplementedError naming its ROADMAP.md queue 1 item.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import attention, common, ffn
+from repro_torch.models import attention, common, ffn, mla
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.config import ModelConfig
 
@@ -28,15 +29,23 @@ class BlockCtx(NamedTuple):
     lengths: Optional[torch.Tensor] = None   # i32[B] ragged lengths / spans
 
 
+PORTED_KINDS = ("attn", "mla")
+
+
 def check_kind(kind: str) -> None:
     """Raise for a block kind the port does not run (yet)."""
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         cache_mod.layout_for(kind, None, paged=False)   # names the item
 
 
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
     check_kind(kind)
     d = cfg.d_model
+    if kind == "mla":
+        return {"norm1": common.norm_init(d, cfg.norm_type, gen.device),
+                "attn": mla.init(gen, cfg),
+                "norm2": common.norm_init(d, cfg.norm_type, gen.device),
+                "ffn": ffn.init(gen, cfg)}
     p = {"norm1": common.norm_init(d, cfg.norm_type, gen.device),
          "attn": attention.init(gen, cfg)}
     if not cfg.parallel_block:
@@ -55,6 +64,8 @@ def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
     """Returns (x, cache).  Full attention: the window never applies."""
     check_kind(kind)
     h = _norm(p["norm1"], cfg, x)
+    if kind == "mla":
+        return _mla_apply(p, cfg, x, h, ctx, cache)
     local_cfg = cfg.replace(window=None)
     if ctx.mode == "mixed":
         a, cache = attention.mixed_step(p["attn"], local_cfg, h, cache,
@@ -75,3 +86,23 @@ def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
     x = x + a
     f = ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x))
     return x + f, cache
+
+
+def _mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               h: torch.Tensor, ctx: BlockCtx, cache: Params | None
+               ) -> tuple[torch.Tensor, Params | None]:
+    """The ``mla`` kind: latent attention, then the dense FFN (never in
+    parallel, as in the JAX package)."""
+    if ctx.mode == "mixed":
+        a, cache = mla.mixed_step(p["attn"], cfg, h, cache, ctx.pos,
+                                  ctx.lengths, ctx.positions, ctx.impl)
+    elif ctx.mode == "decode":
+        a, cache = mla.decode_step(p["attn"], cfg, h, cache, ctx.pos,
+                                   ctx.impl)
+    elif cache is not None:
+        a, cache = mla.prefill(p["attn"], cfg, h, cache, ctx.mask_full,
+                               ctx.positions, lengths=ctx.lengths)
+    else:
+        a = mla.forward(p["attn"], cfg, h, ctx.mask_full, ctx.positions)
+    x = x + a
+    return x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)), cache

@@ -14,8 +14,16 @@ Layouts ported so far:
   paged_mha_q8   paged_mha with int8 pools and f32 row scales
                  k_scales / v_scales [P, Hkv, ps] (fill 1.0)
   paged_mha_fp8  the same with float8_e4m3fn pools
+  dense_mla      compressed latent stream ckv [B, S, r] + RoPE key
+                 krope [B, S, rd]
+  paged_mla      latent pool [P, ps, pad128(r + rd)] + block_tables
+  paged_mla_q8   int8 latent pool + f32 latent_scales [P, ps] (fill 1.0)
+  paged_mla_fp8  the same with a float8_e4m3fn pool
 
-The windowed (ring), MLA, recurrent-state and cross-attention layouts of
+The latent pool's feature axis is padded to a multiple of 128 as in the
+JAX package (whose TPU kernels need the lane width), so caches carry across
+leaf for leaf; ``CacheSpec.latent_width`` records the live r + rd.  The
+windowed (ring), MoE, recurrent-state and cross-attention layouts of
 ``repro.models.cache`` raise NotImplementedError naming their ROADMAP.md
 queue 1 item.
 """
@@ -34,16 +42,21 @@ ROLE_SCALE = "scale"
 ROLE_TABLE = "table"
 
 KV_QUANT_MODES = ("off", "int8", "fp8")
-SCALE_LEAF = {"k_pages": "k_scales", "v_pages": "v_scales"}
+SCALE_LEAF = {"k_pages": "k_scales", "v_pages": "v_scales",
+              "latent_pages": "latent_scales"}
 
 # Not yet ported: layout family -> ROADMAP.md queue 1 item.
 _LATER = {"local": "item 11 (remaining families)",
           "moe": "item 11 (remaining families)",
-          "mla": "item 10 (MLA)", "mla_moe": "item 10 (MLA)",
+          "mla_moe": "item 11 (remaining families)",
           "rglru": "item 11 (remaining families)",
           "slstm": "item 11 (remaining families)",
           "mlstm": "item 11 (remaining families)",
           "xattn": "item 11 (remaining families)"}
+
+
+def pad128(n: int) -> int:
+    return -(-n // 128) * 128
 
 
 @dataclass(frozen=True)
@@ -63,11 +76,12 @@ class Leaf:
 @dataclass(frozen=True)
 class CacheSpec:
     """Layout descriptor for one layer's cache."""
-    kind: str                    # block kind ("attn", ...)
-    layout: str                  # dense | paged_mha
+    kind: str                    # block kind ("attn", "mla")
+    layout: str                  # dense | paged_mha | dense_mla | paged_mla
     leaves: tuple[Leaf, ...]
     page_size: int = 0
     num_pages: int = 0
+    latent_width: int = 0        # live features of a padded latent pool
 
     def init(self, device) -> Params:
         return {l.name: l.init(device) for l in self.leaves}
@@ -111,6 +125,31 @@ def _paged_mha(kind, cfg, batch, max_len, dtype, *, page_size=64,
     ), page_size=page_size, num_pages=num_pages)
 
 
+@register_layout("dense_mla")
+def _dense_mla(kind, cfg, batch, max_len, dtype, **_) -> CacheSpec:
+    m = cfg.mla
+    return CacheSpec(kind, "dense_mla", (
+        Leaf("ckv", (batch, max_len, m.kv_lora_rank), dtype, ROLE_KV),
+        Leaf("krope", (batch, max_len, m.rope_head_dim), dtype, ROLE_KV),
+    ))
+
+
+@register_layout("paged_mla")
+def _paged_mla(kind, cfg, batch, max_len, dtype, *, page_size=64,
+               num_pages=None, **_) -> CacheSpec:
+    m = cfg.mla
+    width = m.kv_lora_rank + m.rope_head_dim
+    maxp = -(-max_len // page_size)
+    if num_pages is None:
+        num_pages = batch * maxp
+    return CacheSpec(kind, "paged_mla", (
+        Leaf("latent_pages", (num_pages, page_size, pad128(width)), dtype,
+             ROLE_POOL),
+        Leaf("block_tables", (batch, maxp), torch.int32, ROLE_TABLE,
+             fill=-1),
+    ), page_size=page_size, num_pages=num_pages, latent_width=width)
+
+
 def _quantized(base: str, layout: str, qdtype, kind, cfg, batch, max_len,
                dtype, **kw) -> CacheSpec:
     """Derive a quantized layout from its float layout: pool leaves store
@@ -127,7 +166,7 @@ def _quantized(base: str, layout: str, qdtype, kind, cfg, batch, max_len,
         leaves.append(Leaf(SCALE_LEAF[l.name], l.shape[:-1], torch.float32,
                            ROLE_SCALE, fill=1.0))
     return CacheSpec(kind, layout, tuple(leaves), page_size=spec.page_size,
-                     num_pages=spec.num_pages)
+                     num_pages=spec.num_pages, latent_width=spec.latent_width)
 
 
 @register_layout("paged_mha_q8")
@@ -139,6 +178,18 @@ def _paged_mha_q8(kind, cfg, batch, max_len, dtype, **kw) -> CacheSpec:
 @register_layout("paged_mha_fp8")
 def _paged_mha_fp8(kind, cfg, batch, max_len, dtype, **kw) -> CacheSpec:
     return _quantized("paged_mha", "paged_mha_fp8", torch.float8_e4m3fn,
+                      kind, cfg, batch, max_len, dtype, **kw)
+
+
+@register_layout("paged_mla_q8")
+def _paged_mla_q8(kind, cfg, batch, max_len, dtype, **kw) -> CacheSpec:
+    return _quantized("paged_mla", "paged_mla_q8", torch.int8, kind, cfg,
+                      batch, max_len, dtype, **kw)
+
+
+@register_layout("paged_mla_fp8")
+def _paged_mla_fp8(kind, cfg, batch, max_len, dtype, **kw) -> CacheSpec:
+    return _quantized("paged_mla", "paged_mla_fp8", torch.float8_e4m3fn,
                       kind, cfg, batch, max_len, dtype, **kw)
 
 
@@ -157,6 +208,8 @@ def layout_for(kind: str, cfg, *, paged: bool) -> str:
     """Which layout a block kind uses under the requested paging mode."""
     if kind == "attn":
         return "paged_mha" if paged else "dense"
+    if kind == "mla":
+        return "paged_mla" if paged else "dense_mla"
     if kind in _LATER:
         raise NotImplementedError(
             f"the {kind!r} cache layout is not ported yet: ROADMAP.md "
@@ -173,7 +226,7 @@ def quant_layout(layout: str, kv_quant: str) -> str:
     if kv_quant not in KV_QUANT_MODES:
         raise ValueError(f"unknown kv_quant {kv_quant!r}: pick one of "
                          f"{KV_QUANT_MODES}")
-    if layout != "paged_mha":
+    if layout not in ("paged_mha", "paged_mla"):
         return layout
     return layout + ("_q8" if kv_quant == "int8" else "_fp8")
 
@@ -205,9 +258,13 @@ def model_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 _LEAFSETS: dict[frozenset, str] = {
     frozenset({"k", "v"}): "dense",
     frozenset({"k_pages", "v_pages", "block_tables"}): "paged_mha",
+    frozenset({"ckv", "krope"}): "dense_mla",
+    frozenset({"latent_pages", "block_tables"}): "paged_mla",
     # int8 and fp8 share leaf names; layout_of tells them by pool dtype.
     frozenset({"k_pages", "v_pages", "k_scales", "v_scales",
                "block_tables"}): "paged_mha_q8",
+    frozenset({"latent_pages", "latent_scales",
+               "block_tables"}): "paged_mla_q8",
 }
 
 # Every leaf that travels with its pages (pools AND their scales), so page
@@ -216,7 +273,10 @@ _POOL_LEAVES = {"paged_mha": ("k_pages", "v_pages"),
                 "paged_mha_q8": ("k_pages", "v_pages", "k_scales",
                                  "v_scales"),
                 "paged_mha_fp8": ("k_pages", "v_pages", "k_scales",
-                                  "v_scales")}
+                                  "v_scales"),
+                "paged_mla": ("latent_pages",),
+                "paged_mla_q8": ("latent_pages", "latent_scales"),
+                "paged_mla_fp8": ("latent_pages", "latent_scales")}
 PAGED_LAYOUTS = tuple(_POOL_LEAVES)
 
 
@@ -225,9 +285,11 @@ def layout_of(layer_cache) -> str | None:
     if not isinstance(layer_cache, dict):
         return None
     name = _LEAFSETS.get(frozenset(layer_cache.keys()))
-    if (name == "paged_mha_q8"
-            and layer_cache["k_pages"].dtype == torch.float8_e4m3fn):
-        return "paged_mha_fp8"
+    if name in ("paged_mha_q8", "paged_mla_q8"):
+        pool = layer_cache["k_pages" if "k_pages" in layer_cache
+                           else "latent_pages"]
+        if pool.dtype == torch.float8_e4m3fn:
+            return name[:-len("_q8")] + "_fp8"
     return name
 
 

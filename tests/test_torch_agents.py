@@ -10,7 +10,9 @@ steps show a near-tie: walking both step records in lockstep while their
 inputs agree, the first position whose greedy token differs must have a
 JAX top-1/top-2 logit gap of at most ``TIE_GAP``.  (The bf16 sim-LLM has
 exact and near ties; the frameworks round bf16 at different places, so a
-tie may break either way and the streams then part.)
+tie may break either way and the streams then part.)  One more trial
+runs the MLA model (reduced deepseek-v2-lite-16b with dense FFNs) on int8
+latent pools with the delta merge, held the same way.
 
 Also: ``PrefixPageMapper`` against JAX's over a map/free sequence, the
 evaluator's report and reconciliation on a converged document, and the
@@ -27,6 +29,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import repro.configs as jconfigs  # noqa: E402
 from repro.agents import evaluator as jeval  # noqa: E402
 from repro.agents import orchestrator as jorch  # noqa: E402
 from repro.agents.tasks import TASKS as JTASKS  # noqa: E402
@@ -167,9 +170,13 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_trial_matches_jax(sim, case, monkeypatch):
-    jcfg, jp, tcfg, tp = sim
+    _hold_trial_to_jax(sim, CASES[case], monkeypatch)
+
+
+def _hold_trial_to_jax(models, case, monkeypatch):
+    jcfg, jp, tcfg, tp = models
     kw = dict(n_agents=3, page_size=16, chunk_size=32)
-    kw.update(CASES[case])
+    kw.update(case)
     jlog, tlog = [], []
     serve, mixed = _jax_factories(jlog)
     monkeypatch.setattr(jengine, "make_serve_step", serve)
@@ -192,6 +199,29 @@ def test_trial_matches_jax(sim, case, monkeypatch):
         assert gap <= TIE_GAP, (
             f"greedy token differs at step {step} row {row} with JAX "
             f"top-2 gap {gap} (logit diff {diff}): not a near-tie")
+
+
+@pytest.fixture(scope="module")
+def mla_sim():
+    """Reduced deepseek-v2-lite-16b with dense FFNs (MLA blocks), JAX's
+    bf16 ``lm.init`` weights in both packages."""
+    jcfg, tcfg = (pkg.reduced(pkg.get("deepseek-v2-lite-16b"), layers=2,
+                              d_model=32, vocab=128).replace(
+        block_pattern=("mla",), moe=None) for pkg in (jconfigs, tconfigs))
+    jp = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                 device="cpu")
+    return jcfg, jp, tcfg, tp
+
+
+def test_mla_trial_matches_jax(mla_sim, monkeypatch):
+    """The trial on the MLA model: paged latent pools in int8, chunked
+    admission (paged_mla_chunk_quant), the outliner's decode steps
+    (paged_mla_decode_quant) and the delta merge; held as the cases
+    above."""
+    _hold_trial_to_jax(mla_sim, dict(mode="parallel", kv="paged",
+                                     prefill="chunked", kv_quant="int8",
+                                     merge="delta"), monkeypatch)
 
 
 def test_prefix_page_mapper_matches_jax():

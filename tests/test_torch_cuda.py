@@ -1,6 +1,7 @@
 """Card-only tests of the port: each Hopper kernel against its plain PyTorch
 version on the same CUDA inputs (the quantized-pool kernels for int8 and
-fp8-e4m3 pools included).
+fp8-e4m3 pools included, and the four paged-MLA kernels at the full
+(512, 64) and the test (32, 8) latent widths).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -10,8 +11,10 @@ CUDA card is present (decided at run time, never at import).  On the card:
 Tolerances: float32 outputs within 1e-5 (the kernel sums in another order
 than the plain matmul); bfloat16 outputs within 4e-3 + 2^-7·|x| (both
 round one float32 result to bf16, and float32 results that differ in their
-last bits may land one bf16 step apart).  Pools (and the quantized
-pools' scales) must match bitwise.
+last bits may land one bf16 step apart).  The MLA contexts are float32
+whatever the pool (a bf16 or dequantized row widens to float32 exactly),
+so they are held to 1e-5.  Pools (and the quantized pools' scales) must
+match bitwise.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ def _t(a, dtype, dev):
 
 
 DTYPES = [torch.float32, torch.bfloat16]
+QDTYPES = [torch.int8, torch.float8_e4m3fn]
 
 CHUNK_CASES = [
     # (B, Hq, Hkv, page_size, maxp, D, C, window)
@@ -153,6 +157,98 @@ def test_decode_kernel_matches_plain(card, case, dtype):
     torch.testing.assert_close(o1.float(), o2.float(), **_tol(dtype))
 
 
+MLA_CASES = [
+    # (B, H, C, r, rd, page_size, maxp)
+    (2, 4, 1, 32, 8, 4, 6),
+    (3, 4, 5, 32, 8, 8, 4),
+    (2, 16, 16, 512, 64, 16, 8),
+    (3, 16, 40, 512, 64, 8, 12),
+    (2, 20, 8, 200, 24, 16, 4),             # partial tiles of heads / r
+]
+
+
+def _mla_inputs(rng, b, h, c, r, rd, ps, maxp, pool_dtype, dev):
+    """q_abs / q_rope ([B, H, C, *]; c None: [B, H, *]), a latent pool
+    ([P, ps, pad128(r + rd)] of ``pool_dtype``, quantized rows and f32
+    scales for int8 / fp8), a table with -1 entries, and new rows (bf16
+    for the quantized pools, as the model's)."""
+    from repro_torch.models.cache import pad128
+    dp = pad128(r + rd)
+    qs = (b, h) if c is None else (b, h, c)
+    q_abs = _t(rng.normal(size=qs + (r,)), torch.float32, dev)
+    q_rope = _t(rng.normal(size=qs + (rd,)), torch.float32, dev)
+    pool = b * maxp + 2
+    rows = _t(rng.normal(size=(pool, ps, dp)), torch.float32, dev)
+    if pool_dtype in QDTYPES:
+        pools = list(ref.quantize_rows(rows, pool_dtype))
+    else:
+        pools = [rows.to(pool_dtype)]
+    bt = rng.permutation(pool)[:b * maxp].reshape(b, maxp).astype(np.int32)
+    bt[0, -1] = -1                          # -1 entries: drop / read page 0
+    new = rng.normal(size=(b, dp) if c is None else (b, c, dp))
+    new_dtype = torch.bfloat16 if pool_dtype in QDTYPES else pool_dtype
+    return q_abs, q_rope, pools, _t(bt, torch.int32, dev), _t(
+        new, new_dtype, dev)
+
+
+@pytest.mark.parametrize("pool_dtype", DTYPES + QDTYPES)
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_paged_mla_chunk_kernels_match_plain(card, case, pool_dtype):
+    """paged_mla_chunk (float32 / bf16 pools) and paged_mla_chunk_quant
+    (int8 / fp8): pools and scales bitwise, contexts within 1e-5 at the
+    defined queries; span 0, -1 entries, a start past the table."""
+    b, h, c, r, rd, ps, maxp = case
+    rng = np.random.default_rng(7)
+    q_abs, q_rope, pools, bt, new = _mla_inputs(rng, b, h, c, r, rd, ps,
+                                                maxp, pool_dtype, card)
+    start = rng.integers(0, maxp * ps - 1, b)
+    start[-1] = maxp * ps + 3               # past capacity: the clamp
+    span = rng.integers(0, c + 1, b)
+    span[0], span[1] = c, 0                 # a full chunk and an idle row
+    start, span = _t(start, torch.int32, card), _t(span, torch.int32, card)
+    name = ("paged_mla_chunk_quant" if pool_dtype in QDTYPES
+            else "paged_mla_chunk")
+    op = getattr(ops, name)
+    plain = [t.clone() for t in pools]
+    before = ops.launch_counts()[name]
+    c1, *p1 = op(q_abs, q_rope, *pools, bt, start, span, new, scale=0.07)
+    assert ops.launch_counts()[name] == before + 1
+    c2, *p2 = op(q_abs, q_rope, *plain, bt, start, span, new, scale=0.07,
+                 impl="ref")
+    torch.cuda.synchronize()
+    assert all(_same_bits(x, y) for x, y in zip(p1, p2))
+    live = (torch.arange(c, device=card)[None, :]
+            < span.clamp(0, c)[:, None])[:, None, :, None]
+    assert c1.dtype == torch.float32
+    torch.testing.assert_close(torch.where(live, c1, 0),
+                               torch.where(live, c2, 0), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("pool_dtype", DTYPES + QDTYPES)
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_paged_mla_decode_kernels_match_plain(card, case, pool_dtype):
+    b, h, _, r, rd, ps, maxp = case
+    rng = np.random.default_rng(8)
+    q_abs, q_rope, pools, bt, new = _mla_inputs(rng, b, h, None, r, rd, ps,
+                                                maxp, pool_dtype, card)
+    pos = rng.integers(0, maxp * ps, b)
+    pos[-1] = maxp * ps + 5                 # past capacity: the clamp
+    pos = _t(pos, torch.int32, card)
+    name = ("paged_mla_decode_quant" if pool_dtype in QDTYPES
+            else "paged_mla_decode")
+    op = getattr(ops, name)
+    plain = [t.clone() for t in pools]
+    before = ops.launch_counts()[name]
+    c1, *p1 = op(q_abs, q_rope, *pools, bt, pos, new, scale=0.07)
+    assert ops.launch_counts()[name] == before + 1
+    c2, *p2 = op(q_abs, q_rope, *plain, bt, pos, new, scale=0.07,
+                 impl="ref")
+    torch.cuda.synchronize()
+    assert all(_same_bits(x, y) for x, y in zip(p1, p2))
+    torch.testing.assert_close(c1, c2, rtol=1e-5, atol=1e-5)
+
+
 def test_kernels_reject_what_they_cannot_take(card):
     q = torch.zeros(1, 2, 24, device=card)            # head_dim 24
     k = torch.zeros(1, 2, 8, 24, device=card)
@@ -164,9 +260,29 @@ def test_kernels_reject_what_they_cannot_take(card):
     with pytest.raises(ValueError, match="dtype"):
         ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
                                                  device=card))
+    # MLA: a float16 pool, r past 512, a pool row that is not whole
+    # 16-byte loads.
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=card)
+    pos = torch.zeros(1, dtype=torch.int32, device=card)
+    for pool, r, rd, match in (
+            (torch.zeros(2, 8, 128, device=card, dtype=torch.float16), 32, 8,
+             "dtype"),
+            (torch.zeros(2, 8, 640, device=card), 520, 8, "kv_lora_rank"),
+            (torch.zeros(2, 8, 42, device=card), 32, 8, "16-byte")):
+        q_abs = torch.zeros(1, 2, r, device=card)
+        q_rope = torch.zeros(1, 2, rd, device=card)
+        new = torch.zeros(1, pool.shape[-1], device=card, dtype=pool.dtype)
+        with pytest.raises(ValueError, match=match):
+            ops.paged_mla_decode(q_abs, q_rope, pool, bt, pos, new,
+                                 scale=1.0)
+    with pytest.raises(ValueError, match="pool dtype"):
+        ops.paged_mla_decode_quant(
+            torch.zeros(1, 2, 32, device=card),
+            torch.zeros(1, 2, 8, device=card),
+            torch.zeros(2, 8, 128, device=card, dtype=torch.bfloat16),
+            torch.ones(2, 8, device=card), bt, pos,
+            torch.zeros(1, 128, device=card), scale=1.0)
 
-
-QDTYPES = [torch.int8, torch.float8_e4m3fn]
 
 
 def _quant_inputs(r, b, hkv, ps, maxp, d, qdtype, dev):
