@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the nine attention kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, started together);
+1. builds the ten kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    workloads' shapes and times kernel, plain version, and the PyTorch
    library call where one computes the same function: the five MHA kernels
@@ -12,7 +12,10 @@
    to 1024, chunk 64, ragged rows, -1 and trash-page table entries; the
    two quantized-pool kernels for int8 and fp8 pools), the four paged-MLA
    kernels at DeepSeek-V2-Lite's (16 heads over a 512 + 64 latent row,
-   pool rows of 640; bf16, int8 and fp8 pools);
+   pool rows of 640; bf16, int8 and fp8 pools), ``decode_attention`` also
+   at RecurrentGemma-2B's local attention (10 query heads on 1 KV head of
+   256) and ``linear_scan`` at its RG-LRU's (batch 8, width 2560: the
+   mixed step's 64 steps with ragged identity-padded rows, prefill's 128);
 3. serves ``olmo-1b`` at full width with seeded random bf16 weights:
    ``ContinuousBatchingEngine`` answers 16 requests (bf16 pools, then int8
    pools), ``Engine.generate`` decodes on a dense and on a paged cache;
@@ -31,7 +34,15 @@
    full width with dense FFNs, seeded random bf16 weights): the scheduler
    on bf16 and int8 latent pools, ``Engine.generate`` on dense and paged
    latent caches, the first-step logits of the paged routes against the
-   plain path; then trial run (e), (a)'s configuration on that model.
+   plain path; then trial run (e), (a)'s configuration on that model;
+6. serves ``recurrentgemma-2b`` at full width (``workload.RECURRENT_ARCH``,
+   seeded random bf16 weights; the MLA model freed first): the scheduler
+   through the kernels and through the plain versions, ``Engine.generate``
+   on a dense and a paged cache, the first-step logits of decode and of a
+   mixed step against the plain path, one mid-run scheduler step layer by
+   layer from the same inputs (each recurrent layer's h and conv state
+   against the plain path's), then trial run (f), (a)'s configuration on
+   that model without int8 (no layer of it holds a pool to quantize).
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -56,6 +67,7 @@ from repro_torch.launch import workload  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
 # Kernel against plain version, bf16 outputs: both round a float32 result
 # to bf16, and the float32 results differ in their last bits, so they may
 # land one bf16 step (2^-8 relative, within 2^-7 of |x|) apart.  The atol
@@ -101,9 +113,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def kernel_device_ms(fn, match: str, iters: int = 20) -> float:
+    """Mean device time in ms of the kernels whose name holds ``match``
+    over ``iters`` calls of ``fn``, read from torch.profiler: for a kernel
+    shorter than its wrapper's host work, events around the calls time the
+    host instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and match in e.key)
+    if total_us <= 0:
+        fail(f"the profiler saw no kernel named like {match!r}")
+    return total_us / iters / 1e3
+
+
+def bound(nbytes: float, flops: float,
+          peak: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -492,9 +525,122 @@ def kernel_phase():
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: lib(q[:, :, None], k, v, attn_mask=mask,
                                        scale=scale))))
+    rows[-1].update(decode_attention_d256(rng))
     rows += quant_kernel_rows(rng)
     rows += mla_kernel_rows(rng)
+    rows.append(linear_scan_row(rng))
     return rows
+
+
+# RecurrentGemma-2B's shapes (workload.RECURRENT_ARCH): local attention of
+# 10 query heads on 1 KV head of 256 over a dense cache of max_len keys;
+# the RG-LRU of width 2560.
+RG_HQ, RG_HKV, RG_D, RG_W = 10, 1, 256, 2560
+
+
+def decode_attention_d256(rng) -> dict:
+    """``decode_attention`` at the recurrent model's local-attention
+    shapes (its head_dim 256 tiles in dynamic shared memory): held to the
+    plain version under the bf16 rule, timed against it and SDPA; the
+    bound counts the valid prefixes' K/V."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import ops, ref
+    scale = RG_D ** -0.5
+    kv_len = np.array([1024, 18, 301, 512, 641, 6, 1000, 129])
+    q = torch.randn((B, RG_HQ, RG_D), device="cuda").bfloat16()
+    k = torch.randn((B, RG_HKV, MAX_LEN, RG_D), device="cuda").bfloat16()
+    v = torch.randn((B, RG_HKV, MAX_LEN, RG_D), device="cuda").bfloat16()
+    kl = torch.as_tensor(kv_len, dtype=torch.int32, device="cuda")
+    o1 = ops.decode_attention(q, k, v, kl, scale=scale)
+    o2 = ref.decode_attention(q, k, v, kl, scale=scale)
+    err, ok = close(o1, o2)
+    if not ok:
+        fail(f"decode_attention (head_dim 256, MQA) disagrees: max_abs_err "
+             f"{err}")
+    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
+            < kl[:, None])[:, None, None, :]
+    lib = torch.nn.functional.scaled_dot_product_attention
+    kx, vx = (t.expand(-1, RG_HQ, -1, -1) for t in (k, v))
+    lib_err, lib_ok = close(lib(q[:, :, None], kx, vx, attn_mask=mask,
+                                scale=scale)[:, :, 0], o2)
+    if not lib_ok:
+        fail(f"the SDPA yardstick computes another function: {lib_err}")
+    keys = int(kv_len.sum())
+    bms, by = bound(2 * keys * RG_HKV * RG_D * 2 + 2 * q.numel() * 2 + B * 4,
+                    4 * keys * RG_HQ * RG_D)
+    return dict(
+        d256_shapes=f"q[{B},{RG_HQ},{RG_D}] bf16, k/v[{B},{RG_HKV},"
+                    f"{MAX_LEN},{RG_D}], kv_len {kv_len.tolist()}",
+        d256_max_abs_err=err,
+        d256_ms=cuda_ms(lambda: kdec.decode_attention(q, k, v, kl,
+                                                      scale=scale)),
+        d256_plain_ms=cuda_ms(lambda: ref.decode_attention(q, k, v, kl,
+                                                           scale=scale)),
+        d256_bound_ms=bms, d256_bound_by=by,
+        d256_library_ms=cuda_ms(lambda: lib(q[:, :, None], kx, vx,
+                                            attn_mask=mask, scale=scale)))
+
+
+# linear_scan against its plain version: both round each step once (the
+# kernel's FMA, the plain version's float64 step rounded to float32), so
+# bitwise is expected; elements that differ are counted and held to 1e-6
+# of max |y| (a float64 sum rounded twice may, rarely, land one float32
+# step away).
+SCAN_RTOL = 1e-6
+
+
+def linear_scan_row(rng) -> dict:
+    """``linear_scan`` at the mixed step's [8, 64, 2560] (ragged spans,
+    identity steps past each: the model's padding) and at prefill's
+    [8, 128, 2560]; float32 a and b, as on the model's path.  The bound
+    counts a and b read, y written, h0 read and h_T written, float32.
+    ``ms`` is the kernel's device time (the profiler's): its wrapper's
+    host work takes longer, so events around the calls (``wrapper_ms``)
+    time the host."""
+    from repro_torch.kernels import linear_scan as kscan
+    from repro_torch.kernels import ops
+    row = dict(name="linear_scan", route="cuda",
+               source="src/repro_torch/kernels/csrc/linear_scan.cu",
+               replaces="src/repro/kernels/rglru_scan.py:67",
+               library_ms=None, pools_bitwise=None)
+    span = torch.as_tensor([64, 64, 1, 1, 0, 30, 64, 17], device="cuda")
+    for name, t in (("mixed", CHUNK), ("prefill", 2 * CHUNK)):
+        a = torch.rand((B, t, RG_W), device="cuda") * 0.7 + 0.3
+        b = torch.randn((B, t, RG_W), device="cuda")
+        h0 = torch.randn((B, RG_W), device="cuda")
+        if name == "mixed":
+            valid = (torch.arange(t, device="cuda")[None, :]
+                     < span[:, None])[..., None]
+            a, b = torch.where(valid, a, 1.0), torch.where(valid, b, 0.0)
+        y1, h1 = ops.linear_scan(a, b, h0)
+        y2, h2 = ops.linear_scan(a, b, h0, impl="ref")
+        scale = float(y2.abs().max())
+        diff = int((y1 != y2).sum() + (h1 != h2).sum())
+        err = max(float((y1 - y2).abs().max()), float((h1 - h2).abs().max()))
+        if err > SCAN_RTOL * scale:
+            fail(f"linear_scan ({name}) disagrees: {diff} elements differ, "
+                 f"max_abs_err {err} against max |y| {scale}")
+        n = B * t * RG_W
+        bms, by = bound(3 * n * 4 + 2 * B * RG_W * 4, 2 * n,
+                        F32_FLOPS_PER_S)
+        ms = kernel_device_ms(lambda: kscan.linear_scan(a, b, h0),
+                              "::scan<float>")
+        wrapper_ms = cuda_ms(lambda: kscan.linear_scan(a, b, h0))
+        plain_ms = cuda_ms(lambda: ops.linear_scan(a, b, h0, impl="ref"),
+                           iters=5, warmup=1)
+        shapes = (f"a/b[{B},{t},{RG_W}] f32, h0[{B},{RG_W}]"
+                  + (f", ragged spans {span.tolist()}" if name == "mixed"
+                     else ""))
+        if name == "mixed":
+            row.update(shapes=shapes, max_abs_err=err, elements_differing=diff,
+                       ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by)
+        else:
+            row.update(prefill_shapes=shapes, prefill_max_abs_err=err,
+                       prefill_elements_differing=diff, prefill_ms=ms,
+                       prefill_wrapper_ms=wrapper_ms,
+                       prefill_plain_ms=plain_ms, prefill_bound_ms=bms)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -539,6 +685,9 @@ OLMO_ROUTES = {(False, "off"): ("decode_attention", None),
 MLA_ROUTES = {(True, "off"): ("paged_mla_decode", "paged_mla_chunk"),
               (True, "int8"): ("paged_mla_decode_quant",
                                "paged_mla_chunk_quant")}
+# The recurrent model pages no layer: decode runs decode_attention in its
+# local layers, the mixed step linear_scan in its recurrent ones.
+RECURRENT_ROUTES = {(False, "off"): ("decode_attention", "linear_scan")}
 
 
 def _first_step_errors(cfg, params, routes):
@@ -583,12 +732,13 @@ def _first_step_errors(cfg, params, routes):
     return out
 
 
-def _mid_run_check(cfg, params):
+def _mid_run_check(cfg, params, layer_check=False):
     """One step of the scheduler's own run, from the first state that
     holds decode rows and prompt chunks together after pages have grown
     (its tables point unallocated slots at the trash page): the kernel path
     and the plain path step from clones of that cache, and their logits
-    must agree as in the first-step check."""
+    must agree as in the first-step check.  ``layer_check`` adds
+    ``_state_layer_check`` on the same state."""
     from repro_torch.models import lm
     eng = workload.engine(cfg, params, impl="kernel", device="cuda")
     inner = eng._mixed
@@ -598,6 +748,9 @@ def _mid_run_check(cfg, params):
         sp = span.cpu()
         if (not seen and eng.stats["grown_pages"] > 0
                 and bool((sp == 1).any()) and bool((sp > 1).any())):
+            if layer_check:
+                seen.update(_state_layer_check(cfg, params_, toks, start,
+                                               span, cache))
             lk, _ = lm.mixed_step(params_, cfg, toks, _clone(cache), start,
                                   span, impl="kernel")
             lr, _ = lm.mixed_step(params_, cfg, toks, _clone(cache), start,
@@ -623,6 +776,46 @@ def _mid_run_check(cfg, params):
         fail(f"mid-run scheduler step: kernel path against the plain path "
              f"{seen}")
     return seen
+
+
+def _state_layer_check(cfg, params, toks, start, span, cache) -> dict:
+    """One mixed step layer by layer from the same inputs (the kernel
+    path's hidden state): each recurrent layer's h and conv state through
+    the kernels against the plain path's, counted element by element and
+    held to ``SCAN_RTOL`` of the layer's max |h|; each block's output
+    where the spans are live."""
+    from repro_torch.models import blocks, cache as cache_mod, lm
+    from repro_torch.models.blocks import BlockCtx
+    c = toks.shape[1]
+    x = lm._embed(params, cfg, toks)
+    positions = start[:, None] + torch.arange(c, dtype=start.dtype,
+                                              device="cuda")[None, :]
+    ctx = BlockCtx(positions=positions, mask_full=None, mode="mixed",
+                   pos=start, impl="kernel", lengths=span)
+    live = (torch.arange(c, device="cuda")[None, :] < span[:, None])
+    h_err, h_diff, conv_equal, block_err = [], 0, True, 0.0
+    for kind, lp, lc in zip(cache_mod.layer_kinds(cfg), params["layers"],
+                            cache["layers"]):
+        xk, ak = blocks.block_apply(kind, lp, cfg, x, ctx,
+                                    {k: t.clone() for k, t in lc.items()})
+        xr, ar = blocks.block_apply(kind, lp, cfg, x,
+                                    ctx._replace(impl="ref"),
+                                    {k: t.clone() for k, t in lc.items()})
+        if kind == "rglru":
+            err = float((ak["h"] - ar["h"]).abs().max())
+            h_err.append(err)
+            h_diff += int((ak["h"] != ar["h"]).sum())
+            conv_equal &= torch.equal(ak["conv"], ar["conv"])
+            if err > SCAN_RTOL * float(ar["h"].abs().max()):
+                fail(f"mid-run step: layer h through the kernels against "
+                     f"the plain path: max_abs_err {err}")
+        block_err = max(block_err, float(
+            (xk.float() - xr.float()).abs()[live].max()))
+        x = xk
+    if not conv_equal:
+        fail("mid-run step: a conv state differs between the paths")
+    return dict(h_max_abs_err_per_layer=h_err, h_elements_differing=h_diff,
+                conv_bitwise=conv_equal, max_block_err=block_err)
 
 
 def _serve(cfg, params, impl, **kw):
@@ -761,6 +954,40 @@ def mla_serving_phase():
                                                "paged_mla_decode")
     results["first_step_logits"] = _first_step_errors(cfg, params,
                                                       MLA_ROUTES)
+    results["init_s"] = init_s
+    return cfg, params, results
+
+
+def recurrent_serving_phase():
+    """The recurrent workload (``workload.RECURRENT_ARCH``, full width):
+    the scheduler through the kernels and the plain versions,
+    ``Engine.generate`` on the dense and the paged cache, the first-step
+    logits of decode and a mixed step, and the mid-run step layer by
+    layer."""
+    from repro_torch import configs
+    cfg = configs.get(workload.RECURRENT_ARCH)
+    params, init_s = _init_params(cfg)
+    results = {}
+    eng, reqs, wall, counts = _serve(cfg, params, "kernel")
+    if counts["linear_scan"] <= 0:
+        fail("the recurrent scheduler never launched linear_scan")
+    _check_answered(cfg, eng, reqs, "recurrent scheduler")
+    report = _serve_report(eng, wall, counts)
+    _, reqs_ref, wall_ref, _ = _serve(cfg, params, "ref")
+    results["scheduler"] = dict(
+        report, requests=len(reqs), plain_wall_s=wall_ref,
+        greedy_agree_share=_agree_share([r.tokens for r in reqs],
+                                        [r.tokens for r in reqs_ref]))
+    results["scheduler_mid_run_step"] = _mid_run_check(cfg, params,
+                                                       layer_check=True)
+    for paged in (False, True):
+        res = _engine_generate(cfg, params, paged, "decode_attention")
+        if res["launches"]["linear_scan"] <= 0:
+            fail(f"Engine(paged={paged}) prefill never launched "
+                 f"linear_scan")
+        results["engine_paged" if paged else "engine_dense"] = res
+    results["first_step_logits"] = _first_step_errors(cfg, params,
+                                                      RECURRENT_ROUTES)
     results["init_s"] = init_s
     return cfg, params, results
 
@@ -946,6 +1173,19 @@ def mla_trial(cfg, params) -> dict:
     return res
 
 
+def recurrent_trial(cfg, params) -> dict:
+    """Trial run (f): (a)'s configuration (parallel, paged, chunked,
+    allgather) on the recurrent model, without int8: no layer of it holds
+    a pool.  Its mixed steps run linear_scan in every recurrent layer."""
+    from repro_torch.agents.tasks import TASKS
+    res = _run_trial(cfg, params, TASKS[TRIAL_TASK], "f",
+                     dict(mode="parallel", merge="allgather",
+                          kv_quant="off"))
+    if res["launches"]["linear_scan"] <= 0:
+        fail("trial (f) never launched linear_scan")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is present", file=sys.stderr)
@@ -977,9 +1217,14 @@ def main() -> int:
     mla_cfg, mla_params, mla_serving = mla_serving_phase()
     emit({"mla_serving": mla_serving, "card": card})
     trial_e = mla_trial(mla_cfg, mla_params)
-    # Launches: the float kernels on the serving workloads, the quantized
-    # kernels on trials (a) and (e), each path's counts read right after
-    # its run.
+    del mla_params              # the recurrent model takes the card next
+    torch.cuda.empty_cache()
+    rec_cfg, rec_params, rec_serving = recurrent_serving_phase()
+    emit({"recurrent_serving": rec_serving, "card": card})
+    recurrent_trial(rec_cfg, rec_params)
+    # Launches: the float kernels and linear_scan on the serving
+    # workloads, the quantized kernels on trials (a) and (e), each path's
+    # counts read right after its run.
     launches = {"paged_mla_chunk":
                 mla_serving["scheduler"]["launches"]["paged_mla_chunk"],
                 "paged_mla_decode":
@@ -997,9 +1242,15 @@ def main() -> int:
                 "paged_chunk_attention_quant":
                 trial_counts["paged_chunk_attention_quant"],
                 "paged_decode_attention_quant":
-                trial_counts["paged_decode_attention_quant"]}
+                trial_counts["paged_decode_attention_quant"],
+                "linear_scan":
+                rec_serving["scheduler"]["launches"]["linear_scan"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "decode_attention":
+            # Its second main path: the recurrent model's dense Engine.
+            row["d256_launches"] = (rec_serving["engine_dense"]["launches"]
+                                    ["decode_attention"])
         row["kernel_ms"] = row["ms"]
         emit({"kernel": row["name"], **row})
     emit({"card": card})

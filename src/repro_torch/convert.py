@@ -4,7 +4,8 @@ Input trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the
 JAX side; this module imports no JAX).  bfloat16 leaves (ml_dtypes) move
 through a 16-bit integer view and float8_e4m3fn leaves (quantized page
 pools) through a uint8 view, so every bit arrives as it left; int8 pools
-and their f32 scales move as they are.  The JAX
+and their f32 scales move as they are, as do the float32 leaves of the
+recurrent layers (``log_lambda``, the state ``h``).  The JAX
 trees stack the layers of each block-pattern slot on a leading [G] axis
 (``jax.vmap`` in ``lm.init``, the scan in ``lm.init_cache``); the port keeps
 one dict per layer in execution order, so groups are unstacked here.

@@ -29,7 +29,7 @@ SOURCES = ("decode_attention", "paged_decode_attention",
            "paged_chunk_attention", "paged_decode_attention_quant",
            "paged_chunk_attention_quant", "paged_mla_decode",
            "paged_mla_chunk", "paged_mla_decode_quant",
-           "paged_mla_chunk_quant")
+           "paged_mla_chunk_quant", "linear_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,6 +105,8 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# decode_attention also takes 256 (its tiles move to dynamic shared memory).
+DENSE_HEAD_DIMS = HEAD_DIMS + (256,)
 PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -134,12 +136,13 @@ def dtype_code(kernel: str, dtype: torch.dtype) -> int:
     return DTYPE_CODES[dtype]
 
 
-def check_dims(kernel: str, dtype: torch.dtype, head_dim: int) -> int:
+def check_dims(kernel: str, dtype: torch.dtype, head_dim: int,
+               head_dims: tuple[int, ...] = HEAD_DIMS) -> int:
     """The kernel's dtype code; raises on a dtype or head_dim it lacks."""
     code = dtype_code(kernel, dtype)
-    if head_dim not in HEAD_DIMS:
+    if head_dim not in head_dims:
         raise ValueError(f"{kernel}: head_dim {head_dim} is not supported "
-                         f"{HEAD_DIMS}")
+                         f"{head_dims}")
     return code
 
 

@@ -1,4 +1,5 @@
-// Shared pieces of the three Hopper attention kernels (sm_90a).
+// Shared pieces of the Hopper attention kernels (sm_90a); linear_scan.cu
+// takes its element conversions and rt_error_string from here too.
 //
 // attend(): one block walks the keys of one (row, KV head) for up to QR
 // query rows (a GQA group times a query tile), tile by tile:
@@ -11,6 +12,9 @@
 //      query's position and outside the window;
 //   3. online softmax, one warp per query row (running max, sum, rescale);
 //   4. accumulate P·V in registers, QR·D/NT accumulators per thread.
+// The tiles live in static shared memory up to head_dim 128 (42 KB); at
+// head_dim 256 (82 KB, past the 48 KB static limit) they move to dynamic
+// shared memory, which the launch must opt into (dynamic_smem<D>()).
 // Nothing of the walk is split across blocks, so no cross-block reduction
 // is needed.  The span / token writes of the paged kernels are their own
 // launch (write_tokens), ordered before the walk on the stream: every key a
@@ -109,6 +113,50 @@ struct RawKV {
   }
 };
 
+// The shared-memory tiles of one attend() walk.
+template <int D>
+struct Tiles {
+  float q[QR][D];
+  float k[KT][D + 1];                     // +1: conflict-free column reads
+  float v[KT][D];
+  float p[QR][KT];
+  float m[QR], l[QR], a[QR];
+};
+
+constexpr size_t STATIC_SMEM = 48 * 1024;  // static shared memory limit
+
+// Dynamic shared memory a kernel walking head_dim D launches with (0: the
+// tiles are static).
+template <int D>
+__host__ __device__ constexpr size_t dynamic_smem() {
+  return sizeof(Tiles<D>) <= STATIC_SMEM ? 0 : sizeof(Tiles<D>);
+}
+
+template <int D>
+__device__ __forceinline__ Tiles<D>& tiles() {
+  if constexpr (dynamic_smem<D>() == 0) {
+    __shared__ Tiles<D> t;
+    return t;
+  } else {
+    extern __shared__ __align__(16) unsigned char rt_tiles_smem[];
+    return *reinterpret_cast<Tiles<D>*>(rt_tiles_smem);
+  }
+}
+
+// Output element (row, column) of P·V accumulator ``a`` of thread ``tid``:
+// for D <= NT one column over rows NT/D apart, for D > NT the D/NT columns
+// NT apart of each row.
+template <int D>
+__device__ __forceinline__ int acc_row(int tid, int a) {
+  if constexpr (D <= NT) return tid / D + a * (NT / D);
+  else return a / (D / NT);
+}
+template <int D>
+__device__ __forceinline__ int acc_col(int tid, int a) {
+  if constexpr (D <= NT) return tid % D;
+  else return (a % (D / NT)) * NT + tid;
+}
+
 // attend() over any key/value loader KV: KV::VEC elements per load of key
 // t's chunk ``part`` into kd/vd as float (see RawKV; the quantized pools'
 // loader dequantizes there).
@@ -119,18 +167,21 @@ __device__ __forceinline__ void attend_kv(const T* __restrict__ q,
                                           const int nrows, const int key_cap,
                                           const float scale,
                                           const int window) {
-  static_assert(NT % D == 0 && D % 8 == 0, "head_dim must divide NT");
+  static_assert((NT % D == 0 || D % NT == 0) && D % 8 == 0,
+                "head_dim must divide NT or be a multiple of it");
   constexpr int VEC = KV::VEC;            // elements per 16-byte load
   static_assert(D % VEC == 0, "head_dim must hold whole 16-byte loads");
   constexpr int CHUNKS = D / VEC;         // 16-byte loads per key row
   constexpr int ACC = QR * D / NT;        // P·V accumulators per thread
-  constexpr int RSTEP = NT / D;           // rows between them
 
-  __shared__ float q_s[QR][D];
-  __shared__ float k_s[KT][D + 1];        // +1: conflict-free column reads
-  __shared__ float v_s[KT][D];
-  __shared__ float p_s[QR][KT];
-  __shared__ float m_s[QR], l_s[QR], a_s[QR];
+  Tiles<D>& sm = tiles<D>();
+  auto& q_s = sm.q;
+  auto& k_s = sm.k;
+  auto& v_s = sm.v;
+  auto& p_s = sm.p;
+  auto& m_s = sm.m;
+  auto& l_s = sm.l;
+  auto& a_s = sm.a;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -208,10 +259,9 @@ __device__ __forceinline__ void attend_kv(const T* __restrict__ q,
     }
     __syncthreads();
 
-    const int d = tid % D;
 #pragma unroll
     for (int a = 0; a < ACC; ++a) {
-      const int r = tid / D + a * RSTEP;
+      const int r = acc_row<D>(tid, a), d = acc_col<D>(tid, a);
       if (r < nrows) {
         float x = acc[a] * a_s[r];
 #pragma unroll 8
@@ -222,10 +272,9 @@ __device__ __forceinline__ void attend_kv(const T* __restrict__ q,
     __syncthreads();
   }
 
-  const int d = tid % D;
 #pragma unroll
   for (int a = 0; a < ACC; ++a) {
-    const int r = tid / D + a * RSTEP;
+    const int r = acc_row<D>(tid, a), d = acc_col<D>(tid, a);
     if (r < nrows) {
       const float l = l_s[r];
       out[rows.off[r] + d] = from_f<T>(l > 0.f ? acc[a] / l : 0.f);
@@ -286,7 +335,8 @@ extern "C" const char* rt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dispatch a head_dim known at run time onto the templated kernels.
+// Dispatch a head_dim known at run time onto the templated kernels (16 to
+// 128: the paged kernels' static tiles; decode_attention adds 256 itself).
 #define RT_DISPATCH_D(D, ...)                     \
   switch (D) {                                    \
     case 16: { constexpr int HD = 16; __VA_ARGS__; } break;  \

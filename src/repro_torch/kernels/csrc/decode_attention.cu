@@ -10,7 +10,12 @@
 // rows (each key tile is loaded once for the whole group), walking the
 // valid prefix in tiles of 32 keys with an online softmax in float32.  The
 // TPU kernel's split-K over a padded S is not needed: the walk stops at
-// kv_len and the cache is never padded.
+// kv_len and the cache is never padded.  head_dim 16-128 keep the tiles in
+// static shared memory; head_dim 256 (RecurrentGemma's local attention,
+// 10 query heads on 1 KV head) takes them in 82 KB of dynamic shared
+// memory, opted into before the launch.  At that shape the grid is
+// (B, 1, 1): 8 blocks on 132 SMs, right but latency-bound (split-KV is
+// the later change).
 #include "attention_common.cuh"
 
 namespace {
@@ -37,17 +42,36 @@ __global__ void __launch_bounds__(rt::NT)
   rt::attend<T, D>(q, out, k, v, keys, rows, nrows, s, scale, 0);
 }
 
+template <typename T, int D>
+int launch_d(const dim3 grid, const void* q, void* out, const void* k,
+             const void* v, const int* kv_len, int hq, int hkv, int s,
+             float scale, cudaStream_t stream) {
+  constexpr size_t smem = rt::dynamic_smem<D>();
+  if (smem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dense_attend<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dense_attend<T, D><<<grid, rt::NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<T*>(out),
+      static_cast<const T*>(k), static_cast<const T*>(v), kv_len, hq, hkv, s,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* q, void* out, const void* k, const void* v,
            const int* kv_len, int b, int hq, int hkv, int s, int d,
            float scale, cudaStream_t stream) {
   if (b == 0) return 0;
   const dim3 grid(b, hkv, (hq / hkv + rt::QR - 1) / rt::QR);
-  RT_DISPATCH_D(d, dense_attend<T, HD><<<grid, rt::NT, 0, stream>>>(
-                       static_cast<const T*>(q), static_cast<T*>(out),
-                       static_cast<const T*>(k), static_cast<const T*>(v),
-                       kv_len, hq, hkv, s, scale));
-  return static_cast<int>(cudaGetLastError());
+  if (d == 256)
+    return launch_d<T, 256>(grid, q, out, k, v, kv_len, hq, hkv, s, scale,
+                            stream);
+  RT_DISPATCH_D(d, return launch_d<T, HD>(grid, q, out, k, v, kv_len, hq,
+                                          hkv, s, scale, stream));
+  return 0;
 }
 
 }  // namespace

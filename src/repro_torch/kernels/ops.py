@@ -1,4 +1,5 @@
-"""Public wrappers around the port's attention kernels.
+"""Public wrappers around the port's kernels: attention and the RG-LRU's
+linear recurrence.
 
 Each wrapper applies the contract of its ``repro.kernels.ops`` counterpart
 on every path, then dispatches by device:
@@ -31,12 +32,14 @@ counterpart here.
                                              ln, scale=s)
     ctx, lp, ls = ops.paged_mla_chunk_quant(q_abs, q_rope, lp, ls, bt,
                                             start, span, ln, scale=s)
+    y, h_last = ops.linear_scan(a, b, h0)          # h_t = a_t h_{t-1} + b_t
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import linear_scan as _scan
 from repro_torch.kernels import paged_chunk_attention as _pchunk
 from repro_torch.kernels import paged_chunk_attention_quant as _pchunk_q
 from repro_torch.kernels import paged_decode_attention as _pdec
@@ -53,7 +56,7 @@ KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
            "paged_chunk_attention_quant": _pchunk_q,
            "paged_mla_decode": _mdec, "paged_mla_chunk": _mchunk,
            "paged_mla_decode_quant": _mdec_q,
-           "paged_mla_chunk_quant": _mchunk_q}
+           "paged_mla_chunk_quant": _mchunk_q, "linear_scan": _scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -320,3 +323,20 @@ def paged_mla_chunk_quant(q_abs, q_rope, latent_pages, latent_scales,
         block_tables.to(torch.int32).contiguous(),
         start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
         latent_new.contiguous(), r=r, scale=scale)
+
+
+def linear_scan(a, b, h0, *, impl: str = "kernel"):
+    """h_t = a_t ⊙ h_{t-1} + b_t.  a, b: [B, T, D]; h0: [B, D].  Returns
+    (y [B, T, D] in b's dtype, h_T [B, D] float32).
+
+    The plain path returns y's last step as h_T, as JAX's
+    ``use_pallas=False`` does (the float32 carry itself when b is float32,
+    as on the model's path); the kernel returns the float32 carry, as JAX's
+    Pallas kernel does.  Time is not padded with identity steps: the
+    kernel walks t < T.
+    """
+    if _plain(a, impl):
+        y = ref.linear_scan(a, b, h0)
+        return y, y[:, -1].float()
+    return _scan.linear_scan(a.float().contiguous(), b.contiguous(),
+                             h0.float().contiguous())

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the attention kernels (the correctness contract),
-float and quantized pools, MHA and MLA.
+"""Plain PyTorch versions of the kernels (the correctness contract): the
+attention kernels over float and quantized pools, MHA and MLA, and the
+diagonal linear recurrence of the RG-LRU.
 
 Each function is the mathematical definition with no tiling, line for line
 in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
@@ -377,3 +378,48 @@ def paged_mla_decode_quant(q_abs, q_rope, latent_pages, latent_scales,
         q_abs, q_rope, dequantize_rows(latent_pages, latent_scales),
         block_tables, pos, dequantize_rows(lq, ls), r=r, scale=scale)
     return ctx, latent_pages, latent_scales
+
+
+# ---------------------------------------------------------------------------
+# Diagonal linear recurrence (RG-LRU): h_t = a_t ⊙ h_{t-1} + b_t
+# ---------------------------------------------------------------------------
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+                ) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t-1} + b_t for every t.  a, b: [B, T, D]; h0: [B, D].
+    Returns y [B, T, D] in ``b.dtype``; the carry is float32.
+
+    Each step rounds once, as a fused multiply-add does: a_t·h is exact in
+    float64 (two float32 significands), b_t is added there and the sum is
+    rounded to float32.  JAX's CPU oracle (``repro.kernels.ref``'s
+    ``lax.scan``) rounds the same way, and so does the CUDA kernel's
+    ``__fmaf_rn``; two float32 roundings (``a*h`` then ``+ b``) would not.
+    """
+    a64 = a.to(torch.float64)
+    b64 = b.to(torch.float64)
+    h = h0.to(torch.float32)
+    y = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = (a64[:, t] * h + b64[:, t]).to(torch.float32)
+        y[:, t] = h
+    return y.to(b.dtype)
+
+
+def rglru(x: torch.Tensor, input_gate: torch.Tensor, rec_gate: torch.Tensor,
+          log_lambda: torch.Tensor, h0: torch.Tensor, c: float = 8.0
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Griffin RG-LRU (arXiv:2402.19427 eq. 3-4).
+
+    x, input_gate, rec_gate: [B, T, D] (gates pre-activation); log_lambda:
+    [D] (softplus domain); h0: [B, D].  Returns (y [B, T, D] in x's dtype,
+    h_T [B, D] float32).
+    """
+    i_t = torch.sigmoid(input_gate.float())
+    r_t = torch.sigmoid(rec_gate.float())
+    log_a = -c * r_t * torch.nn.functional.softplus(
+        log_lambda.float())[None, None, :]
+    a_t = torch.exp(log_a)
+    gated_x = i_t * x.float()
+    b_t = torch.sqrt(torch.clamp(1.0 - a_t ** 2, min=1e-9)) * gated_x
+    hs = linear_scan(a_t, b_t, h0)
+    return hs.to(x.dtype), hs[:, -1].float()

@@ -1,15 +1,16 @@
 """Where the time of full-width paged serving goes, on one CUDA card.
 
 Runs a serving workload of ``launch/workload.py`` (the ones
-``chip_smoke.py`` checks: ``--model olmo``, OLMo-1B, or ``--model mla``,
-DeepSeek-V2-Lite with dense FFNs) once to warm up, once unprofiled, then
+``chip_smoke.py`` checks: ``--model olmo``, OLMo-1B, ``--model mla``,
+DeepSeek-V2-Lite with dense FFNs, or ``--model recurrent``,
+RecurrentGemma-2B) once to warm up, once unprofiled, then
 once under ``torch.profiler``, and prints one JSON object: wall time with
 and without the profiler, device-busy time (kernel time summed over the
 profiled run) and its share of the unprofiled wall time, and device time
 by kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--model olmo|mla] [--top 15]
+        [--model olmo|mla|recurrent] [--top 15]
 """
 from __future__ import annotations
 
@@ -30,15 +31,18 @@ from repro_torch.serving.scheduler import ContinuousBatchingEngine
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="olmo", choices=["olmo", "mla"])
+    ap.add_argument("--model", default="olmo",
+                    choices=["olmo", "mla", "recurrent"])
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
     build.build()
-    cfg = (configs.get(workload.ARCH) if args.model == "olmo"
-           else workload.mla_config())
+    cfg = {"olmo": lambda: configs.get(workload.ARCH),
+           "mla": workload.mla_config,
+           "recurrent": lambda: configs.get(workload.RECURRENT_ARCH),
+           }[args.model]()
     params = lm.init(cfg, seed=args.seed, device=dev)
 
     def run() -> tuple[ContinuousBatchingEngine, float]:

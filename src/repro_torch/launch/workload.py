@@ -1,7 +1,7 @@
 """The full-width serving workloads, defined once.
 
-``chip_smoke.py`` checks them and ``launch/profile_serve.py`` profiles the
-first, so both measure the same traffic: seeded random bf16 weights behind
+``chip_smoke.py`` checks them and ``launch/profile_serve.py`` profiles
+each, so both measure the same traffic: seeded random bf16 weights behind
 ``ContinuousBatchingEngine(batch=8, max_len=1024, page_size=16,
 chunk_size=64)``, answering 16 requests whose prompts are 32–512 tokens
 long, with 32 new tokens each, on
@@ -13,7 +13,14 @@ long, with 32 new tokens each, on
   ``config.json``) with every layer dense: MLA attention and the model's
   own dense FFN width, ``intermediate_size`` 10944 (its first layer,
   ``first_k_dense_replace: 1``), in place of the MoE FFN the port does not
-  run yet (ROADMAP.md queue 1 item 11).  About 2.6 B parameters.
+  run yet (ROADMAP.md queue 1 item 11).  About 2.6 B parameters;
+* ``recurrentgemma-2b`` (``RECURRENT_ARCH``, arXiv:2402.19427, the repo's
+  own config at full width): 26 layers, 8 × (rglru, rglru, local) and a
+  tail of (rglru, rglru), d_model 2560, 10 query heads on 1 KV head of
+  256, window 2048, RG-LRU width 2560.  2.89 B parameters.  Its windowed
+  layers keep a dense cache and its recurrent layers a state, so
+  ``paged=True`` pages no layer: the scheduler only keeps its page
+  accounting.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 ARCH = "olmo-1b"
 MLA_BASE = "deepseek-v2-lite-16b"
 MLA_DENSE_FFN = 10944               # DeepSeek-V2-Lite intermediate_size
+RECURRENT_ARCH = "recurrentgemma-2b"
 ENGINE = dict(batch=8, max_len=1024, page_size=16, chunk_size=64)
 N_REQUESTS = 16
 PROMPT_LENS = (32, 512)             # inclusive

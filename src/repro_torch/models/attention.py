@@ -1,6 +1,9 @@
 """GQA attention with optional sliding window and RoPE: the full-sequence
 path, prompt prefill into a cache, the single-token decode step and the
-token-budget mixed step, over a dense or a paged KV cache.
+token-budget mixed step, over a dense or a paged KV cache.  The window
+(the ``local`` kind) reaches prefill through the caller's mask, the mixed
+step through its masks, and decode through ``decode_attention`` where the
+cache holds no more than the window, else a masked einsum.
 
 The decode and mixed steps run the port's attention kernels through
 ``kernels.ops``: ``paged_chunk_attention`` (mixed step, paged cache),
@@ -292,14 +295,33 @@ def decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     slot = (pos % s).long()
     cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
     cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
-    if cfg.window is not None and s > cfg.window:
-        # The dense kernel has no window: an unbounded cache under sliding
-        # -window attention belongs to the "local" kind, not ported yet.
-        raise NotImplementedError(
-            "windowed decode over an unbounded dense cache: ROADMAP.md "
-            "queue 1 item 11 (remaining families)")
-    out = kops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
-                                (pos + 1).clamp(max=s), scale=scale,
-                                impl=impl)
+    kv_len = (pos + 1).clamp(max=s)
+    if cfg.window is None or s <= cfg.window:
+        # No window, or the cache holds no more than the window (a ring
+        # cache, or max_len <= window): the kernel's causal walk is exact.
+        out = kops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
+                                    kv_len, scale=scale, impl=impl)
+    else:
+        out = _windowed_decode(cfg, q[:, :, 0], cache, pos, kv_len, scale)
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return common.dense(p["wo"], out), cache
+
+
+def _windowed_decode(cfg: ModelConfig, q: torch.Tensor, cache: Params,
+                     pos: torch.Tensor, kv_len: torch.Tensor, scale: float
+                     ) -> torch.Tensor:
+    """Sliding-window decode over an unbounded dense cache (S > window):
+    the dense kernel has no window, so this is JAX's masked grouped einsum
+    (logits in float32, probabilities in q's dtype).  q: [B, Hq, D]."""
+    b, s = q.shape[0], cache["k"].shape[2]
+    group = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, cfg.num_kv_heads, group, cfg.head_dim)
+    logits = torch.einsum("bkgd,bksd->bkgs", qg.float(),
+                          cache["k"].float()) * scale
+    slots = torch.arange(s, device=q.device)[None, :]
+    valid = ((slots < kv_len[:, None])
+             & (slots > (pos[:, None] - cfg.window)))       # [B, S]
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bksd->bkgd", probs.float(), cache["v"].float())
+    return out.to(q.dtype).reshape(b, cfg.num_heads, cfg.head_dim)

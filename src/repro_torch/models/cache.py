@@ -9,7 +9,9 @@ port runs a Python loop over layers and keeps them apart —
 ``convert.cache_from_jax`` unstacks.)
 
 Layouts ported so far:
-  dense          [B, Hkv, S, D] K/V (ring when S < the positions written)
+  dense          [B, Hkv, S, D] K/V (ring when S < the positions written;
+                 the ``local`` kind's, paged or not, bounded by the window
+                 under ``ring_local_cache``)
   paged_mha      shared K/V pools [P, Hkv, ps, D] + block_tables [B, maxp]
   paged_mha_q8   paged_mha with int8 pools and f32 row scales
                  k_scales / v_scales [P, Hkv, ps] (fill 1.0)
@@ -19,13 +21,14 @@ Layouts ported so far:
   paged_mla      latent pool [P, ps, pad128(r + rd)] + block_tables
   paged_mla_q8   int8 latent pool + f32 latent_scales [P, ps] (fill 1.0)
   paged_mla_fp8  the same with a float8_e4m3fn pool
+  state          the ``rglru`` kind's recurrent carry: h float32 [B, W] and
+                 conv [B, cw-1, W] in the cache dtype; never paged
 
 The latent pool's feature axis is padded to a multiple of 128 as in the
 JAX package (whose TPU kernels need the lane width), so caches carry across
 leaf for leaf; ``CacheSpec.latent_width`` records the live r + rd.  The
-windowed (ring), MoE, recurrent-state and cross-attention layouts of
-``repro.models.cache`` raise NotImplementedError naming their ROADMAP.md
-queue 1 item.
+MoE, xLSTM-state and cross-attention layouts of ``repro.models.cache``
+raise NotImplementedError naming their ROADMAP.md queue 1 item.
 """
 from __future__ import annotations
 
@@ -40,16 +43,15 @@ ROLE_KV = "kv"
 ROLE_POOL = "pool"
 ROLE_SCALE = "scale"
 ROLE_TABLE = "table"
+ROLE_STATE = "state"
 
 KV_QUANT_MODES = ("off", "int8", "fp8")
 SCALE_LEAF = {"k_pages": "k_scales", "v_pages": "v_scales",
               "latent_pages": "latent_scales"}
 
 # Not yet ported: layout family -> ROADMAP.md queue 1 item.
-_LATER = {"local": "item 11 (remaining families)",
-          "moe": "item 11 (remaining families)",
+_LATER = {"moe": "item 11 (remaining families)",
           "mla_moe": "item 11 (remaining families)",
-          "rglru": "item 11 (remaining families)",
           "slstm": "item 11 (remaining families)",
           "mlstm": "item 11 (remaining families)",
           "xattn": "item 11 (remaining families)"}
@@ -76,8 +78,8 @@ class Leaf:
 @dataclass(frozen=True)
 class CacheSpec:
     """Layout descriptor for one layer's cache."""
-    kind: str                    # block kind ("attn", "mla")
-    layout: str                  # dense | paged_mha | dense_mla | paged_mla
+    kind: str                    # block kind ("attn", "local", "mla", ...)
+    layout: str                  # dense | paged_mha | dense_mla | ... | state
     leaves: tuple[Leaf, ...]
     page_size: int = 0
     num_pages: int = 0
@@ -150,6 +152,17 @@ def _paged_mla(kind, cfg, batch, max_len, dtype, *, page_size=64,
     ), page_size=page_size, num_pages=num_pages, latent_width=width)
 
 
+@register_layout("state")
+def _state(kind, cfg, batch, max_len, dtype, **_) -> CacheSpec:
+    """The ``rglru`` carry: ``models.rglru.init_cache``'s leaves, read off
+    a meta-device init (no memory)."""
+    from repro_torch.models import rglru
+    tree = rglru.init_cache(cfg, batch, dtype, device="meta")
+    return CacheSpec(kind, "state", tuple(
+        Leaf(name, tuple(t.shape), t.dtype, ROLE_STATE)
+        for name, t in tree.items()))
+
+
 def _quantized(base: str, layout: str, qdtype, kind, cfg, batch, max_len,
                dtype, **kw) -> CacheSpec:
     """Derive a quantized layout from its float layout: pool leaves store
@@ -208,8 +221,13 @@ def layout_for(kind: str, cfg, *, paged: bool) -> str:
     """Which layout a block kind uses under the requested paging mode."""
     if kind == "attn":
         return "paged_mha" if paged else "dense"
+    if kind == "local":
+        # Windowed layers stay dense: already bounded by the window.
+        return "dense"
     if kind == "mla":
         return "paged_mla" if paged else "dense_mla"
+    if kind == "rglru":
+        return "state"
     if kind in _LATER:
         raise NotImplementedError(
             f"the {kind!r} cache layout is not ported yet: ROADMAP.md "
@@ -236,6 +254,8 @@ def spec_for(kind: str, cfg, batch: int, max_len: int,
              page_size: int = 64, num_pages: int | None = None,
              kv_quant: str = "off") -> CacheSpec:
     layout = quant_layout(layout_for(kind, cfg, paged=paged), kv_quant)
+    if kind == "local" and cfg.ring_local_cache and cfg.window:
+        max_len = min(max_len, cfg.window)
     return _LAYOUTS[layout](kind, cfg, batch, max_len, dtype,
                             page_size=page_size, num_pages=num_pages)
 
@@ -265,6 +285,7 @@ _LEAFSETS: dict[frozenset, str] = {
                "block_tables"}): "paged_mha_q8",
     frozenset({"latent_pages", "latent_scales",
                "block_tables"}): "paged_mla_q8",
+    frozenset({"h", "conv"}): "state",
 }
 
 # Every leaf that travels with its pages (pools AND their scales), so page

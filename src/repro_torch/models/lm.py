@@ -7,10 +7,12 @@ and layouts; where JAX stacks each pattern slot's layers on a [G] axis for
 (``convert.params_from_jax`` unstacks a JAX tree).
 
 Entry points mirror ``repro.models.lm``: ``forward``, ``init_cache``,
-``prefill``, ``decode_step`` and ``mixed_step``.  ``impl="kernel"`` runs the
-attention kernels where the tensors live (the Hopper kernels on the card,
-the plain versions on the CPU); ``impl="ref"`` takes the plain versions.
-Caches are updated in place.
+``prefill``, ``decode_step``, ``mixed_step`` and, for recurrent (``state``
+layout) layers, ``reset_state_rows``, ``snapshot_state_rows`` and
+``restore_state_rows``.  ``impl="kernel"`` runs the kernels where the
+tensors live (the Hopper kernels on the card, the plain versions on the
+CPU); ``impl="ref"`` takes the plain versions.  Attention caches are
+updated in place; recurrent layers hand back new state tensors.
 """
 from __future__ import annotations
 
@@ -93,12 +95,18 @@ def _make_ctx(cfg: ModelConfig, t: int, device,
             "blockwise attention path, not ported yet: ROADMAP.md queue 2 "
             "(flash_attention)")
     mask_full = common.make_mask(t, t, causal=True, device=device)
+    mask_local = (common.make_mask(t, t, causal=True, window=cfg.window,
+                                   device=device)
+                  if "local" in cfg.block_pattern else None)
     if lengths is not None:
         valid = (torch.arange(t, device=device)[None, :]
                  < lengths[:, None])                            # [B, T]
         mask_full = mask_full[None] & valid[:, None, :]
+        if mask_local is not None:
+            mask_local = mask_local[None] & valid[:, None, :]
     return BlockCtx(positions=torch.arange(t, device=device),
-                    mask_full=mask_full, mode="full", lengths=lengths)
+                    mask_full=mask_full, mode="full", lengths=lengths,
+                    mask_local=mask_local)
 
 
 def _run_blocks(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -223,6 +231,15 @@ def mixed_step(p: Params, cfg: ModelConfig, tokens, cache: Params, start,
     rows' logits are garbage.  ``all_logits`` returns [B, C, V].
     """
     _check_supported(cfg)
+    if ("local" in cache_mod.layer_kinds(cfg) and cfg.ring_local_cache
+            and cfg.window):
+        # A ring cache wraps under multi-token spans: a later span token can
+        # overwrite a slot an earlier query's window still needs.  Windowed
+        # layers over an unbounded dense cache are fine (the masks hold the
+        # window).
+        raise NotImplementedError(
+            "mixed step over a ring local cache is unsupported — disable "
+            "ring_local_cache (dense windowed cache) to serve chunked")
     dev = p["embed"]["w"].device
     tokens = _tokens(tokens, dev)
     start, span = _tokens(start, dev), _tokens(span, dev)
@@ -238,3 +255,60 @@ def mixed_step(p: Params, cfg: ModelConfig, tokens, cache: Params, start,
     last = (span.long() - 1).clamp(min=0)
     x = x[torch.arange(b, device=dev), last][:, None]
     return _final(p, cfg, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Recurrent state rows (state-layout layers)
+# ---------------------------------------------------------------------------
+
+def state_layers(cfg: ModelConfig) -> list[int]:
+    """Indices of the layers whose cache is the ``state`` layout."""
+    return [i for i, kind in enumerate(cache_mod.layer_kinds(cfg))
+            if cache_mod.layout_for(kind, cfg, paged=False) == "state"]
+
+
+def _blend(mask: torch.Tensor, new: dict, old: dict) -> dict:
+    """Per leaf: ``new`` (cast to the live dtype) where ``mask[b]``."""
+    out = {}
+    for name, o in old.items():
+        m = mask.to(o.device).reshape((-1,) + (1,) * (o.dim() - 1))
+        out[name] = torch.where(m, new[name].to(o.device, o.dtype), o)
+    return out
+
+
+def reset_state_rows(cfg: ModelConfig, cache: Params, mask) -> Params:
+    """Reset recurrent (state-layout) layers to fresh init for rows where
+    ``mask`` is True: a freed row must not leak its h / conv state into the
+    next admitted request.  Attention caches need no reset: their writes
+    overwrite and their reads are position-bounded."""
+    mask = torch.as_tensor(mask, dtype=torch.bool)
+    batch = int(mask.shape[0])
+    layers = list(cache["layers"])
+    for i in state_layers(cfg):
+        kind = cache_mod.layer_kinds(cfg)[i]
+        fresh = cache_mod.spec_for(kind, cfg, batch, 1).init(
+            layers[i]["h"].device)
+        layers[i] = _blend(mask, fresh, layers[i])
+    return dict(cache, layers=layers)
+
+
+def snapshot_state_rows(cfg: ModelConfig, cache: Params) -> Params:
+    """Copies of the recurrent carries: ``{"layers": [copy or None]}``, the
+    whole-row half of a speculative-decoding rollback snapshot."""
+    state = set(state_layers(cfg))
+    return {"layers": [{k: t.clone() for k, t in layer.items()}
+                       if i in state else None
+                       for i, layer in enumerate(cache["layers"])]}
+
+
+def restore_state_rows(cfg: ModelConfig, cache: Params, snap: Params,
+                       mask) -> Params:
+    """Blend ``snap`` (from :func:`snapshot_state_rows`) back into the rows
+    where ``mask`` is True: a recurrent carry folds every span token
+    irreversibly, so a rollback restores the pre-verify carry and the
+    caller replays the committed prefix."""
+    mask = torch.as_tensor(mask, dtype=torch.bool)
+    layers = list(cache["layers"])
+    for i in state_layers(cfg):
+        layers[i] = _blend(mask, snap["layers"][i], layers[i])
+    return dict(cache, layers=layers)

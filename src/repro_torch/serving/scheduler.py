@@ -24,7 +24,11 @@ trash page in one step; its contents are unspecified.
 
 Dense mode (``paged=False``) runs the same composer against the
 [B, Hkv, S, D] cache; ``kv_quant="int8"|"fp8"`` stores the pools quantized
-with f32 row scales (``paged_chunk_attention_quant`` on the card).
+with f32 row scales (``paged_chunk_attention_quant`` on the card).  A model
+with recurrent (``state``) layers resets an admitted row's carry to fresh
+init, so a freed row's state never leaks into the next request; its
+windowed and recurrent layers hold no pool, and with ``paged=True`` the
+pages are accounted for all the same, as in the JAX package.
 COW prefix sharing, speculative decoding, the swap tier, journaling,
 bounded queues, deadlines and disaggregation roles are not ported yet:
 their options raise NotImplementedError naming the ROADMAP.md item.
@@ -374,6 +378,7 @@ class ContinuousBatchingEngine:
                                        device=self.device)
         self._mixed = engine_mod.make_mixed_step_fn(cfg, impl=impl,
                                                     temperature=temperature)
+        self._has_state = bool(lm.state_layers(cfg))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         # Positions are host-owned: the mixed step takes (start, span) as
         # inputs, so the one per-step sync is reading the sampled tokens.
@@ -455,6 +460,7 @@ class ContinuousBatchingEngine:
         """
         t0 = time.perf_counter()
         admitted = 0
+        reset_rows = []
         for row in range(self.batch):
             if self.rows[row] is not None or not self.queue:
                 continue
@@ -480,8 +486,14 @@ class ContinuousBatchingEngine:
             req.admit_len = len(ctx)
             req.admitted_step = self.stats["steps"]
             self.row_pos[row] = 0
+            reset_rows.append(row)
             admitted += 1
         if admitted:
+            if self._has_state:
+                mask = np.zeros((self.batch,), bool)
+                mask[reset_rows] = True
+                self.cache = lm.reset_state_rows(self.cfg, self.cache,
+                                                 torch.from_numpy(mask))
             self.stats["admitted"] += admitted
             if self.paged:
                 self._note_peak()

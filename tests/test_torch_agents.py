@@ -12,7 +12,9 @@ JAX top-1/top-2 logit gap of at most ``TIE_GAP``.  (The bf16 sim-LLM has
 exact and near ties; the frameworks round bf16 at different places, so a
 tie may break either way and the streams then part.)  One more trial
 runs the MLA model (reduced deepseek-v2-lite-16b with dense FFNs) on int8
-latent pools with the delta merge, held the same way.
+latent pools with the delta merge, and one the recurrent model (reduced
+recurrentgemma-2b: RG-LRU and local attention) paged and chunked, each
+held the same way.
 
 Also: ``PrefixPageMapper`` against JAX's over a map/free sequence, the
 evaluator's report and reconciliation on a converged document, and the
@@ -222,6 +224,27 @@ def test_mla_trial_matches_jax(mla_sim, monkeypatch):
     _hold_trial_to_jax(mla_sim, dict(mode="parallel", kv="paged",
                                      prefill="chunked", kv_quant="int8",
                                      merge="delta"), monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def recurrent_sim():
+    """Reduced recurrentgemma-2b (rglru, rglru, local and a tail of rglru,
+    rglru; d_model 64, vocab 512), JAX's bf16 ``lm.init`` weights (float32
+    log_lambda) in both packages."""
+    jcfg, tcfg = (pkg.reduced(pkg.get("recurrentgemma-2b"), vocab=512)
+                  for pkg in (jconfigs, tconfigs))
+    jp = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                 device="cpu")
+    return jcfg, jp, tcfg, tp
+
+
+def test_recurrent_trial_matches_jax(recurrent_sim, monkeypatch):
+    """The trial on the recurrent model: parallel, paged (no layer holds a
+    pool: the mapper's accounting only), chunked admission through the
+    recurrent layers' ragged forward; held as the cases above."""
+    _hold_trial_to_jax(recurrent_sim, dict(mode="parallel", kv="paged",
+                                           prefill="chunked"), monkeypatch)
 
 
 def test_prefix_page_mapper_matches_jax():

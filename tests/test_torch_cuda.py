@@ -1,7 +1,8 @@
 """Card-only tests of the port: each Hopper kernel against its plain PyTorch
 version on the same CUDA inputs (the quantized-pool kernels for int8 and
-fp8-e4m3 pools included, and the four paged-MLA kernels at the full
-(512, 64) and the test (32, 8) latent widths).
+fp8-e4m3 pools included, the four paged-MLA kernels at the full (512, 64)
+and the test (32, 8) latent widths, ``decode_attention`` up to head_dim 256
+and the RG-LRU's ``linear_scan``).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -14,7 +15,8 @@ round one float32 result to bf16, and float32 results that differ in their
 last bits may land one bf16 step apart).  The MLA contexts are float32
 whatever the pool (a bf16 or dequantized row widens to float32 exactly),
 so they are held to 1e-5.  Pools (and the quantized pools' scales) must
-match bitwise.
+match bitwise.  ``linear_scan`` must match bitwise: kernel and plain version
+round each step once (the kernel's FMA, the plain version's float64 step).
 """
 from __future__ import annotations
 
@@ -139,6 +141,8 @@ DENSE_CASES = [
     (4, 8, 2, 1024, 128),
     (1, 2, 2, 96, 32),
     (3, 4, 4, 40, 16),
+    (8, 10, 1, 1024, 256),                  # RecurrentGemma: MQA, group 10
+    (2, 1, 1, 300, 256),                    # head_dim 256, group 1
 ]
 
 
@@ -255,6 +259,21 @@ def test_kernels_reject_what_they_cannot_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
                                                  device=card))
+    # head_dim 256 is the dense decode kernel's alone: the paged walks keep
+    # their tiles in static shared memory.
+    kp = torch.zeros(2, 1, 8, 256, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_decode_attention(
+            torch.zeros(1, 2, 256, device=card), kp, kp,
+            torch.zeros(1, 2, dtype=torch.int32, device=card),
+            torch.zeros(1, dtype=torch.int32, device=card),
+            torch.zeros(1, 1, 256, device=card),
+            torch.zeros(1, 1, 256, device=card))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.linear_scan(torch.ones(1, 2, 8, device=card),
+                        torch.ones(1, 2, 8, device=card,
+                                   dtype=torch.float16),
+                        torch.zeros(1, 8, device=card))
     q = torch.zeros(1, 2, 32, device=card, dtype=torch.float16)
     k = torch.zeros(1, 2, 8, 32, device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
@@ -398,3 +417,79 @@ def test_quant_kernels_reject_float_pools(card):
     kn = torch.zeros(1, 2, 32, device=card)
     with pytest.raises(ValueError, match="pool dtype"):
         ops.paged_decode_attention_quant(q, kp, sc, kp, sc, bt, pos, kn, kn)
+
+
+SCAN_CASES = [
+    # (B, T, D, b dtype)
+    (8, 64, 2560, torch.float32),           # the mixed step's shape
+    (3, 1, 96, torch.float32),              # T = 1
+    (2, 37, 200, torch.float32),            # T past the unroll, D % 128
+    (4, 37, 130, torch.bfloat16),           # bf16 b and y
+]
+
+
+def _scan_inputs(r, b, t, d, bdtype, dev):
+    a = _t(r.uniform(0.3, 1.0, (b, t, d)), torch.float32, dev)
+    bb = _t(r.normal(size=(b, t, d)), bdtype, dev)
+    h0 = _t(r.normal(size=(b, d)), torch.float32, dev)
+    return a, bb, h0
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_linear_scan_kernel_matches_plain(card, case):
+    """Bitwise: y, and the kernel's float32 carry against the plain
+    version's float32 scan (b widened to float32 exactly)."""
+    b, t, d, bdtype = case
+    a, bb, h0 = _scan_inputs(np.random.default_rng(7), b, t, d, bdtype, card)
+    before = ops.launch_counts()["linear_scan"]
+    y1, h1 = ops.linear_scan(a, bb, h0)
+    assert ops.launch_counts()["linear_scan"] == before + 1
+    y32 = ref.linear_scan(a, bb.float(), h0)
+    torch.cuda.synchronize()
+    assert y1.dtype == bdtype and h1.dtype == torch.float32
+    assert torch.equal(y1, y32.to(bdtype))
+    assert torch.equal(h1, y32[:, -1])
+    y2, h2 = ops.linear_scan(a, bb, h0, impl="ref")
+    assert torch.equal(y1, y2)
+    if bdtype == torch.float32:
+        assert torch.equal(h1, h2)
+
+
+def test_linear_scan_kernel_carries_through_identity_padding(card):
+    """The model's ragged spans: identity steps (a = 1, b = 0) past each
+    row's span leave the carry at its span end, bit for bit; a span-0 row
+    keeps h0; two calls on halves equal one call."""
+    r = np.random.default_rng(8)
+    b, t, d = 8, 64, 2560
+    a, bb, h0 = _scan_inputs(r, b, t, d, torch.float32, card)
+    span = torch.as_tensor([64, 17, 1, 0, 33, 64, 2, 50], device=card)
+    valid = (torch.arange(t, device=card)[None, :] < span[:, None])[..., None]
+    a = torch.where(valid, a, 1.0)
+    bb = torch.where(valid, bb, 0.0)
+    y, h = ops.linear_scan(a, bb, h0)
+    want = ref.linear_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    rows = torch.arange(b, device=card)
+    end = torch.where((span > 0)[:, None], y[rows, (span - 1).clamp(min=0)],
+                      h0)
+    assert torch.equal(h, end)
+    assert torch.equal(h[3], h0[3])
+    y_a, h_a = ops.linear_scan(a[:, :29].contiguous(),
+                               bb[:, :29].contiguous(), h0)
+    y_b, h_b = ops.linear_scan(a[:, 29:].contiguous(),
+                               bb[:, 29:].contiguous(), h_a)
+    assert torch.equal(torch.cat([y_a, y_b], 1), y) and torch.equal(h_b, h)
+
+
+def test_failed_launch_raises_and_returns_nothing(card):
+    """A launch the card refuses (a grid of 70,000 rows: past the 65,535
+    the second grid dimension takes) raises; the wrapper gives back no
+    result, the plain version's least of all."""
+    a = torch.ones(70_000, 1, 1, device=card)
+    result = None
+    with pytest.raises(RuntimeError, match="linear_scan: launch failed"):
+        result = ops.linear_scan(a, a.clone(), torch.zeros(70_000, 1,
+                                                          device=card))
+    assert result is None
+    torch.cuda.synchronize()               # the refusal left no fault

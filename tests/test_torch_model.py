@@ -207,7 +207,7 @@ def test_page_tables_and_copy_pages_match_jax(models):
         tlm.set_block_tables(tc, torch.zeros(B, 3, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("pattern", [("local",), ("mla_moe",), ("rglru",)])
+@pytest.mark.parametrize("pattern", [("slstm",), ("mla_moe",), ("mlstm",)])
 def test_unported_block_kinds_name_their_roadmap_item(pattern):
     cfg = tconfigs.reduced(tconfigs.get("olmo-1b"), d_model=32,
                            vocab=64).replace(block_pattern=pattern)
