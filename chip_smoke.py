@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the ten kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-   per source, started together);
+1. builds the eleven kernels from ``src/repro_torch/kernels/csrc`` (one
+   nvcc per source, started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    workloads' shapes and times kernel, plain version, and the PyTorch
    library call where one computes the same function: the five MHA kernels
@@ -14,8 +14,12 @@
    kernels at DeepSeek-V2-Lite's (16 heads over a 512 + 64 latent row,
    pool rows of 640; bf16, int8 and fp8 pools), ``decode_attention`` also
    at RecurrentGemma-2B's local attention (10 query heads on 1 KV head of
-   256) and ``linear_scan`` at its RG-LRU's (batch 8, width 2560: the
-   mixed step's 64 steps with ragged identity-padded rows, prefill's 128);
+   256), ``linear_scan`` at its RG-LRU's (batch 8, width 2560: the
+   mixed step's 64 steps with ragged identity-padded rows, prefill's 128)
+   and ``page_transfer`` bitwise on every pool leaf adoption moves (OLMo's
+   bf16 / int8 / fp8 rows and f32 scales, MLA's latent rows and scales;
+   one lane and 64 with -1 lanes, out-of-range and repeated destinations,
+   pools of 513 and 400 pages);
 3. serves ``olmo-1b`` at full width with seeded random bf16 weights:
    ``ContinuousBatchingEngine`` answers 16 requests (bf16 pools, then int8
    pools), ``Engine.generate`` decodes on a dense and on a paged cache;
@@ -30,6 +34,15 @@
    (a), captured in a fifth, untimed run, a mixed step runs through the
    kernels and through the plain versions, layer by layer from the same
    inputs (pools bitwise but for the trash page) and end to end (logits);
+   then disaggregated serving (``workload.DISAGG``: one prefill and one
+   decode engine on a replicated page table, sharing OLMo's parameters):
+   adoption on through the kernels, off, on through the plain versions, on
+   int8 pools, and an exporter crash mid-transfer (3 replicas); every run
+   answers its 8 requests and converges, the first adopted page equals the
+   exporter's bitwise in every layer and leaf, the adoption counters agree
+   across paths, streams agree but at near-ties, and the crash run aborts,
+   rolls back and completes every request exactly once; then trial run
+   (g), (a) on two page-table replicas with disaggregated homes;
 5. serves the MLA workload (``workload.mla_config()``: DeepSeek-V2-Lite at
    full width with dense FFNs, seeded random bf16 weights): the scheduler
    on bf16 and int8 latent pools, ``Engine.generate`` on dense and paged
@@ -51,6 +64,7 @@ script exits with code 2 before doing anything.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -529,6 +543,7 @@ def kernel_phase():
     rows += quant_kernel_rows(rng)
     rows += mla_kernel_rows(rng)
     rows.append(linear_scan_row(rng))
+    rows.append(page_transfer_row(rng))
     return rows
 
 
@@ -641,6 +656,117 @@ def linear_scan_row(rng) -> dict:
                        prefill_wrapper_ms=wrapper_ms,
                        prefill_plain_ms=plain_ms, prefill_bound_ms=bms)
     return row
+
+
+# ---------------------------------------------------------------------------
+# page_transfer
+# ---------------------------------------------------------------------------
+
+# The pool rows disaggregated adoption moves at the workloads' shapes: 513
+# pages (the scheduler's 512 and its trash page) of OLMo-1B's bf16 K/V
+# rows, the int8 / fp8 pools with their f32 scale rows, and MLA's latent
+# rows and scales.
+XFER_ROWS = {"olmo_bf16": ((H, PS, D), torch.bfloat16),
+             "olmo_int8": ((H, PS, D), torch.int8),
+             "olmo_fp8": ((H, PS, D), torch.float8_e4m3fn),
+             "olmo_scales": ((H, PS), torch.float32),
+             "mla_bf16": ((PS, 640), torch.bfloat16),
+             "mla_scales": ((PS,), torch.float32)}
+XFER_PAGES, XFER_DST_PAGES = 513, 400
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def _xfer_lanes(rng):
+    """(one lane, 64 lanes): the 64 hold -1 on both sides, destinations
+    past the 400-page destination pool, and repeated destinations."""
+    s = rng.integers(0, XFER_PAGES, 64)
+    d = rng.integers(0, XFER_DST_PAGES, 64)
+    s[[3, 17, 40]] = -1
+    d[[5, 22]] = -1
+    d[[9, 33]] = XFER_DST_PAGES + np.array([0, 7])
+    d[[12, 50, 61]] = d[11]                  # the last live lane wins
+    return [(np.array([5]), np.array([7])), (s, d)]
+
+
+def _xfer_live(s, d) -> tuple[np.ndarray, np.ndarray]:
+    """The lanes that write: live on both sides, in range, not superseded
+    by a later live lane with the same destination."""
+    keep = []
+    for i in range(len(s)):
+        if s[i] < 0 or d[i] < 0 or d[i] >= XFER_DST_PAGES:
+            continue
+        if any(d[j] == d[i] and s[j] >= 0 for j in range(i + 1, len(s))):
+            continue
+        keep.append(i)
+    return s[keep], d[keep]
+
+
+def page_transfer_row(rng) -> dict:
+    """``page_transfer`` against its plain version, bitwise, on every pool
+    leaf the workloads adopt (one lane, as a pull issues per leaf per
+    layer, and 64 lanes), then timed at OLMo-1B's bf16 rows.  ``ms`` is the
+    kernel's device time (the profiler's: the wrapper's host work is
+    longer than a 64 KB copy); ``library_ms`` is two PyTorch calls,
+    ``dst.index_copy_(0, d, src.index_select(0, s))`` on the writing
+    lanes.  The bound is 2 x writing lanes x row bytes over the HBM rate."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import page_transfer as kxfer
+    lanes = _xfer_lanes(rng)
+    checked = []
+    for name, (row, dtype) in XFER_ROWS.items():
+        gen = torch.Generator(device="cuda").manual_seed(len(name))
+        src = torch.randint(0, 256, (XFER_PAGES,) + row, generator=gen,
+                            dtype=torch.uint8, device="cuda")
+        if dtype.itemsize == 1:
+            src = src.view(dtype)
+        else:
+            src = torch.randn((XFER_PAGES,) + row, generator=gen,
+                              device="cuda").to(dtype)
+        for s, d in lanes:
+            dst = torch.zeros((XFER_DST_PAGES,) + row, dtype=dtype,
+                              device="cuda")
+            plain = dst.clone()
+            si = torch.as_tensor(s, device="cuda")
+            di = torch.as_tensor(d, device="cuda")
+            ops.page_transfer(src, dst, si, di)
+            ref.page_transfer(src, plain, si, di)
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(dst), _bits(plain)):
+                fail(f"page_transfer disagrees with its plain version on "
+                     f"{name}, {len(s)} lanes")
+            checked.append(f"{name}:{len(s)}")
+    row_shape, dtype = XFER_ROWS["olmo_bf16"]
+    src = torch.randn((XFER_PAGES,) + row_shape, device="cuda").to(dtype)
+    dst = torch.zeros((XFER_DST_PAGES,) + row_shape, dtype=dtype,
+                      device="cuda")
+    row_bytes = int(np.prod(row_shape)) * dtype.itemsize
+    out = dict(name="page_transfer", route="cuda",
+               source="src/repro_torch/kernels/csrc/page_transfer.cu",
+               replaces="src/repro/kernels/page_transfer.py:96",
+               checked_bitwise=checked, max_abs_err=0.0,
+               pools_bitwise=True)
+    for (s, d), tag in zip(lanes, ("", "64_")):
+        si = torch.as_tensor(s, dtype=torch.int32, device="cuda")
+        di = torch.as_tensor(d, dtype=torch.int32, device="cuda")
+        ls, ld = (torch.as_tensor(x, device="cuda") for x in _xfer_live(s, d))
+        live = int(ls.numel())
+        bms, by = bound(2 * live * row_bytes, 0)
+        out.update({
+            f"{tag}shapes": f"pools [{XFER_PAGES}|{XFER_DST_PAGES},{H},{PS},"
+                            f"{D}] bf16, {len(s)} lanes ({live} writing)",
+            f"{tag}ms": kernel_device_ms(
+                lambda: kxfer.page_transfer(src, dst, si, di), "transfer"),
+            f"{tag}wrapper_ms": cuda_ms(
+                lambda: ops.page_transfer(src, dst, si, di)),
+            f"{tag}plain_ms": cuda_ms(
+                lambda: ref.page_transfer(src, dst, si, di)),
+            f"{tag}library_ms": cuda_ms(
+                lambda: dst.index_copy_(0, ld, src.index_select(0, ls))),
+            f"{tag}bound_ms": bms, "bound_by": by})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1119,185 @@ def recurrent_serving_phase():
 
 
 # ---------------------------------------------------------------------------
+# Disaggregated serving at full width
+# ---------------------------------------------------------------------------
+
+# The adoption counters, which depend on the schedule alone (eos_id is
+# None, so no token value ends a request early): equal across runs that
+# differ only in the path (kernels or plain) or the pool dtype.
+ADOPTION_COUNTERS = ("adopted_pages", "transferred_pages", "transfer_bytes",
+                     "prefill_steps_avoided", "adopt_aborts", "steps",
+                     "sync_bytes")
+
+
+def _page_rows_equal(src_cache, dst_cache, page) -> int:
+    """Leaves whose row ``page`` is bitwise equal in both caches; fails on
+    any that is not."""
+    from repro_torch.models import cache as cache_mod
+    src = {path: layer for path, _, layer in
+           cache_mod.iter_layers(src_cache)}
+    n = 0
+    for path, layout, layer in cache_mod.iter_layers(dst_cache):
+        for name in cache_mod.pool_leaves(layout):
+            if not torch.equal(_bits(layer[name][page]),
+                               _bits(src[path][name][page])):
+                fail(f"adopted page {page}: leaf {name} of layer "
+                     f"{'/'.join(path)} differs from the exporter's")
+            n += 1
+    return n
+
+
+def _disagg_run(cfg, params, device, *, xfer_crash=False, **kw) -> dict:
+    """One run of the disaggregated workload (``workload.DISAGG``) through
+    ``MultiEngineServer``; returns its report, server and requests.  The
+    first committed transfer's page is checked bitwise against the
+    exporter's in every layer and leaf, and the server's gossip (``sync``)
+    is timed on the host."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import chaos
+    server = workload.disagg_server(cfg, params, device=device, **kw)
+    if xfer_crash:
+        server.arm_transfer_crash(0)
+    reqs = workload.disagg_requests(cfg.vocab_size)
+    sync_s = [0.0]
+    first = {}
+    base_sync, base_pull = server.sync, server._pull_page
+
+    def timed_sync():
+        t = time.perf_counter()
+        base_sync()
+        sync_s[0] += time.perf_counter() - t
+
+    def checked_pull(r, rid, key, lead):
+        page = base_pull(r, rid, key, lead)
+        if page is not None and not first:
+            owner = server.stores[r].lease(page)[0]
+            first.update(page=page, exporter=owner, adopter=r,
+                         leaves_bitwise=_page_rows_equal(
+                             server.engines[owner].cache,
+                             server.engines[r].cache, page))
+        return page
+
+    server.sync, server._pull_page = timed_sync, checked_pull
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls = workload.run_disagg(server, reqs)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = server.stats()
+    steps = max(1, st["steps"])
+    gossip_s = sync_s[0]
+    # Quiesce: gossip rounds alone (no engine step) until the replicas'
+    # page tables agree; fixed-capacity deltas ship the end-of-run frees
+    # over several rounds.
+    clock = server.clock
+    drained = chaos.drain(server)
+    report = dict(st, converged=drained and server.converged(),
+                  quiesce_rounds=server.clock - clock,
+                  median_step_s=float(np.median(walls)),
+                  wall_s=float(np.sum(walls)),
+                  gossip_host_s=gossip_s,
+                  gossip_host_s_per_step=gossip_s / steps,
+                  page_transfer_launches=counts["page_transfer"],
+                  first_transfer=first, launches=counts)
+    return dict(report=report, server=server, reqs=reqs)
+
+
+def _stream_gap(cfg, params, prompt, tokens, j) -> float:
+    """The plain path's top-1 / top-2 logit gap at generated position
+    ``j`` of ``prompt + tokens`` (one forward, no cache)."""
+    from repro_torch.models import lm
+    seq = torch.as_tensor([list(prompt) + list(tokens[:j])],
+                          device=params["embed"]["w"].device)
+    logits, _ = lm.forward(params, cfg, seq)
+    top2 = logits[0, -1].float().topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def _streams_tie_aware(cfg, params, a, b, label) -> dict:
+    """Request by request, the two runs' streams are equal, or their first
+    difference falls where the plain path's top-2 gap is at most twice the
+    logit tolerance (a near-tie either path may break either way)."""
+    differing, gaps = 0, []
+    for ra, rb in zip(a, b):
+        if ra.tokens == rb.tokens:
+            continue
+        differing += 1
+        j = next(i for i, (x, y) in enumerate(zip(ra.tokens, rb.tokens))
+                 if x != y)
+        gap = _stream_gap(cfg, params, ra.prompt, ra.tokens, j)
+        gaps.append(gap)
+        if gap > 2 * LOGITS_ATOL:
+            fail(f"disaggregated streams ({label}): request {ra.rid} "
+                 f"differs at token {j} where the top-2 gap is {gap}")
+    return dict(requests_differing=differing, gaps=gaps)
+
+
+def disagg_phase(cfg, params, device="cuda") -> dict:
+    """The disaggregated workload at full width (``cfg`` / ``params``:
+    OLMo-1B's, shared by every engine): adoption on through the kernels,
+    adoption off, adoption on through the plain versions, on int8 pools,
+    and the exporter crashing in its first transfer (3 replicas)."""
+    from repro_torch.serving import chaos
+    n = workload.DISAGG_REQUESTS
+    runs = {"on": {}, "off": dict(adopt_pages=False),
+            "plain": dict(impl="ref"), "int8": dict(kv_quant="int8"),
+            "crash": dict(replicas=3, xfer_crash=True)}
+    out, done = {}, {}
+    for name, kw in runs.items():
+        res = _disagg_run(cfg, params, device, **kw)
+        rep, server = res["report"], res["server"]
+        emit({"disagg_run": name, **{k: v for k, v in rep.items()
+                                      if k != "launches"}})
+        if name == "crash":
+            once, detail = chaos._exactly_once(server)
+            balanced, xfer = chaos._xfer_balanced(server)
+            rep.update(exactly_once=once, xfer_journal=xfer)
+            if not (rep["adopt_aborts"] >= 1 and once and balanced
+                    and rep["failed_requests"] == 0
+                    and rep["lost_requests"] == 0 and rep["converged"]
+                    and len(detail["done_counts"]) == n):
+                fail(f"disaggregated crash run: {rep}, {detail}")
+        else:
+            if rep["completed"] != n or not rep["converged"] or any(
+                    len(r.tokens) != workload.DISAGG_NEW for r in res["reqs"]):
+                fail(f"disaggregated run {name} did not answer all {n} "
+                     f"requests: {rep}")
+            if name == "off":
+                if rep["transfer_bytes"] != 0 or rep["adopted_pages"] != 0:
+                    fail(f"adoption off moved pages: {rep}")
+            elif not (rep["adopted_pages"] > 0
+                      and rep["prefill_steps_avoided"] > 0
+                      and rep["first_transfer"].get("leaves_bitwise")):
+                fail(f"disaggregated run {name} adopted nothing: {rep}")
+            if name in ("on", "int8") and rep["page_transfer_launches"] <= 0:
+                fail(f"disaggregated run {name} never launched "
+                     f"page_transfer")
+        out[name] = rep
+        done[name] = res["reqs"]
+        del res, server
+        gc.collect()                # the engines' pools, before the next
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    # The plain path moves the same pages, the int8 pools fewer bytes.
+    for name, keys in (("plain", ADOPTION_COUNTERS),
+                       ("int8", [k for k in ADOPTION_COUNTERS
+                                 if k != "transfer_bytes"])):
+        a, b = out["on"], out[name]
+        if any(a[k] != b[k] for k in keys):
+            fail(f"adoption counters differ between the kernel run and "
+                 f"{name}: {[(k, a[k], b[k]) for k in keys]}")
+    out["streams_on_vs_off"] = _streams_tie_aware(cfg, params, done["on"],
+                                                  done["off"], "on/off")
+    out["streams_on_vs_plain"] = _streams_tie_aware(cfg, params, done["on"],
+                                                    done["plain"],
+                                                    "kernel/plain")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The agent trial at full width
 # ---------------------------------------------------------------------------
 
@@ -1120,6 +1425,9 @@ def _run_trial(cfg, params, task, name, kw) -> dict:
                semantic_conflicts=r.semantic_conflicts,
                declared_symbols=r.declared_symbols,
                converged=r.converged, digest=r.digest,
+               replicas=r.replicas, disaggregated=r.disaggregated,
+               cross_replica_prefix_hits=r.cross_replica_prefix_hits,
+               page_sync_bytes=r.page_sync_bytes,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=counts)
     emit({"trial": res})
@@ -1157,6 +1465,23 @@ def trial_phase(cfg, params) -> tuple[dict, dict]:
     snap = _capture_mid_trial(cfg, params, task)
     results["mid_trial_step"] = _mid_trial_check(cfg, params, snap)
     return results, a["launches"]
+
+
+def replicated_trial(cfg, params) -> dict:
+    """Trial run (g): (a)'s configuration on two page-table metadata
+    replicas with disaggregated homes (agent 0 on the prefill domain), the
+    replicas gossiping at every coordination sync.  It must converge and
+    gossip; its cross-replica prefix hits are reported (each TODO's prompt
+    header is mapped by one agent only, so the trial has no prefix for a
+    second domain to adopt: JAX's run gives 0 on the CPU too)."""
+    from repro_torch.agents.tasks import TASKS
+    res = _run_trial(cfg, params, TASKS[TRIAL_TASK], "g",
+                     dict(mode="parallel", merge="allgather", replicas=2,
+                          disaggregate=True))
+    if not (res["replicas"] == 2 and res["disaggregated"]
+            and res["page_sync_bytes"] > 0):
+        fail(f"trial (g) did not run on replicated page tables: {res}")
+    return res
 
 
 def mla_trial(cfg, params) -> dict:
@@ -1212,6 +1537,10 @@ def main() -> int:
     emit({"serving": serving, "card": card})
     trial, trial_counts = trial_phase(cfg, params)
     emit({"trial_mid_step": trial["mid_trial_step"], "card": card})
+    disagg = disagg_phase(cfg, params)
+    emit({"disagg_serving": {k: v for k, v in disagg.items()
+                             if k.startswith("streams")}, "card": card})
+    replicated_trial(cfg, params)
     del params                  # the MLA model takes the card's memory next
     torch.cuda.empty_cache()
     mla_cfg, mla_params, mla_serving = mla_serving_phase()
@@ -1223,7 +1552,8 @@ def main() -> int:
     emit({"recurrent_serving": rec_serving, "card": card})
     recurrent_trial(rec_cfg, rec_params)
     # Launches: the float kernels and linear_scan on the serving
-    # workloads, the quantized kernels on trials (a) and (e), each path's
+    # workloads, the quantized kernels on trials (a) and (e),
+    # page_transfer on the disaggregated run with adoption on, each path's
     # counts read right after its run.
     launches = {"paged_mla_chunk":
                 mla_serving["scheduler"]["launches"]["paged_mla_chunk"],
@@ -1244,7 +1574,8 @@ def main() -> int:
                 "paged_decode_attention_quant":
                 trial_counts["paged_decode_attention_quant"],
                 "linear_scan":
-                rec_serving["scheduler"]["launches"]["linear_scan"]}
+                rec_serving["scheduler"]["launches"]["linear_scan"],
+                "page_transfer": disagg["on"]["page_transfer_launches"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] == "decode_attention":

@@ -24,8 +24,13 @@ The model steps are ``lm.mixed_step`` (``--prefill chunked``, the
 outliner and the replay baseline: ``paged_decode_attention[_quant]`` or
 ``decode_attention``).
 
-Not ported yet: speculative decoding (ROADMAP.md queue 1 item 8) and the
-replicated / disaggregated page tables (item 12); their options raise.
+``replicas > 1`` partitions the agents' page table across that many
+metadata replicas (``serving/replicated.ReplicatedPrefixPageMapper``) that
+gossip at every coordination sync; ``disaggregate`` homes agent 0 on a
+prefill domain whose header pages the others adopt cross-replica.
+
+Not ported yet: speculative decoding (ROADMAP.md queue 1 item 8); its
+option raises.
 """
 from __future__ import annotations
 
@@ -219,9 +224,6 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
                          "spans, which the replay baseline cannot express)")
     if spec_decode != "off":
         raise _not_ported("--spec-decode", "item 8 (speculative decoding)")
-    if replicas > 1 or disaggregate:
-        raise _not_ported("--replicas > 1 / --disaggregate",
-                          "item 12 (replicated and disaggregated serving)")
     if mode == "sequential":
         n_agents = 1
     dev = resolve_device(device)
@@ -257,9 +259,21 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
         # Shared-prefix admission: each (re-)contextualization maps the
         # row's pages through a refcounted pool with longest-prefix reuse.
         maxp = -(-max_len // page_size)
-        pool_pages = (n_agents + 1) * maxp     # +maxp: remap transient
-        mapper = PrefixPageMapper(n_agents, maxp, page_size,
-                                  trash_page=pool_pages)
+        if replicas > 1:
+            from repro_torch.serving.replicated import \
+                ReplicatedPrefixPageMapper
+            # One remap-transient spare slice per metadata replica: agents
+            # are partitioned round-robin, so each home partition holds its
+            # agents' pages plus one in-flight remap.
+            pool_pages = (n_agents + replicas) * maxp
+            mapper = ReplicatedPrefixPageMapper(
+                n_agents, maxp, page_size, trash_page=pool_pages,
+                replicas=replicas, num_pages=pool_pages,
+                disaggregate=disaggregate)
+        else:
+            pool_pages = (n_agents + 1) * maxp     # +maxp: remap transient
+            mapper = PrefixPageMapper(n_agents, maxp, page_size,
+                                      trash_page=pool_pages)
         cache = lm.init_cache(cfg, n_agents, max_len, paged=True,
                               page_size=page_size,
                               num_pages=pool_pages + 1, kv_quant=kv_quant,
@@ -359,6 +373,8 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
         for i in range(n_agents):
             flush_agent(i)
         stats["syncs"] += 1
+        if replicas > 1 and mapper is not None:
+            mapper.gossip()               # page-table anti-entropy round
         if delta_sync is not None:
             docs = delta_sync.sync(docs)
             stats["sync_bytes"] = delta_sync.bytes_shipped
@@ -577,6 +593,8 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
         kv_mode=kv, prefill_mode=prefill,
         shared_prefix_pages=mapper.shared_pages if mapper else 0,
         replicas=replicas, disaggregated=disaggregate,
+        cross_replica_prefix_hits=getattr(mapper, "cross_replica_hits", 0),
+        page_sync_bytes=getattr(mapper, "sync_bytes", 0),
         agent_failures=stats["agent_fail"],
         agent_retries=stats["agent_retry"],
         spec_decode=spec_decode)
@@ -622,8 +640,9 @@ def main() -> None:
     ap.add_argument("--page-size", type=int, default=64)
     ap.add_argument("--chunk-size", type=int, default=32)
     ap.add_argument("--replicas", type=int, default=1,
-                    help="page-table metadata replicas (not ported yet: "
-                         "values > 1 raise)")
+                    help="page-table metadata replicas (> 1 requires "
+                         "--kv paged): agents are partitioned across "
+                         "replicas that gossip the CRDT page table")
     ap.add_argument("--spec-decode", default="off",
                     choices=["off", "ngram", "doc"],
                     help="speculative decoding (not ported yet: only "
@@ -634,7 +653,10 @@ def main() -> None:
                     help="quantized page pools (requires --kv paged): int8 "
                          "or fp8 values plus per-row f32 scales")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="prefill/decode role partition (not ported yet)")
+                    help="prefill/decode role-partitioned page homes "
+                         "(requires --replicas >= 2): agent 0 publishes "
+                         "the shared prompt header, the others adopt it "
+                         "cross-replica")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")

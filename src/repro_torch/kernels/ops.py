@@ -1,5 +1,5 @@
-"""Public wrappers around the port's kernels: attention and the RG-LRU's
-linear recurrence.
+"""Public wrappers around the port's kernels: attention, the RG-LRU's
+linear recurrence and the cross-pool page transfer.
 
 Each wrapper applies the contract of its ``repro.kernels.ops`` counterpart
 on every path, then dispatches by device:
@@ -33,6 +33,7 @@ counterpart here.
     ctx, lp, ls = ops.paged_mla_chunk_quant(q_abs, q_rope, lp, ls, bt,
                                             start, span, ln, scale=s)
     y, h_last = ops.linear_scan(a, b, h0)          # h_t = a_t h_{t-1} + b_t
+    dst_pool = ops.page_transfer(src_pool, dst_pool, src_ids, dst_ids)
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from repro_torch.kernels import paged_mla_chunk as _mchunk
 from repro_torch.kernels import paged_mla_chunk_quant as _mchunk_q
 from repro_torch.kernels import paged_mla_decode as _mdec
 from repro_torch.kernels import paged_mla_decode_quant as _mdec_q
+from repro_torch.kernels import page_transfer as _xfer
 from repro_torch.kernels import ref
 
 KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
@@ -56,7 +58,8 @@ KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
            "paged_chunk_attention_quant": _pchunk_q,
            "paged_mla_decode": _mdec, "paged_mla_chunk": _mchunk,
            "paged_mla_decode_quant": _mdec_q,
-           "paged_mla_chunk_quant": _mchunk_q, "linear_scan": _scan}
+           "paged_mla_chunk_quant": _mchunk_q, "linear_scan": _scan,
+           "page_transfer": _xfer}
 
 
 def launch_counts() -> dict[str, int]:
@@ -340,3 +343,49 @@ def linear_scan(a, b, h0, *, impl: str = "kernel"):
         return y, y[:, -1].float()
     return _scan.linear_scan(a.float().contiguous(), b.contiguous(),
                              h0.float().contiguous())
+
+
+def page_transfer(src_pool, dst_pool, src_ids, dst_ids, *,
+                  impl: str = "kernel"):
+    """Batched cross-pool page-row transfer (disaggregated adoption).
+
+    src_pool: [Ps, ...row]; dst_pool: [Pd, ...row] (same row shape and
+    dtype, page counts may differ); src_ids / dst_ids: matching 1-D integer
+    vectors — lane i copies row ``src_ids[i]`` into row ``dst_ids[i]``; -1
+    on either side, or a ``dst_id`` past the pool, drops the lane; where
+    live lanes share a destination the last one wins.  Updates ``dst_pool``
+    in place and returns it; the copy is bitwise for every dtype.
+
+    The two pools must not share storage: the card kernel copies lanes in
+    parallel, so a transfer inside one pool would race (the cache's
+    ``copy_pages`` is the in-pool copy).  Every row is taken, scale rows of
+    64 bytes included: the TPU wrapper's tileability escape has no
+    counterpart.
+    """
+    if tuple(src_pool.shape[1:]) != tuple(dst_pool.shape[1:]) \
+            or src_pool.dtype != dst_pool.dtype:
+        raise ValueError(
+            f"page_transfer: pool rows do not match: src "
+            f"{tuple(src_pool.shape)} ({src_pool.dtype}) vs dst "
+            f"{tuple(dst_pool.shape)} ({dst_pool.dtype})")
+    src_ids = torch.as_tensor(src_ids)
+    dst_ids = torch.as_tensor(dst_ids)
+    if src_ids.shape != dst_ids.shape or src_ids.dim() != 1:
+        raise ValueError(
+            f"page_transfer: id vectors must be matching 1-D arrays, got "
+            f"src_ids {tuple(src_ids.shape)} vs dst_ids "
+            f"{tuple(dst_ids.shape)}")
+    if src_ids.shape[0] == 0:
+        return dst_pool
+    if src_pool.untyped_storage().data_ptr() \
+            == dst_pool.untyped_storage().data_ptr():
+        raise ValueError("page_transfer: src_pool and dst_pool share "
+                         "storage; a parallel copy inside one pool would "
+                         "race (use cache.copy_pages)")
+    if _plain(dst_pool, impl):
+        return ref.page_transfer(src_pool, dst_pool, src_ids, dst_ids)
+    dev = dst_pool.device
+    return _xfer.page_transfer(
+        src_pool, dst_pool,
+        src_ids.to(device=dev, dtype=torch.int32).contiguous(),
+        dst_ids.to(device=dev, dtype=torch.int32).contiguous())

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the kernels (the correctness contract): the
-attention kernels over float and quantized pools, MHA and MLA, and the
-diagonal linear recurrence of the RG-LRU.
+attention kernels over float and quantized pools, MHA and MLA, the
+diagonal linear recurrence of the RG-LRU, and the cross-pool page
+transfer of disaggregated serving.
 
 Each function is the mathematical definition with no tiling, line for line
 in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
@@ -423,3 +424,33 @@ def rglru(x: torch.Tensor, input_gate: torch.Tensor, rec_gate: torch.Tensor,
     b_t = torch.sqrt(torch.clamp(1.0 - a_t ** 2, min=1e-9)) * gated_x
     hs = linear_scan(a_t, b_t, h0)
     return hs.to(x.dtype), hs[:, -1].float()
+
+
+# ---------------------------------------------------------------------------
+# Cross-pool page transfer (disaggregated adoption)
+# ---------------------------------------------------------------------------
+
+def page_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
+                  src_ids: torch.Tensor, dst_ids: torch.Tensor
+                  ) -> torch.Tensor:
+    """Lane i copies ``src_pool[src_ids[i]]`` into ``dst_pool[dst_ids[i]]``,
+    in place; returns ``dst_pool``.  A -1 on either side drops the lane, and
+    so does a ``dst_id >= dst_pool.shape[0]``; a ``src_id`` past the pool
+    reads its last row (JAX's clip).  Where live lanes share a destination
+    the last one wins, as in the Pallas kernel's sequential grid (and in
+    JAX's CPU scatter): lanes a later live lane supersedes are dropped
+    before the one scatter, so the result does not depend on the order a
+    parallel scatter would apply duplicates in.  A copy of bits, so exact
+    for every dtype.
+    """
+    s = src_ids.to(device=dst_pool.device, dtype=torch.long)
+    d = dst_ids.to(device=dst_pool.device, dtype=torch.long)
+    live = (s >= 0) & (d >= 0) & (d < dst_pool.shape[0])
+    n = s.shape[0]
+    later = torch.ones((n, n), dtype=torch.bool,
+                       device=d.device).triu(diagonal=1)
+    superseded = ((d[:, None] == d[None, :]) & live[None, :] & later).any(1)
+    win = live & ~superseded
+    rows = src_pool[s[win].clamp(0, src_pool.shape[0] - 1)]
+    dst_pool[d[win]] = rows
+    return dst_pool

@@ -24,6 +24,10 @@ Layouts ported so far:
   state          the ``rglru`` kind's recurrent carry: h float32 [B, W] and
                  conv [B, cw-1, W] in the cache dtype; never paged
 
+Disaggregated serving moves physical pages between two engines' caches
+(``export_pages`` / ``adopt_pages`` through the host, ``copy_pages_across``
+device to device on the ``page_transfer`` kernel).
+
 The latent pool's feature axis is padded to a multiple of 128 as in the
 JAX package (whose TPU kernels need the lane width), so caches carry across
 leaf for leaf; ``CacheSpec.latent_width`` records the live r + rd.  The
@@ -413,3 +417,161 @@ def copy_pages(cache: Params, src, dst) -> Params:
             s, d = src[keep].to(pool.device), dst[keep].to(pool.device)
             pool[d] = pool[s]            # gather first, then scatter
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-pool page transfer (prefill/decode disaggregation)
+# ---------------------------------------------------------------------------
+#
+# Disaggregated serving moves *physical* page bytes between two engines'
+# caches: the prefill replica fills pages and publishes them through the
+# replicated prefix cache; the decode replica adopts the bytes instead of
+# recomputing the prefix.  The primitives below iterate the pool leaves of
+# every paged layer (scale leaves included), so float, quantized and latent
+# layouts move bitwise with no call-site special case.  Layers are kept
+# apart here (JAX stacks them on [G]), so a transfer is one kernel launch
+# per pool leaf per paged layer.
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _leaf_mismatch(kind: str, path: tuple, layout: str, name: str,
+                   src, dst) -> ValueError:
+    return ValueError(
+        f"{kind}: pool leaf '{name}' of layer {'/'.join(path)} ({layout}) "
+        f"does not match: src {tuple(src.shape)} "
+        f"({_dtype_name(src.dtype)}) vs dst {tuple(dst.shape)} "
+        f"({_dtype_name(dst.dtype)})")
+
+
+class _Ids:
+    """Page ids moved to each pool's device once per call, not once per
+    leaf (a transfer touches every pool leaf of every layer)."""
+
+    def __init__(self, ids, dtype=torch.long):
+        self._host = torch.as_tensor(ids)
+        self._dtype = dtype
+        self._on: dict = {}
+
+    def on(self, device) -> torch.Tensor:
+        if device not in self._on:
+            self._on[device] = self._host.to(device=device,
+                                             dtype=self._dtype)
+        return self._on[device]
+
+
+def export_pages(cache: Params, pages) -> dict:
+    """Gather (copies of) the physical rows of ``pages`` from every paged
+    layer: ``{'layers/<i>': {leaf: rows [N, ...row]}}``.  Ids past the pool
+    read its last row; there are no -1 lanes (exports are explicit).  The
+    host-transport half of cross-pool adoption: pair with ``adopt_pages``
+    on the far side; device to device, ``copy_pages_across`` moves the
+    rows without materializing them."""
+    ids = _Ids(pages)
+    out: dict = {}
+    for path, layout, layer in iter_layers(cache):
+        if layout not in PAGED_LAYOUTS:
+            continue
+        leaves = {}
+        for name in pool_leaves(layout):
+            pool = layer[name]
+            leaves[name] = pool[ids.on(pool.device).clamp(
+                0, pool.shape[0] - 1)]
+        out["/".join(path)] = leaves
+    return out
+
+
+def adopt_pages(cache: Params, rows: dict, pages, *,
+                impl: str = "kernel") -> Params:
+    """Scatter ``rows`` (a peer's ``export_pages`` at the same page ids)
+    into ``pages`` of this cache's pools, in place (the card runs the
+    ``page_transfer`` kernel, rows as its source pool).  -1 lanes drop; ids
+    past the pool write its last row; where ids repeat the last lane wins.
+    Raises with the layer and both shapes on any leaf mismatch."""
+    from repro_torch.kernels import ops
+    ids_in = _Ids(pages)
+
+    def ad(path, layout, layer):
+        key = "/".join(path)
+        got = rows.get(key)
+        if got is None:
+            raise ValueError(
+                f"adopt_pages: no exported rows for layer {key} ({layout})")
+        for name in pool_leaves(layout):
+            pool = layer[name]
+            src = got.get(name)
+            if src is None:
+                raise ValueError(
+                    f"adopt_pages: exported rows for layer {key} ({layout}) "
+                    f"are missing pool leaf '{name}'")
+            src = torch.as_tensor(src).to(pool.device)
+            ids = ids_in.on(pool.device)
+            want = (ids.shape[0],) + tuple(pool.shape[1:])
+            if tuple(src.shape) != want or src.dtype != pool.dtype:
+                raise _leaf_mismatch("adopt_pages", path, layout, name,
+                                     src, pool)
+            tgt = torch.where(ids >= 0, ids.clamp(0, pool.shape[0] - 1), -1)
+            ops.page_transfer(src.contiguous(), pool,
+                              torch.arange(ids.shape[0],
+                                           device=pool.device), tgt,
+                              impl=impl)
+        return layer
+
+    return map_layers(cache, ad, layouts=PAGED_LAYOUTS)
+
+
+def copy_pages_across(src_cache: Params, dst_cache: Params, src,
+                      dst=None, *, impl: str = "kernel"
+                      ) -> tuple[Params, int]:
+    """Device-to-device page adoption: copy pool pages ``src[i]`` of
+    ``src_cache`` into pages ``dst[i]`` of ``dst_cache`` in every paged
+    layer, in place (``dst`` defaults to ``src``: the replicated server's
+    pools share one global page-id space).  -1 lanes drop.
+
+    One ``ops.page_transfer`` launch per pool leaf per paged layer, scale
+    leaves included, so every layout lands bitwise.  The caches must agree
+    on layer structure and per-leaf row shape and dtype; page counts may
+    differ.  Returns ``(dst_cache, bytes_moved)``: the row bytes of every
+    lane live on both sides, summed over leaves and layers (JAX's count).
+    """
+    from repro_torch.kernels import ops
+
+    src = torch.as_tensor(src)
+    dst = src if dst is None else torch.as_tensor(dst)
+    if src.shape != dst.shape or src.dim() != 1:
+        raise ValueError(
+            f"copy_pages_across: src/dst page-id vectors must be matching "
+            f"1-D arrays: got src {tuple(src.shape)} vs dst "
+            f"{tuple(dst.shape)}")
+    n_valid = int(((src >= 0) & (dst >= 0)).sum())
+    src_ids, dst_ids = _Ids(src, torch.int32), _Ids(dst, torch.int32)
+    src_layers = {path: (layout, layer)
+                  for path, layout, layer in iter_layers(src_cache)
+                  if layout in PAGED_LAYOUTS}
+    moved = 0
+
+    def xfer(path, layout, layer):
+        nonlocal moved
+        peer = src_layers.get(path)
+        if peer is None or peer[0] != layout:
+            raise ValueError(
+                f"copy_pages_across: source cache has no "
+                f"{layout} layer at {'/'.join(path)}"
+                + (f" (found {peer[0]})" if peer else ""))
+        for name in pool_leaves(layout):
+            dpool = layer[name]
+            spool = peer[1].get(name)
+            if spool is None or spool.dim() != dpool.dim() \
+                    or spool.shape[1:] != dpool.shape[1:] \
+                    or spool.dtype != dpool.dtype:
+                raise _leaf_mismatch(
+                    "copy_pages_across", path, layout, name,
+                    spool if spool is not None else torch.zeros(()), dpool)
+            ops.page_transfer(spool, dpool, src_ids.on(dpool.device),
+                              dst_ids.on(dpool.device), impl=impl)
+            moved += dpool[0].numel() * dpool.element_size() * n_valid
+        return layer
+
+    out = map_layers(dst_cache, xfer, layouts=PAGED_LAYOUTS)
+    return out, moved

@@ -177,6 +177,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 set_block_tables = cache_mod.set_block_tables
 get_block_tables = cache_mod.get_block_tables
 copy_pages = cache_mod.copy_pages
+copy_pages_across = cache_mod.copy_pages_across
+export_pages = cache_mod.export_pages
+adopt_pages = cache_mod.adopt_pages
 
 
 def prefill(p: Params, cfg: ModelConfig, tokens, cache: Params,

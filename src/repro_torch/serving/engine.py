@@ -6,6 +6,9 @@ compiles it once per width bucket; the port runs them eagerly (a CUDA graph
 per bucket is a later, measured change), so ``width_bucket`` only bounds
 the set of shapes the kernels see.  Sampling at temperature > 0 draws from
 an explicit ``torch.Generator``; greedy decoding needs none.
+
+``make_gossip_fns`` is the delta-sync triple the replicated page table's
+host gossip runs (``serving/replicated.py``, the simulator).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import delta as delta_mod
 from repro_torch.models import attention, lm
 from repro_torch.models.config import ModelConfig
 
@@ -117,6 +121,36 @@ def backoff_steps(rid: int, attempt: int, *, base: int = 4,
     h = (rid * 0x9E3779B1 + attempt * 0x85EBCA77) & 0xFFFFFFFF
     h ^= h >> 16
     return delay + h % max(1, delay // 2)
+
+
+class GossipFns:
+    """Delta-sync triple for host-side replica gossip: the genesis frontier
+    of a CRDT state template, ``extract`` and ``apply``.
+
+    The host analogue of the fused step's in-mesh delta ring: host-level
+    replicas (multi-engine serving, the replica simulator) gossip frontiers
+    and deltas over an explicit — possibly faulty — channel.  JAX jits the
+    pair once per template; here they run eagerly on the template's device
+    (the CPU for the replicated page table).
+    """
+
+    def __init__(self, template: Any, capacity: Any):
+        self.capacity = capacity
+        self.genesis = delta_mod.frontier(template)
+
+    def extract(self, state: Any, frontier: Any) -> tuple[Any, Any]:
+        """(delta beyond ``frontier``, frontier actually shipped)."""
+        return delta_mod.extract(state, frontier, self.capacity)
+
+    def apply(self, state: Any, delta: Any) -> Any:
+        return delta_mod.apply(state, delta)
+
+
+def make_gossip_fns(template: Any, capacity: Any = 32) -> GossipFns:
+    """The (genesis frontier, extract, apply) gossip triple for a CRDT
+    state template (any registered type or dict container); ``capacity``
+    is an int or ``(key, cap)`` pairs with a ``"*"`` default."""
+    return GossipFns(template, capacity)
 
 
 class Engine:

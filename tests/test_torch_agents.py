@@ -16,9 +16,10 @@ latent pools with the delta merge, and one the recurrent model (reduced
 recurrentgemma-2b: RG-LRU and local attention) paged and chunked, each
 held the same way.
 
-Also: ``PrefixPageMapper`` against JAX's over a map/free sequence, the
-evaluator's report and reconciliation on a converged document, and the
-options the port does not run yet.
+One case runs the replicated page table (``--replicas 2
+--disaggregate``).  Also: ``PrefixPageMapper`` against JAX's over a
+map/free sequence, the evaluator's report and reconciliation on a
+converged document, and the options the port does not run yet.
 """
 from __future__ import annotations
 
@@ -54,8 +55,12 @@ from repro_torch.serving import scheduler as tsched  # noqa: E402
 # JAX-vs-port logit differences at equal inputs: <= 0.035 (bf16, int8
 # pools), <= 0.11 (fp8 pools); flips seen at gaps 0, 2^-6 and 2^-5.
 TIE_GAP = 0.125
+# Results that follow from the generated tokens (prompts replay them), so
+# a near-tie flip may move them; cross-replica hits and page-gossip bytes
+# follow from the prompts like the shared pages.
 TOKEN_DEPENDENT = {"digest", "semantic_conflicts", "declared_symbols",
-                   "shared_prefix_pages", "wall_s"}
+                   "shared_prefix_pages", "cross_replica_prefix_hits",
+                   "page_sync_bytes", "wall_s"}
 
 
 @pytest.fixture(scope="module")
@@ -167,6 +172,12 @@ CASES = {
     "par-paged-chunked-fp8-delta": dict(mode="parallel", kv="paged",
                                         prefill="chunked", kv_quant="fp8",
                                         merge="delta"),
+    # The replicated page table (2 metadata replicas gossiping at every
+    # sync), disaggregated homes: page_sync_bytes and cross-replica hits
+    # equal JAX's.
+    "par-paged-chunked-replicas2-disagg": dict(
+        mode="parallel", kv="paged", prefill="chunked", replicas=2,
+        disaggregate=True),
 }
 
 
@@ -311,9 +322,14 @@ def test_options_not_ported_raise(sim):
         torch_orch.run_task(tcfg, tp, task, mode="parallel", kv="paged",
                             prefill="chunked", spec_decode="ngram",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # --replicas / --disaggregate are ported (queue 1 item 12): what is
+    # left are their argument checks, as in JAX.
+    with pytest.raises(ValueError, match="requires the paged KV cache"):
+        torch_orch.run_task(tcfg, tp, task, mode="parallel", replicas=2,
+                            device="cpu")
+    with pytest.raises(ValueError, match="--disaggregate requires"):
         torch_orch.run_task(tcfg, tp, task, mode="parallel", kv="paged",
-                            replicas=2, device="cpu")
+                            disaggregate=True, device="cpu")
     with pytest.raises(ValueError, match="requires --kv paged"):
         torch_orch.run_task(tcfg, tp, task, mode="parallel",
                             kv_quant="int8", device="cpu")

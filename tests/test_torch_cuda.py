@@ -1,8 +1,8 @@
 """Card-only tests of the port: each Hopper kernel against its plain PyTorch
 version on the same CUDA inputs (the quantized-pool kernels for int8 and
 fp8-e4m3 pools included, the four paged-MLA kernels at the full (512, 64)
-and the test (32, 8) latent widths, ``decode_attention`` up to head_dim 256
-and the RG-LRU's ``linear_scan``).
+and the test (32, 8) latent widths, ``decode_attention`` up to head_dim 256,
+the RG-LRU's ``linear_scan`` and the cross-pool ``page_transfer``).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -17,6 +17,7 @@ whatever the pool (a bf16 or dequantized row widens to float32 exactly),
 so they are held to 1e-5.  Pools (and the quantized pools' scales) must
 match bitwise.  ``linear_scan`` must match bitwise: kernel and plain version
 round each step once (the kernel's FMA, the plain version's float64 step).
+``page_transfer`` is a copy of bits: destination pools bitwise.
 """
 from __future__ import annotations
 
@@ -493,3 +494,83 @@ def test_failed_launch_raises_and_returns_nothing(card):
                                                           device=card))
     assert result is None
     torch.cuda.synchronize()               # the refusal left no fault
+
+
+# -- page_transfer --------------------------------------------------------
+
+XFER_ROWS = {
+    "bf16": ((16, 16, 128), torch.bfloat16),        # OLMo-1B's 64 KB rows
+    "int8": ((16, 16, 128), torch.int8),
+    "fp8": ((16, 16, 128), torch.float8_e4m3fn),
+    "f32_scales": ((16, 16), torch.float32),        # 1 KB scale rows
+    "mla_bf16": ((16, 640), torch.bfloat16),        # MLA latent rows
+    "mla_scales": ((16,), torch.float32),           # 64 B scale rows
+    "int8_odd": ((3, 5), torch.int8),               # 15 B: byte path
+    "f32_12": ((3,), torch.float32),                # 12 B: word path
+}
+
+
+def _xfer_pool(pages, row, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(0, 256, (pages,) + row, generator=g, device=dev,
+                         dtype=torch.uint8)
+    if dtype == torch.int8 or dtype == torch.float8_e4m3fn:
+        return bits.view(dtype)
+    x = torch.randn((pages,) + row, generator=g, device=dev)
+    return x.to(dtype)
+
+
+def _xfer_check(src, dst, s, d, dev):
+    plain = dst.clone()
+    ref.page_transfer(src, plain, torch.as_tensor(s, device=dev),
+                      torch.as_tensor(d, device=dev))
+    before = ops.launch_counts()["page_transfer"]
+    out = ops.page_transfer(src, dst, torch.as_tensor(s, device=dev),
+                            torch.as_tensor(d, device=dev))
+    torch.cuda.synchronize()
+    assert out is dst
+    assert ops.launch_counts()["page_transfer"] == before + 1
+    assert torch.equal(dst.view(torch.uint8) if dst.dtype.itemsize == 1
+                       else dst.contiguous().view(torch.uint8),
+                       plain.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", sorted(XFER_ROWS))
+def test_page_transfer_kernel_matches_plain(card, name):
+    """-1 on either side, a destination past the pool, a source past the
+    pool (its last row), duplicate destinations (the last live lane wins;
+    a later lane with a -1 source does not count), and pools of different
+    page counts; one lane and 64 lanes."""
+    row, dtype = XFER_ROWS[name]
+    src = _xfer_pool(9, row, dtype, card, 0)
+    dst = _xfer_pool(7, row, dtype, card, 1)
+    _xfer_check(src, dst, [0, -1, 3, 5, 11, 6, 2, -1, 8],
+                [2, 1, -1, 9, 0, 2, 4, 4, 6], card)
+    _xfer_check(src, dst, [4], [3], card)
+    rng = np.random.default_rng(len(name))
+    big_s = _xfer_pool(80, row, dtype, card, 2)
+    big_d = _xfer_pool(70, row, dtype, card, 3)
+    s = rng.integers(-1, 80, 64)
+    d = rng.integers(-1, 72, 64)
+    _xfer_check(big_s, big_d, s.tolist(), d.tolist(), card)
+
+
+def test_page_transfer_kernel_edges(card):
+    """A zero-lane call returns at once without launching; a transfer
+    inside one pool (shared storage) raises; unaligned views take the
+    narrower paths and stay exact."""
+    src = _xfer_pool(4, (8,), torch.bfloat16, card, 0)
+    dst = _xfer_pool(4, (8,), torch.bfloat16, card, 1)
+    keep = dst.clone()
+    before = ops.launch_counts()["page_transfer"]
+    empty = torch.zeros(0, dtype=torch.int32, device=card)
+    assert ops.page_transfer(src, dst, empty, empty) is dst
+    assert ops.launch_counts()["page_transfer"] == before
+    assert torch.equal(dst, keep)
+    with pytest.raises(ValueError, match="share storage"):
+        ops.page_transfer(src[:2], src[2:], [0], [1])
+    # A pool view whose base is 2 bytes past an aligned address.
+    flat = _xfer_pool(1, (4 * 7 + 1,), torch.bfloat16, card, 4)[0]
+    view = flat[1:].view(4, 7)
+    other = _xfer_pool(5, (7,), torch.bfloat16, card, 5)
+    _xfer_check(other, view, [4, 0, 2], [3, 0, 0], card)

@@ -146,15 +146,61 @@ def test_scheduler_streams_and_counters_match_jax(f32, scenario):
         assert teng.allocator.available == jeng.allocator.available
 
 
+# Options of JAX's scheduler: the first, fifth, sixth and seventh are
+# ported (queue 1 items 7 and 12) and construct; the others still raise,
+# naming their ROADMAP.md item.
+PORTED_OPTIONS = ("prefix_sharing", "max_queue", "journal", "role")
+
+
 @pytest.mark.parametrize("option", [
     dict(prefix_sharing=True), dict(spec_decode="ngram"),
     dict(spec_decode="doc"), dict(swap_tier_pages=4), dict(max_queue=2),
     dict(journal=print), dict(role="prefill")])
 def test_scheduler_options_not_ported_name_their_roadmap_item(f32, option):
     _, _, tcfg, tp = f32
+    (name, value), = option.items()
+    if name in PORTED_OPTIONS:
+        eng = tsched.ContinuousBatchingEngine(tcfg, tp, batch=1, max_len=16,
+                                              page_size=8, device="cpu",
+                                              **option)
+        held = {"journal": eng._journal}.get(name, getattr(eng, name, None))
+        assert held == value
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tsched.ContinuousBatchingEngine(tcfg, tp, batch=1, max_len=16,
                                         page_size=8, device="cpu", **option)
+
+
+def test_prefix_sharing_cow_matches_jax(f32):
+    """COW prefix sharing (tests/test_paged_serving.py's fan-out): clones of
+    one prompt admitted together and later share its pages; the first
+    divergent write into a shared boundary page copies it.  Streams,
+    lifecycle steps and every counter (shared pages, COW copies, growth)
+    equal JAX's, and clones decode the same stream."""
+    jcfg, jp, tcfg, tp = f32
+    rng = np.random.default_rng(5)
+    base = [int(t) for t in rng.integers(2, 100, 13)]
+    other = [int(t) for t in rng.integers(2, 100, 9)]
+    spec = [(base, 5), (base, 5), (other, 4), (base, 6), (base[:8], 3)]
+    kw = dict(batch=3, max_len=32, paged=True, page_size=4, chunk_size=4,
+              prefix_sharing=True)
+    jeng = jsched.ContinuousBatchingEngine(jcfg, jp, **kw)
+    teng = tsched.ContinuousBatchingEngine(tcfg, tp, device="cpu", **kw)
+    want = jeng.run([jsched.Request(i, list(p), m)
+                     for i, (p, m) in enumerate(spec)])
+    got = teng.run([tsched.Request(i, list(p), m)
+                    for i, (p, m) in enumerate(spec)])
+    for w, g in zip(want, got):
+        assert g.tokens == w.tokens, g.rid
+        assert (g.admitted_step, g.first_token_step, g.finished_step) == (
+            w.admitted_step, w.first_token_step, w.finished_step)
+    for name, v in teng.stats.items():
+        if name != "admit_s":
+            assert v == jeng.stats[name], name
+    assert teng.stats["shared_pages"] > 0 and teng.stats["cow_copies"] > 0
+    assert got[0].tokens == got[1].tokens[:5]
+    assert teng.allocator.available == jeng.allocator.available \
+        == teng.allocator.num_pages
 
 
 def test_scheduler_helpers_match_jax():
