@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the eleven kernels from ``src/repro_torch/kernels/csrc`` (one
+1. builds the twelve kernels from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    workloads' shapes and times kernel, plain version, and the PyTorch
@@ -19,7 +19,9 @@
    and ``page_transfer`` bitwise on every pool leaf adoption moves (OLMo's
    bf16 / int8 / fp8 rows and f32 scales, MLA's latent rows and scales;
    one lane and 64 with -1 lanes, out-of-range and repeated destinations,
-   pools of 513 and 400 pages);
+   pools of 513 and 400 pages) and ``flash_attention`` at whisper-tiny's
+   encoder shape (q/k/v [8, 6, 1500, 64] bf16, bidirectional; timed against
+   SDPA), causal GQA with Tq < Tk, and a float32 sliding window;
 3. serves ``olmo-1b`` at full width with seeded random bf16 weights:
    ``ContinuousBatchingEngine`` answers 16 requests (bf16 pools, then int8
    pools), ``Engine.generate`` decodes on a dense and on a paged cache;
@@ -55,7 +57,18 @@
    mixed step against the plain path, one mid-run scheduler step layer by
    layer from the same inputs (each recurrent layer's h and conv state
    against the plain path's), then trial run (f), (a)'s configuration on
-   that model without int8 (no layer of it holds a pool to quantize).
+   that model without int8 (no layer of it holds a pool to quantize);
+7. serves ``whisper-tiny`` at full width (``workload.WHISPER``, seeded
+   random bf16 weights and stub frames [8, 1500, 384]): ``Engine.generate``
+   through the kernels (its encoder on ``flash_attention``, 4 launches a
+   prefill, its decoder on ``decode_attention`` at head_dim 64, 4 a step)
+   and through the plain versions; the encoder output, the prefill logits
+   and the first decode step's logits of the kernel path against the plain
+   path's from the same state.
+
+The trials hash (task, TODO) pairs into their prompts, so the script runs
+itself again under ``PYTHONHASHSEED=0`` when the variable is not ``0``:
+every run's prompts, and so its trial digests, repeat.
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -131,20 +144,24 @@ def kernel_device_ms(fn, match: str, iters: int = 20) -> float:
     """Mean device time in ms of the kernels whose name holds ``match``
     over ``iters`` calls of ``fn``, read from torch.profiler: for a kernel
     shorter than its wrapper's host work, events around the calls time the
-    host instead."""
+    host instead.  A trace that came back with no such kernel is taken
+    again, up to three times: once in a full run the profiler returned an
+    empty trace of a kernel it timed in every other run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and match in e.key)
-    if total_us <= 0:
-        fail(f"the profiler saw no kernel named like {match!r}")
-    return total_us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and match in e.key)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    fail(f"the profiler saw no kernel named like {match!r} in 3 traces")
 
 
 def bound(nbytes: float, flops: float,
@@ -544,7 +561,81 @@ def kernel_phase():
     rows += mla_kernel_rows(rng)
     rows.append(linear_scan_row(rng))
     rows.append(page_transfer_row(rng))
+    rows.append(flash_attention_row())
     return rows
+
+
+# whisper-tiny's encoder attention (workload.WHISPER): 6 heads of 64 over
+# its 1500 frames, batch 8, bidirectional.
+WH_B, WH_H, WH_T, WH_D = 8, 6, 1500, 64
+# Kernel against plain version, float32 outputs: the same math summed in
+# another order.
+KERNEL_TOL_F32 = 1e-5
+
+
+def flash_attention_row() -> dict:
+    """``flash_attention`` at the whisper encoder's shape (held to the
+    plain version under the bf16 rule, timed against it and SDPA), and two
+    more cases held the same way: causal GQA with Tq < Tk (bf16) and a
+    float32 sliding window (1e-5).  The bound: q, k, v read and out written
+    once against 4·B·Hq·Tq·Tk·D FLOPs at the bf16 tensor-core peak; here
+    the operations win."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    extra = {}
+    for name, (b, hq, hkv, tq, tk, d, causal, window, dtype) in {
+            "gqa_causal": (8, 6, 2, 500, 1500, 64, True, None,
+                           torch.bfloat16),
+            "window_f32": (4, 6, 6, 1024, 1024, 64, True, 256,
+                           torch.float32)}.items():
+        q, k, v = (rand(b, h, t, d, dtype=dtype)
+                   for h, t in ((hq, tq), (hkv, tk), (hkv, tk)))
+        o1 = ops.flash_attention(q, k, v, causal=causal, window=window)
+        o2 = ref.flash_attention(q, k, v, causal=causal, window=window)
+        if dtype == torch.float32:
+            err = float((o1 - o2).abs().max())
+            ok = bool(((o1 - o2).abs()
+                       <= KERNEL_TOL_F32 * (1 + o2.abs())).all())
+        else:
+            err, ok = close(o1, o2)
+        if not ok:
+            fail(f"flash_attention ({name}) disagrees: max_abs_err {err}")
+        extra[f"{name}_shapes"] = (f"q[{b},{hq},{tq},{d}] k/v[{b},{hkv},{tk},"
+                                   f"{d}] {str(dtype)[6:]}, causal {causal},"
+                                   f" window {window}")
+        extra[f"{name}_max_abs_err"] = err
+
+    q, k, v = (rand(WH_B, WH_H, WH_T, WH_D) for _ in range(3))
+    scale = WH_D ** -0.5
+    o1 = ops.flash_attention(q, k, v, causal=False)
+    o2 = ref.flash_attention(q, k, v, causal=False)
+    err, ok = close(o1, o2)
+    if not ok:
+        fail(f"flash_attention (whisper encoder) disagrees: max_abs_err "
+             f"{err}")
+    lib = torch.nn.functional.scaled_dot_product_attention
+    lib_err, lib_ok = close(lib(q, k, v, scale=scale), o2)
+    if not lib_ok:
+        fail(f"the SDPA yardstick computes another function: {lib_err}")
+    bms, by = bound(4 * q.numel() * 2,
+                    4 * WH_B * WH_H * WH_T * WH_T * WH_D)
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:127",
+        shapes=f"q/k/v[{WH_B},{WH_H},{WH_T},{WH_D}] bf16, bidirectional",
+        max_abs_err=err, pools_bitwise=None,
+        ms=cuda_ms(lambda: kflash.flash_attention(
+            q, k, v, causal=False, scale=scale, window=None)),
+        plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=False,
+                                                     scale=scale)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: lib(q, k, v, scale=scale)), **extra)
 
 
 # RecurrentGemma-2B's shapes (workload.RECURRENT_ARCH): local attention of
@@ -1118,6 +1209,81 @@ def recurrent_serving_phase():
     return cfg, params, results
 
 
+def whisper_phase():
+    """The whisper workload (``workload.WHISPER``, full width):
+    ``Engine.generate`` with the stub frames through the kernels and
+    through the plain versions, with its launch counts; then the encoder
+    output, the prefill logits and one decode step's logits of the kernel
+    path against the plain path from the same state."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    cfg = configs.get(workload.WHISPER_ARCH)
+    params, init_s = _init_params(cfg)
+    tokens, frames = workload.whisper_inputs(cfg, device="cuda")
+    b, new = workload.WHISPER["batch"], workload.WHISPER_NEW
+    results, streams = {"init_s": init_s}, {}
+    for impl in ("kernel", "ref"):
+        eng = workload.whisper_engine(cfg, params, impl=impl, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        out = eng.generate(tokens, new, enc_frames=frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = ops.launch_counts()
+        streams[impl] = out.cpu().numpy()
+        if streams[impl].shape != (b, new) or not (
+                (streams[impl] >= 0) & (streams[impl] < cfg.vocab_size)).all():
+            fail(f"whisper Engine.generate ({impl}) gave "
+                 f"{streams[impl].shape} tokens out of range")
+        results[impl] = dict(
+            rows=b, prompt_len=workload.WHISPER_PROMPT, steps=new,
+            wall_s=wall, tokens_per_s=b * new / wall,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            launches=counts)
+        del eng
+    want = {"flash_attention": cfg.encoder.num_layers,
+            "decode_attention": cfg.num_layers * (new - 1)}
+    got = {k: results["kernel"]["launches"][k] for k in want}
+    if got != want or any(results["ref"]["launches"].values()):
+        fail(f"whisper launches {got}, expected {want} (the plain run: "
+             f"{results['ref']['launches']})")
+    results["greedy_agree_share"] = _agree_share(streams["kernel"],
+                                                 streams["ref"])
+
+    enc = {impl: lm._encode(params, cfg, frames, impl)
+           for impl in ("kernel", "ref")}
+    enc_err = float((enc["kernel"].float() - enc["ref"].float()).abs().max())
+    if not enc_err <= LOGITS_ATOL:
+        fail(f"whisper encoder output: kernel path against the plain path "
+             f"max_abs_err {enc_err}")
+    caches, logits = {}, {}
+    for impl in ("kernel", "ref"):
+        cache = lm.init_cache(cfg, b, workload.WHISPER["max_len"],
+                              device="cuda")
+        logits[impl], caches[impl] = lm.prefill(
+            params, cfg, tokens, cache, impl=impl, enc_frames=frames)
+    first = {"prefill": _compare_logits(logits["kernel"], logits["ref"])}
+    tok = logits["ref"].argmax(-1)
+    pos = torch.full((b,), workload.WHISPER_PROMPT, dtype=torch.int32,
+                     device="cuda")
+    twin = _clone(caches["ref"])
+    lk, _ = lm.decode_step(params, cfg, tok, caches["ref"], pos,
+                           impl="kernel")
+    lr, _ = lm.decode_step(params, cfg, tok, twin, pos, impl="ref")
+    first["decode_attention"] = _compare_logits(lk, lr)
+    for name, c in first.items():
+        if not (np.isfinite(c["max_abs_err"])
+                and c["max_abs_err"] <= LOGITS_ATOL
+                and c["clear_rows_agree"]):
+            fail(f"whisper first-step logits ({name}): kernel path against "
+                 f"the plain path {c}")
+    results.update(encoder_max_abs_err=enc_err, first_step_logits=first)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Disaggregated serving at full width
 # ---------------------------------------------------------------------------
@@ -1512,6 +1678,12 @@ def recurrent_trial(cfg, params) -> dict:
 
 
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # The trials' prompts hash (task, TODO) pairs: a fixed hash seed
+        # makes every run's prompts, and so its digests, the same.
+        os.execve(sys.executable,
+                  [sys.executable, os.path.abspath(__file__), *sys.argv[1:]],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is present", file=sys.stderr)
         return 2
@@ -1551,10 +1723,16 @@ def main() -> int:
     rec_cfg, rec_params, rec_serving = recurrent_serving_phase()
     emit({"recurrent_serving": rec_serving, "card": card})
     recurrent_trial(rec_cfg, rec_params)
+    del rec_params
+    gc.collect()                # so the peak memory read is whisper's own
+    torch.cuda.empty_cache()
+    whisper = whisper_phase()
+    emit({"whisper_serving": whisper, "card": card})
     # Launches: the float kernels and linear_scan on the serving
     # workloads, the quantized kernels on trials (a) and (e),
-    # page_transfer on the disaggregated run with adoption on, each path's
-    # counts read right after its run.
+    # page_transfer on the disaggregated run with adoption on,
+    # flash_attention on the whisper Engine, each path's counts read right
+    # after its run.
     launches = {"paged_mla_chunk":
                 mla_serving["scheduler"]["launches"]["paged_mla_chunk"],
                 "paged_mla_decode":
@@ -1575,13 +1753,18 @@ def main() -> int:
                 trial_counts["paged_decode_attention_quant"],
                 "linear_scan":
                 rec_serving["scheduler"]["launches"]["linear_scan"],
-                "page_transfer": disagg["on"]["page_transfer_launches"]}
+                "page_transfer": disagg["on"]["page_transfer_launches"],
+                "flash_attention":
+                whisper["kernel"]["launches"]["flash_attention"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] == "decode_attention":
             # Its second main path: the recurrent model's dense Engine.
             row["d256_launches"] = (rec_serving["engine_dense"]["launches"]
                                     ["decode_attention"])
+            # Its third: the whisper decoder's self-attention, head_dim 64.
+            row["d64_launches"] = (whisper["kernel"]["launches"]
+                                   ["decode_attention"])
         row["kernel_ms"] = row["ms"]
         emit({"kernel": row["name"], **row})
     emit({"card": card})

@@ -9,13 +9,14 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (deepseek_v2_lite_16b, olmo_1b,
-                                 recurrentgemma_2b)
+                                 recurrentgemma_2b, whisper_tiny)
 from repro_torch.models.config import (EncoderConfig, MLAConfig, ModelConfig,
                                        MoEConfig)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (olmo_1b, deepseek_v2_lite_16b, recurrentgemma_2b)}
+    for m in (olmo_1b, deepseek_v2_lite_16b, recurrentgemma_2b,
+              whisper_tiny)}
 
 
 def get(name: str) -> ModelConfig:

@@ -7,8 +7,11 @@ pools) through a uint8 view, so every bit arrives as it left; int8 pools
 and their f32 scales move as they are, as do the float32 leaves of the
 recurrent layers (``log_lambda``, the state ``h``).  The JAX
 trees stack the layers of each block-pattern slot on a leading [G] axis
-(``jax.vmap`` in ``lm.init``, the scan in ``lm.init_cache``); the port keeps
-one dict per layer in execution order, so groups are unstacked here.
+(``jax.vmap`` in ``lm.init``, the scan in ``lm.init_cache``), and an
+encoder-decoder model's encoder blocks on [E]; the port keeps one dict per
+layer in execution order, so both are unstacked here.  Cache layers carry
+across leaf for leaf whatever their layout (the whisper decoder's ``xattn``
+layers with their cross-KV included).
 """
 from __future__ import annotations
 
@@ -67,16 +70,21 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """A JAX ``lm.init`` tree (numpy leaves) -> the port's parameters, on
     the card unless the caller passes ``device="cpu"``."""
     device = resolve_device(device)
-    if "encoder" in tree:
-        raise NotImplementedError(
-            "encoder-decoder parameters are not ported yet: ROADMAP.md "
-            "queue 1 item 11 (remaining families)")
     p = {"embed": _map(tree["embed"], lambda a: to_tensor(a, device)),
          "final_norm": _map(tree["final_norm"],
                             lambda a: to_tensor(a, device)),
          "layers": _unstack(tree["groups"], tree.get("tail"), cfg, device)}
     if "head" in tree:
         p["head"] = _map(tree["head"], lambda a: to_tensor(a, device))
+    if "encoder" in tree:
+        e = tree["encoder"]
+        p["encoder"] = {
+            "pos": to_tensor(e["pos"], device),
+            "blocks": [_map(e["blocks"],
+                            lambda a, i=i: to_tensor(np.asarray(a)[i],
+                                                     device))
+                       for i in range(cfg.encoder.num_layers)],
+            "norm": _map(e["norm"], lambda a: to_tensor(a, device))}
     return p
 
 

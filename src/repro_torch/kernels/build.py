@@ -29,7 +29,8 @@ SOURCES = ("decode_attention", "paged_decode_attention",
            "paged_chunk_attention", "paged_decode_attention_quant",
            "paged_chunk_attention_quant", "paged_mla_decode",
            "paged_mla_chunk", "paged_mla_decode_quant",
-           "paged_mla_chunk_quant", "linear_scan", "page_transfer")
+           "paged_mla_chunk_quant", "linear_scan", "page_transfer",
+           "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

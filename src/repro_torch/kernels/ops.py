@@ -16,6 +16,7 @@ The paged pools are updated in place and never padded per step; the TPU
 tileability guard and 128-lane padding of the JAX wrappers have no
 counterpart here.
 
+    out = ops.flash_attention(q, k, v, causal=False)       # whole sequences
     out = ops.decode_attention(q, k, v, kv_len)                       # dense
     out, kp, vp = ops.paged_decode_attention(q, kp, vp, bt, pos, kn, vn)
     out, kp, vp = ops.paged_chunk_attention(q, kp, vp, bt, start, span,
@@ -40,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import linear_scan as _scan
 from repro_torch.kernels import paged_chunk_attention as _pchunk
 from repro_torch.kernels import paged_chunk_attention_quant as _pchunk_q
@@ -59,7 +61,7 @@ KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
            "paged_mla_decode": _mdec, "paged_mla_chunk": _mchunk,
            "paged_mla_decode_quant": _mdec_q,
            "paged_mla_chunk_quant": _mchunk_q, "linear_scan": _scan,
-           "page_transfer": _xfer}
+           "page_transfer": _xfer, "flash_attention": _flash}
 
 
 def launch_counts() -> dict[str, int]:
@@ -83,6 +85,22 @@ def _plain(x: torch.Tensor, impl: str) -> bool:
     if x.device.type == "cuda":
         return False
     raise ValueError(f"no kernel for tensors on {x.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None, window: int | None = None,
+                    impl: str = "kernel"):
+    """q: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D] -> [B, Hq, Tq, D].
+
+    Query i sits at key position i + Tk - Tq.  A query row with no live
+    key gives NaN in the plain version and 0 from the kernel."""
+    if _plain(q, impl):
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   window=window)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return _flash.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  scale=scale, window=window)
 
 
 def decode_attention(q, k, v, kv_len, *, scale: float | None = None,

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels (the correctness contract): the
-attention kernels over float and quantized pools, MHA and MLA, the
-diagonal linear recurrence of the RG-LRU, and the cross-pool page
-transfer of disaggregated serving.
+attention kernels over float and quantized pools, MHA and MLA, blocked
+(flash) attention over whole sequences, the diagonal linear recurrence of
+the RG-LRU, and the cross-pool page transfer of disaggregated serving.
 
 Each function is the mathematical definition with no tiling, line for line
 in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
@@ -34,6 +34,35 @@ def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
     _, hkv, _, d = pages.shape
     g = pages[block_tables.clamp(min=0).long()]          # [B, maxp, Hkv, ps, D]
     return g.movedim(2, 1).reshape(b, hkv, -1, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """Full-precision reference attention.
+
+    q: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D] (Hq % Hkv == 0).  Query i
+    sits at key position i + Tk - Tq (ends aligned); ``causal`` keeps keys
+    <= that position, ``window`` keys >= it - window + 1.  A query row with
+    no live key gives NaN (a softmax over nothing).
+    """
+    hq, tq, d = q.shape[1], q.shape[2], q.shape[3]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    kb = _broadcast_kv(k, hq)
+    vb = _broadcast_kv(v, hq)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kb.float()) * scale
+    tk = k.shape[2]
+    qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    ki = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki >= qi - window + 1
+    logits = logits.masked_fill(~mask[None, None], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vb.float())
+    return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -22,6 +22,15 @@ long, with 32 new tokens each, on
   ``paged=True`` pages no layer: the scheduler only keeps its page
   accounting.
 
+The whisper workload (``WHISPER``) serves ``whisper-tiny`` at full width
+(arXiv:2212.04356, the repo's config: a 4-layer encoder over 1500 stub
+frame embeddings, a 4-layer decoder with cross-attention, d_model 384, 6
+heads of 64, vocabulary 51865) through ``Engine(batch=8, max_len=256)``:
+seeded random bf16 weights and bf16 frames [8, 1500, 384], 32-token
+prompts and 32 new tokens.  Its prefill runs the encoder on
+``flash_attention`` and its decode steps ``decode_attention`` at head_dim
+64.
+
 The disaggregated workload (``DISAGG``) serves ``olmo-1b`` from two
 engines on one replicated page table, one prefill and one decode replica
 (``serving/replicated.MultiEngineServer``): 8 requests over two seeded
@@ -33,9 +42,11 @@ rest one per step (warm: the decode replica adopts the published pages).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from repro_torch import configs
+from repro_torch import configs, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.engine import Engine
 from repro_torch.serving.replicated import MultiEngineServer
 from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 
@@ -68,6 +79,31 @@ def engine(cfg: ModelConfig, params, **kw) -> ContinuousBatchingEngine:
     """The workload's scheduler; ``kw`` adds ``impl``, ``device`` and the
     like, never one of ``ENGINE``'s sizes."""
     return ContinuousBatchingEngine(cfg, params, **ENGINE, **kw)
+
+
+WHISPER_ARCH = "whisper-tiny"
+WHISPER = dict(batch=8, max_len=256)
+WHISPER_PROMPT = 32
+WHISPER_NEW = 32
+
+
+def whisper_inputs(cfg: ModelConfig, seed: int = 0, device=None
+                   ) -> tuple[np.ndarray, torch.Tensor]:
+    """Seeded prompts [batch, WHISPER_PROMPT] and bf16 stub frames
+    [batch, encoder.seq_len, d_model] on ``device`` (the card unless
+    ``"cpu"``)."""
+    rng = np.random.default_rng(seed)
+    b = WHISPER["batch"]
+    tokens = rng.integers(0, cfg.vocab_size, (b, WHISPER_PROMPT))
+    frames = rng.standard_normal((b, cfg.encoder.seq_len, cfg.d_model),
+                                 dtype=np.float32)
+    return tokens, torch.from_numpy(frames).to(
+        resolve_device(device)).bfloat16()
+
+
+def whisper_engine(cfg: ModelConfig, params, **kw) -> Engine:
+    """The whisper workload's engine; ``kw`` adds ``impl``, ``device``."""
+    return Engine(cfg, params, **WHISPER, **kw)
 
 
 DISAGG = dict(batch=4, max_len=1024, page_size=16, chunk_size=16,

@@ -5,11 +5,13 @@ token-budget mixed step, over a dense or a paged KV cache.  The window
 step through its masks, and decode through ``decode_attention`` where the
 cache holds no more than the window, else a masked einsum.
 
-The decode and mixed steps run the port's attention kernels through
-``kernels.ops``: ``paged_chunk_attention`` (mixed step, paged cache),
-``paged_decode_attention`` (decode, paged cache), their ``_quant``
-counterparts over int8 / fp8 pools with row scales (``paged_mha_q8`` and
-``paged_mha_fp8`` caches) and ``decode_attention`` (decode, dense cache).
+The full-sequence path without a mask (the whisper encoder) runs on
+``flash_attention``.  The decode and mixed steps run the port's attention
+kernels through ``kernels.ops``: ``paged_chunk_attention`` (mixed step,
+paged cache), ``paged_decode_attention`` (decode, paged cache), their
+``_quant`` counterparts over int8 / fp8 pools with row scales
+(``paged_mha_q8`` and ``paged_mha_fp8`` caches) and ``decode_attention``
+(decode, dense cache).
 ``impl="kernel"`` lets the tensor's device choose (the Hopper kernel on a
 CUDA tensor, the plain version on a CPU tensor); ``impl="ref"`` takes the
 plain version everywhere.
@@ -71,12 +73,19 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, scale):
+def _sdpa(q, k, v, mask, scale, impl: str = "ref", window=None,
+          causal: bool = True):
     """q: [B,H,Tq,D]; k,v: [B,Hkv,Tk,D]; mask: bool[Tq,Tk] / [B,Tq,Tk] /
-    None.  Plain matmul + softmax as the JAX reference's ``_sdpa``: logits
-    in float32, probabilities cast back to q's dtype.  A 3-D mask carries
-    per-row validity (ragged prefill); rows with no valid key give NaN,
-    which callers discard."""
+    None.  Without a mask and unless ``impl="ref"``, the ``flash_attention``
+    kernel's route (JAX's ``impl="pallas"`` route), with ``causal`` and
+    ``window``.  Otherwise plain matmul + softmax as the JAX reference's
+    ``_sdpa``: logits in float32, probabilities cast back to q's dtype, and
+    no mask at all where ``mask`` is None.  A 3-D mask carries per-row
+    validity (ragged prefill); rows with no valid key give NaN, which
+    callers discard."""
+    if impl != "ref" and mask is None:
+        return kops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                    window=window, impl=impl)
     group = q.shape[1] // k.shape[1]
     kb = torch.repeat_interleave(k, group, dim=1)
     vb = torch.repeat_interleave(v, group, dim=1)
@@ -85,14 +94,21 @@ def _sdpa(q, k, v, mask, scale):
         mask_b = mask[:, None] if mask.dim() == 3 else mask[None, None]
         logits = logits.masked_fill(~mask_b, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(probs, vb)
+    # JAX's einsum promotes mixed operands (a float32 query over a bf16
+    # cross-KV cache): so does this product.
+    dt = torch.promote_types(probs.dtype, vb.dtype)
+    return torch.matmul(probs.to(dt), vb.to(dt))
 
 
 def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
-            mask: Optional[torch.Tensor], positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence path (prefill without a cache)."""
+            mask: Optional[torch.Tensor], positions: torch.Tensor,
+            impl: str = "kernel", causal: bool = True) -> torch.Tensor:
+    """Full-sequence path (prefill without a cache).  With no mask (the
+    whisper encoder) the attention runs on ``flash_attention`` unless
+    ``impl="ref"``; ``causal=False`` keeps it bidirectional."""
     q, k, v = _qkv(p, cfg, x, positions)
-    out = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5)
+    out = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5, impl,
+                window=cfg.window, causal=causal)
     return common.dense(p["wo"], _merge_heads(out))
 
 

@@ -3,9 +3,11 @@
 The port runs layers in a Python loop (``lm._run_blocks``) where the JAX
 package scans over stacked groups.  Ported so far: dense attention
 (``attn``), sliding-window attention (``local``: the ``attn`` wiring with
-the config's window kept), latent attention with a dense FFN (``mla``) and
-Griffin's recurrent block (``rglru``: RG-LRU, then the FFN).  Every other
-kind raises NotImplementedError naming its ROADMAP.md queue 1 item.
+the config's window kept), latent attention with a dense FFN (``mla``),
+Griffin's recurrent block (``rglru``: RG-LRU, then the FFN) and the whisper
+decoder block (``xattn``: causal self-attention, cross-attention over the
+encoder output, then the FFN).  Every other kind raises
+NotImplementedError naming its ROADMAP.md queue 1 item.
 """
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ class BlockCtx(NamedTuple):
     impl: str = "kernel"
     lengths: Optional[torch.Tensor] = None   # i32[B] ragged lengths / spans
     mask_local: Optional[torch.Tensor] = None  # mask_full within the window
+    enc_out: Optional[torch.Tensor] = None  # [B, Te, d] (whisper decoder)
+    causal: bool = True                   # mask-free attention (encoder: no)
 
 
-PORTED_KINDS = ("attn", "local", "mla", "rglru")
+PORTED_KINDS = ("attn", "local", "mla", "rglru", "xattn")
 
 
 def check_kind(kind: str) -> None:
@@ -43,6 +47,13 @@ def check_kind(kind: str) -> None:
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
     check_kind(kind)
     d = cfg.d_model
+    if kind == "xattn":
+        return {"norm1": common.norm_init(d, cfg.norm_type, gen.device),
+                "attn": attention.init(gen, cfg),
+                "norm_x": common.norm_init(d, cfg.norm_type, gen.device),
+                "xattn": attention.init(gen, cfg),
+                "norm2": common.norm_init(d, cfg.norm_type, gen.device),
+                "ffn": ffn.init(gen, cfg)}
     if kind in ("mla", "rglru"):
         mixer = ({"attn": mla.init(gen, cfg)} if kind == "mla"
                  else {"rec": rglru.init(gen, cfg)})
@@ -72,6 +83,8 @@ def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
         return _mla_apply(p, cfg, x, h, ctx, cache)
     if kind == "rglru":
         return _rglru_apply(p, cfg, x, h, ctx, cache)
+    if kind == "xattn":
+        return _xattn_apply(p, cfg, x, h, ctx, cache)
     mask = ctx.mask_local if kind == "local" else ctx.mask_full
     local_cfg = cfg if kind == "local" else cfg.replace(window=None)
     if ctx.mode == "mixed":
@@ -85,7 +98,8 @@ def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
         a, cache = attention.prefill(p["attn"], local_cfg, h, cache, mask,
                                      ctx.positions, lengths=ctx.lengths)
     else:
-        a = attention.forward(p["attn"], local_cfg, h, mask, ctx.positions)
+        a = attention.forward(p["attn"], local_cfg, h, mask, ctx.positions,
+                              ctx.impl, causal=ctx.causal)
     if cfg.parallel_block:
         return x + a + ffn.forward(p["ffn"], cfg, h), cache
     x = x + a
@@ -125,4 +139,55 @@ def _rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         r, cache = rglru.forward(p["rec"], cfg, h, cache, ctx.impl,
                                  lengths=ctx.lengths)
     x = x + r
+    return x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)), cache
+
+
+def _cross_kv(p: Params, cfg: ModelConfig, enc_out: torch.Tensor):
+    k = attention._split_heads(common.dense(p["wk"], enc_out),
+                               cfg.num_kv_heads)
+    v = attention._split_heads(common.dense(p["wv"], enc_out),
+                               cfg.num_kv_heads)
+    return k, v
+
+
+def _cross_attend(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bidirectional attention of ``x`` over the encoder's K/V: the plain
+    path always, as in JAX (which passes ``"ref"`` here)."""
+    q = attention._split_heads(common.dense(p["wq"], x), cfg.num_heads)
+    out = attention._sdpa(q, k, v, None, cfg.head_dim ** -0.5, "ref",
+                          causal=False)
+    return common.dense(p["wo"], attention._merge_heads(out).to(x.dtype))
+
+
+def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 h: torch.Tensor, ctx: BlockCtx, cache: Params | None
+                 ) -> tuple[torch.Tensor, Params | None]:
+    """The ``xattn`` kind (whisper's decoder block): causal self-attention
+    over k / v, cross-attention over the encoder output, then the FFN.
+    Prefill fills the cross-KV (xk, xv) once from ``ctx.enc_out``; decode
+    reads it back.  The cache is updated in place."""
+    if ctx.mode == "decode":
+        a, _ = attention.decode_step(p["attn"], cfg, h,
+                                     {"k": cache["k"], "v": cache["v"]},
+                                     ctx.pos, ctx.impl)
+        c = _cross_attend(p["xattn"], cfg, _norm(p["norm_x"], cfg, x + a),
+                          cache["xk"], cache["xv"])
+    else:
+        if cache is not None:
+            a, _ = attention.prefill(p["attn"], cfg, h,
+                                     {"k": cache["k"], "v": cache["v"]},
+                                     ctx.mask_full, ctx.positions)
+            xk, xv = _cross_kv(p["xattn"], cfg, ctx.enc_out)
+            cache["xk"].copy_(xk.to(cache["xk"].dtype))
+            cache["xv"].copy_(xv.to(cache["xv"].dtype))
+            xk, xv = cache["xk"], cache["xv"]
+        else:
+            a = attention.forward(p["attn"], cfg, h, ctx.mask_full,
+                                  ctx.positions, ctx.impl)
+            xk, xv = _cross_kv(p["xattn"], cfg, ctx.enc_out)
+        hx = _norm(p["norm_x"], cfg, x + a)
+        c = _cross_attend(p["xattn"], cfg, hx, xk.to(x.dtype),
+                          xv.to(x.dtype))
+    x = x + a + c
     return x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)), cache

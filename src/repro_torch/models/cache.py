@@ -23,6 +23,9 @@ Layouts ported so far:
   paged_mla_fp8  the same with a float8_e4m3fn pool
   state          the ``rglru`` kind's recurrent carry: h float32 [B, W] and
                  conv [B, cw-1, W] in the cache dtype; never paged
+  xattn          the whisper decoder's dense self-KV k / v [B, Hkv, S, D]
+                 plus the cross-KV xk / xv [B, Hkv, Te, D] filled once at
+                 prefill from the encoder output; never paged
 
 Disaggregated serving moves physical pages between two engines' caches
 (``export_pages`` / ``adopt_pages`` through the host, ``copy_pages_across``
@@ -31,8 +34,8 @@ device to device on the ``page_transfer`` kernel).
 The latent pool's feature axis is padded to a multiple of 128 as in the
 JAX package (whose TPU kernels need the lane width), so caches carry across
 leaf for leaf; ``CacheSpec.latent_width`` records the live r + rd.  The
-MoE, xLSTM-state and cross-attention layouts of ``repro.models.cache``
-raise NotImplementedError naming their ROADMAP.md queue 1 item.
+MoE and xLSTM-state layouts of ``repro.models.cache`` raise
+NotImplementedError naming their ROADMAP.md queue 1 item.
 """
 from __future__ import annotations
 
@@ -57,8 +60,7 @@ SCALE_LEAF = {"k_pages": "k_scales", "v_pages": "v_scales",
 _LATER = {"moe": "item 11 (remaining families)",
           "mla_moe": "item 11 (remaining families)",
           "slstm": "item 11 (remaining families)",
-          "mlstm": "item 11 (remaining families)",
-          "xattn": "item 11 (remaining families)"}
+          "mlstm": "item 11 (remaining families)"}
 
 
 def pad128(n: int) -> int:
@@ -156,6 +158,18 @@ def _paged_mla(kind, cfg, batch, max_len, dtype, *, page_size=64,
     ), page_size=page_size, num_pages=num_pages, latent_width=width)
 
 
+@register_layout("xattn")
+def _xattn(kind, cfg, batch, max_len, dtype, **_) -> CacheSpec:
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    xshape = (batch, cfg.num_kv_heads, cfg.encoder.seq_len, cfg.head_dim)
+    return CacheSpec(kind, "xattn", (
+        Leaf("k", shape, dtype, ROLE_KV),
+        Leaf("v", shape, dtype, ROLE_KV),
+        Leaf("xk", xshape, dtype, ROLE_KV),
+        Leaf("xv", xshape, dtype, ROLE_KV),
+    ))
+
+
 @register_layout("state")
 def _state(kind, cfg, batch, max_len, dtype, **_) -> CacheSpec:
     """The ``rglru`` carry: ``models.rglru.init_cache``'s leaves, read off
@@ -232,6 +246,8 @@ def layout_for(kind: str, cfg, *, paged: bool) -> str:
         return "paged_mla" if paged else "dense_mla"
     if kind == "rglru":
         return "state"
+    if kind == "xattn":
+        return "xattn"
     if kind in _LATER:
         raise NotImplementedError(
             f"the {kind!r} cache layout is not ported yet: ROADMAP.md "
@@ -290,6 +306,7 @@ _LEAFSETS: dict[frozenset, str] = {
     frozenset({"latent_pages", "latent_scales",
                "block_tables"}): "paged_mla_q8",
     frozenset({"h", "conv"}): "state",
+    frozenset({"k", "v", "xk", "xv"}): "xattn",
 }
 
 # Every leaf that travels with its pages (pools AND their scales), so page

@@ -1,10 +1,13 @@
 """Top-level language model: embedding → blocks → head (tied or not).
 
 Parameters are a dict ``{"embed": {"w"}, "final_norm": {...}, "layers":
-[block params per layer], ("head": {"w"})}`` with the JAX tree's leaf names
-and layouts; where JAX stacks each pattern slot's layers on a [G] axis for
+[block params per layer], ("head": {"w"}), ("encoder": {"pos", "blocks":
+[...], "norm"})}`` with the JAX tree's leaf names and layouts; where JAX
+stacks each pattern slot's layers (and the encoder's) on a [G] axis for
 ``lax.scan``, the port keeps one dict per layer and loops over them
-(``convert.params_from_jax`` unstacks a JAX tree).
+(``convert.params_from_jax`` unstacks a JAX tree).  Encoder-decoder models
+(whisper) run a bidirectional encoder over stub frame embeddings
+(``enc_frames`` on ``forward`` and ``prefill``) on ``flash_attention``.
 
 Entry points mirror ``repro.models.lm``: ``forward``, ``init_cache``,
 ``prefill``, ``decode_step``, ``mixed_step`` and, for recurrent (``state``
@@ -34,10 +37,10 @@ CHUNKED_THRESHOLD = 8192
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in set(cache_mod.layer_kinds(cfg)):
         blocks.check_kind(kind)
-    if cfg.num_prefix_tokens or cfg.is_encdec:
+    if cfg.num_prefix_tokens:
         raise NotImplementedError(
-            "prefix-LM and encoder-decoder models are not ported yet: "
-            "ROADMAP.md queue 1 item 11 (remaining families)")
+            "prefix-LM models are not ported yet: ROADMAP.md queue 1 item "
+            "11 (remaining families)")
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +64,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
         p["head"] = common.dense_init(gen, d, v)
     p["layers"] = [blocks.block_init(kind, gen, cfg)
                    for kind in cache_mod.layer_kinds(cfg)]
+    if cfg.is_encdec:
+        e = cfg.encoder
+        p["encoder"] = {
+            "pos": (torch.randn((e.seq_len, d), generator=gen, device=dev)
+                    * 0.02).to(common.PARAM_DTYPE),
+            "blocks": [blocks.block_init("attn", gen, cfg)
+                       for _ in range(e.num_layers)],
+            "norm": common.norm_init(d, cfg.norm_type, dev),
+        }
     return p
 
 
@@ -87,13 +99,42 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device)
 
 
+def _encode(p: Params, cfg: ModelConfig, enc_frames: torch.Tensor,
+            impl: str) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings [B, Te, d]: the
+    frames plus the positional table in the frames' dtype, the encoder's
+    ``attn`` blocks with no mask and no window (on ``flash_attention``
+    with ``causal=False`` unless ``impl="ref"``; JAX's heads are the
+    decoder's, ``encoder.num_heads`` goes unused), then its norm."""
+    e = p["encoder"]
+    x = enc_frames + e["pos"].to(enc_frames.dtype)[None]
+    ctx = BlockCtx(positions=torch.arange(x.shape[1], device=x.device),
+                   mask_full=None, mode="full", impl=impl, causal=False)
+    ecfg = cfg.replace(window=None)
+    for bp in e["blocks"]:
+        x, _ = blocks.block_apply("attn", bp, ecfg, x, ctx, None)
+    return common.apply_norm(e["norm"], x, cfg.norm_type, cfg.norm_eps)
+
+
+def _enc_out(p: Params, cfg: ModelConfig, enc_frames, impl: str, device
+             ) -> Optional[torch.Tensor]:
+    """The encoder's output for an encoder-decoder model, else None."""
+    if not cfg.is_encdec:
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: pass "
+                         f"enc_frames [B, {cfg.encoder.seq_len}, "
+                         f"{cfg.d_model}]")
+    return _encode(p, cfg, torch.as_tensor(enc_frames, device=device), impl)
+
+
 def _make_ctx(cfg: ModelConfig, t: int, device,
               lengths: Optional[torch.Tensor] = None) -> BlockCtx:
     if t > CHUNKED_THRESHOLD:
         raise NotImplementedError(
             f"prompts longer than {CHUNKED_THRESHOLD} tokens need the "
-            "blockwise attention path, not ported yet: ROADMAP.md queue 2 "
-            "(flash_attention)")
+            "blockwise attention path, not ported yet: ROADMAP.md queue 1 "
+            "(item 3's blockwise prefill)")
     mask_full = common.make_mask(t, t, causal=True, device=device)
     mask_local = (common.make_mask(t, t, causal=True, window=cfg.window,
                                    device=device)
@@ -132,14 +173,16 @@ def _final(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
-def forward(p: Params, cfg: ModelConfig, tokens
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, T] -> (logits [B, T, V] float32, aux loss 0)."""
+def forward(p: Params, cfg: ModelConfig, tokens, enc_frames=None,
+            impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, T] -> (logits [B, T, V] float32, aux loss 0).
+    ``enc_frames`` [B, Te, d]: an encoder-decoder model's encoder input."""
     _check_supported(cfg)
     dev = p["embed"]["w"].device
     tokens = _tokens(tokens, dev)
     x = _embed(p, cfg, tokens)
-    ctx = _make_ctx(cfg, x.shape[1], dev)
+    ctx = _make_ctx(cfg, x.shape[1], dev)._replace(
+        impl=impl, enc_out=_enc_out(p, cfg, enc_frames, impl, dev))
     x, _ = _run_blocks(p, cfg, x, ctx, None)
     return _final(p, cfg, x), torch.zeros((), device=dev)
 
@@ -183,24 +226,30 @@ adopt_pages = cache_mod.adopt_pages
 
 
 def prefill(p: Params, cfg: ModelConfig, tokens, cache: Params,
-            impl: str = "kernel", lengths=None
+            impl: str = "kernel", lengths=None, enc_frames=None
             ) -> tuple[torch.Tensor, Params]:
     """Uniform-length prompt [B, P] -> (last-position logits [B, V], cache).
 
     ``lengths`` (i32[B]) admits a ragged right-padded batch: row b's prompt
     is tokens[b, :lengths[b]], logits come from its last valid position,
     and rows with ``lengths[b] == 0`` keep their cache (output garbage).
-    Prefill attention is the plain matmul path on every device (no kernel
-    of this slice serves it), so ``impl`` is accepted for symmetry only.
+    The prompt's attention is the plain masked matmul path on every device;
+    ``impl`` reaches an encoder-decoder model's encoder (``enc_frames``
+    [B, Te, d], on ``flash_attention``), whose output fills the cross-KV.
     """
     _check_supported(cfg)
+    if lengths is not None and cfg.is_encdec:
+        raise NotImplementedError(
+            f"ragged prefill supports decoder-only patterns without "
+            f"prefix/encoder inputs, got {cfg.block_pattern}")
     dev = p["embed"]["w"].device
     tokens = _tokens(tokens, dev)
     if lengths is not None:
         lengths = _tokens(lengths, dev)
     x = _embed(p, cfg, tokens)
     ctx = _make_ctx(cfg, x.shape[1], dev, lengths=lengths)
-    ctx = ctx._replace(mode="prefill", impl=impl)
+    ctx = ctx._replace(mode="prefill", impl=impl,
+                       enc_out=_enc_out(p, cfg, enc_frames, impl, dev))
     x, cache = _run_blocks(p, cfg, x, ctx, cache)
     if lengths is not None:
         last = (lengths.long() - 1).clamp(min=0)
@@ -234,6 +283,10 @@ def mixed_step(p: Params, cfg: ModelConfig, tokens, cache: Params, start,
     rows' logits are garbage.  ``all_logits`` returns [B, C, V].
     """
     _check_supported(cfg)
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"mixed step supports decoder-only patterns without prefix or "
+            f"encoder inputs, got {cfg.block_pattern}")
     if ("local" in cache_mod.layer_kinds(cfg) and cfg.ring_local_cache
             and cfg.window):
         # A ring cache wraps under multi-token spans: a later span token can

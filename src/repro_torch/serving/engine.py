@@ -47,8 +47,11 @@ def make_serve_step(cfg: ModelConfig, *, impl: str = "kernel",
 
 
 def make_prefill_fn(cfg: ModelConfig, *, impl: str = "kernel"):
-    def prefill_fn(params, cache, tokens):
-        return lm.prefill(params, cfg, tokens, cache, impl=impl)
+    """(params, cache, tokens [B, P], enc_frames=None) -> (logits, cache);
+    ``enc_frames`` feeds an encoder-decoder model's encoder."""
+    def prefill_fn(params, cache, tokens, enc_frames=None):
+        return lm.prefill(params, cfg, tokens, cache, impl=impl,
+                          enc_frames=enc_frames)
 
     return prefill_fn
 
@@ -194,10 +197,12 @@ class Engine:
         # device sync per step.
         self._pos_ceiling = 0
 
-    def prefill(self, tokens) -> torch.Tensor:
-        """Uniform prompt for all rows. tokens: [B, P]."""
+    def prefill(self, tokens, enc_frames=None) -> torch.Tensor:
+        """Uniform prompt for all rows. tokens: [B, P]; ``enc_frames``
+        [B, Te, d] for an encoder-decoder model."""
         tokens = torch.as_tensor(tokens, device=self.device)
-        logits, self.cache = self._prefill(self.params, self.cache, tokens)
+        logits, self.cache = self._prefill(self.params, self.cache, tokens,
+                                           enc_frames=enc_frames)
         self.pos = torch.full((self.batch,), tokens.shape[1],
                               dtype=torch.int32, device=self.device)
         self._pos_ceiling = tokens.shape[1]
@@ -215,8 +220,8 @@ class Engine:
         self._pos_ceiling += 1
         return self.token
 
-    def generate(self, tokens, steps: int) -> torch.Tensor:
-        outs = [self.prefill(tokens)]
+    def generate(self, tokens, steps: int, enc_frames=None) -> torch.Tensor:
+        outs = [self.prefill(tokens, enc_frames=enc_frames)]
         for _ in range(steps - 1):
             outs.append(self.step())
         return torch.stack(outs, dim=1)

@@ -2,7 +2,8 @@
 version on the same CUDA inputs (the quantized-pool kernels for int8 and
 fp8-e4m3 pools included, the four paged-MLA kernels at the full (512, 64)
 and the test (32, 8) latent widths, ``decode_attention`` up to head_dim 256,
-the RG-LRU's ``linear_scan`` and the cross-pool ``page_transfer``).
+the RG-LRU's ``linear_scan``, the cross-pool ``page_transfer`` and
+``flash_attention`` on JAX's cases and whisper's encoder shape).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -18,6 +19,8 @@ so they are held to 1e-5.  Pools (and the quantized pools' scales) must
 match bitwise.  ``linear_scan`` must match bitwise: kernel and plain version
 round each step once (the kernel's FMA, the plain version's float64 step).
 ``page_transfer`` is a copy of bits: destination pools bitwise.
+``flash_attention``'s rows with no live key come out 0 (the plain version's
+NaN); only rows with a live key are compared.
 """
 from __future__ import annotations
 
@@ -574,3 +577,72 @@ def test_page_transfer_kernel_edges(card):
     view = flat[1:].view(4, 7)
     other = _xfer_pool(5, (7,), torch.bfloat16, card, 5)
     _xfer_check(other, view, [4, 0, 2], [3, 0, 0], card)
+
+
+# flash_attention: JAX's ATTN_CASES (tests/test_kernels.py), whisper's
+# encoder shape, and GQA / Tq < Tk / window / no-live-key variants.
+FLASH_CASES = [
+    # (B, Hq, Hkv, Tq, Tk, D, causal, window)
+    (1, 1, 1, 128, 128, 64, True, None),
+    (2, 4, 2, 96, 96, 32, True, None),
+    (1, 8, 1, 256, 256, 128, True, None),
+    (1, 4, 4, 64, 192, 64, True, None),
+    (2, 2, 2, 160, 160, 80, False, None),
+    (1, 4, 2, 256, 256, 64, True, 64),
+    (8, 6, 6, 1500, 1500, 64, False, None),     # the whisper encoder
+    (2, 6, 2, 100, 333, 48, True, 77),          # GQA, Tq < Tk, window
+    (1, 4, 1, 70, 70, 112, False, 9),           # windowed, bidirectional
+    (2, 4, 2, 40, 24, 16, True, None),          # rows with no live key
+]
+
+
+def _flash_live(tq, tk, causal, window, dev):
+    qi = torch.arange(tq, device=dev)[:, None] + (tk - tq)
+    ki = torch.arange(tk, device=dev)[None, :]
+    live = torch.ones((tq, tk), dtype=torch.bool, device=dev)
+    if causal:
+        live &= ki <= qi
+    if window is not None:
+        live &= ki >= qi - window + 1
+    return live.any(dim=1)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    """Rows with a live key within the tolerance; rows with none come out
+    0 from the kernel (the plain version's NaN)."""
+    b, hq, hkv, tq, tk, d, causal, window = case
+    r = np.random.default_rng(4)
+    q = _t(r.normal(size=(b, hq, tq, d)), dtype, card)
+    k = _t(r.normal(size=(b, hkv, tk, d)), dtype, card)
+    v = _t(r.normal(size=(b, hkv, tk, d)), dtype, card)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    live = _flash_live(tq, tk, causal, window, card)
+    torch.testing.assert_close(got[:, :, live], want[:, :, live],
+                               **_tol(dtype))
+    assert bool((got[:, :, ~live] == 0).all())
+
+
+def test_flash_attention_rejects_what_it_cannot_take(card):
+    """Contract errors raise before any launch."""
+    before = ops.launch_counts()["flash_attention"]
+    for d in (24, 144):                         # not a multiple of 16; > 128
+        x = torch.zeros(1, 2, 8, d, device=card)
+        with pytest.raises(ValueError, match="head_dim"):
+            ops.flash_attention(x, x, x)
+    x = torch.zeros(1, 2, 8, 32, device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(x, x, x)
+    q = torch.zeros(1, 2, 8, 32, device=card)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.flash_attention(q, torch.zeros(1, 3, 8, 32, device=card),
+                            torch.zeros(1, 3, 8, 32, device=card))
+    assert ops.launch_counts()["flash_attention"] == before
