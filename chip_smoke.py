@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root
 
-1. builds the twelve kernels from ``src/repro_torch/kernels/csrc`` (one
+1. builds the fourteen kernels from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    workloads' shapes and times kernel, plain version, and the PyTorch
@@ -21,7 +21,14 @@
    one lane and 64 with -1 lanes, out-of-range and repeated destinations,
    pools of 513 and 400 pages) and ``flash_attention`` at whisper-tiny's
    encoder shape (q/k/v [8, 6, 1500, 64] bf16, bidirectional; timed against
-   SDPA), causal GQA with Tq < Tk, and a float32 sliding window;
+   SDPA), causal GQA with Tq < Tk, and a float32 sliding window, and the
+   register-bank kernels ``lww_merge`` and ``delta_apply`` bitwise at
+   JAX's sweep shapes and ``bench_merge``'s bank (K 4096, D 128, Dc 256;
+   int32 / float32 / bf16 payloads; equal and INT32_MIN keys; duplicate
+   targets with equal maximal keys, -1, < -1 and >= K lanes, Dc 0 and 1);
+   then runs the port's ``bench_merge --quick`` (the replica-sync sweep:
+   every delta sync exact, delta < pmax < allgather bytes at rate 0.05;
+   its kernel rows launch ``delta_apply``);
 3. serves ``olmo-1b`` at full width with seeded random bf16 weights:
    ``ContinuousBatchingEngine`` answers 16 requests (bf16 pools, then int8
    pools), ``Engine.generate`` decodes on a dense and on a paged cache;
@@ -562,6 +569,8 @@ def kernel_phase():
     rows.append(linear_scan_row(rng))
     rows.append(page_transfer_row(rng))
     rows.append(flash_attention_row())
+    rows.append(lww_merge_row(rng))
+    rows.append(delta_apply_row(rng))
     return rows
 
 
@@ -858,6 +867,203 @@ def page_transfer_row(rng) -> dict:
                 lambda: dst.index_copy_(0, ld, src.index_select(0, ls))),
             f"{tag}bound_ms": bms, "bound_by": by})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Register banks: lww_merge and delta_apply (replica sync)
+# ---------------------------------------------------------------------------
+
+# JAX's sweep shapes (tests/test_kernels.py:26 and :63: K, D, Dc) and the
+# payload dtypes the banks are held at; bench_merge's bank comes on top.
+BANK_SWEEP = [(1, 1, 1), (7, 3, 4), (128, 8, 16), (1000, 17, 33),
+              (4096, 4, 256)]
+BANK_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
+INT32_MIN = np.iinfo(np.int32).min
+
+
+def _bank_pay(rng, shape, dtype):
+    if dtype == torch.int32:
+        x = rng.integers(-99, 99, shape)
+    else:
+        x = rng.normal(size=shape)
+    return torch.as_tensor(x, device="cuda").to(dtype)
+
+
+def _i32(a):
+    return torch.as_tensor(np.asarray(a), dtype=torch.int32, device="cuda")
+
+
+def _bank_equal(got, want) -> bool:
+    return (torch.equal(got[0], want[0])
+            and torch.equal(_bits(got[1]), _bits(want[1])))
+
+
+def lww_merge_row(rng) -> dict:
+    """``lww_merge`` against its plain version, bitwise, at JAX's sweep
+    shapes and bench_merge's bank [4096, 128], int32 / float32 / bf16
+    payloads, random keys, equal keys (a wins) and INT32_MIN keys; timed
+    at [4096, 128] int32.  ``ms`` is the kernel's device time (the
+    profiler's).  No path of either package calls this kernel (JAX's
+    ``core/lww.py`` keeps the jnp join): its launches stay 0 outside this
+    phase.  The bound counts three key vectors and one winner row read
+    and written a register."""
+    from repro_torch.kernels import lww_merge as klww
+    from repro_torch.kernels import ops, ref
+    checked = 0
+    for k, d, _ in BANK_SWEEP + [(4096, 128, 256)]:
+        for dtype in BANK_DTYPES:
+            for keys in ("random", "ties", "int32_min"):
+                ka = rng.integers(0, 10_000, k)
+                kb = rng.integers(0, 10_000, k)
+                if keys == "ties":
+                    kb[::2] = ka[::2]
+                elif keys == "int32_min":
+                    ka[::3] = INT32_MIN
+                    kb[::2] = INT32_MIN
+                ka, kb = _i32(ka), _i32(kb)
+                pa, pb = (_bank_pay(rng, (k, d), dtype) for _ in range(2))
+                got = ops.lww_merge(ka, pa, kb, pb)
+                want = ref.lww_merge(ka, pa, kb, pb)
+                torch.cuda.synchronize()
+                if not _bank_equal(got, want):
+                    fail(f"lww_merge disagrees with its plain version at "
+                         f"K {k}, D {d}, {dtype}, {keys} keys")
+                checked += 1
+    k, d = 4096, 128
+    ka, kb = _i32(rng.integers(0, 10_000, k)), _i32(rng.integers(0, 10_000, k))
+    pa, pb = (_bank_pay(rng, (k, d), torch.int32) for _ in range(2))
+    bms, by = bound(k * (3 * 4 + 2 * d * 4), k, F32_FLOPS_PER_S)
+    return dict(
+        name="lww_merge", route="cuda",
+        source="src/repro_torch/kernels/csrc/lww_merge.cu",
+        replaces="src/repro/kernels/lww_merge.py:40",
+        shapes=f"key i32[{k}] x2, pay[{k},{d}] i32 x2",
+        checked_bitwise=f"{checked} cases: K,D {[c[:2] for c in BANK_SWEEP]}"
+                        f" and ({k}, {d}) x int32/float32/bf16 x random/"
+                        f"equal/INT32_MIN keys",
+        max_abs_err=0.0, pools_bitwise=True,
+        ms=kernel_device_ms(lambda: klww.lww_merge(ka, pa, kb, pb),
+                            "lww_merge_rows"),
+        wrapper_ms=cuda_ms(lambda: ops.lww_merge(ka, pa, kb, pb)),
+        plain_ms=cuda_ms(lambda: ref.lww_merge(ka, pa, kb, pb)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        launches_note="kernel phase only: no caller in either package")
+
+
+def _delta_cases(rng, k, d, dc, dtype):
+    """(d_idx, d_key, d_pay) lane sets at one bank shape: unique targets
+    with ~25 % empty lanes (JAX's sweep); duplicates with equal maximal
+    keys, keys equal to the bank's, -1, < -1 and >= K lanes; Dc 0 and 1."""
+    idx = rng.permutation(k)[:dc]
+    idx[rng.random(dc) < 0.25] = -1
+    cases = [(idx, rng.integers(0, 20_000, dc), dc)]
+    n = max(dc, 8)
+    dup = rng.integers(-3, k + 3, n)
+    dup[:4] = k // 2
+    dup[4], dup[5] = -7, 2 ** 31 - 1
+    dkey = rng.integers(0, 10_000, n)
+    dkey[:4] = [20_000, 30_000, 30_000, 25_000]
+    dkey[6] = INT32_MIN
+    cases.append((dup, dkey, n))
+    cases += [(rng.integers(0, k, m), rng.integers(0, 20_000, m), m)
+              for m in (0, 1)]
+    return [(_i32(i), _i32(kk), _bank_pay(rng, (m, d), dtype))
+            for i, kk, m in cases]
+
+
+def delta_apply_row(rng) -> dict:
+    """``delta_apply`` against its plain version, bitwise, at JAX's sweep
+    shapes and bench_merge's (K 4096, D 128, Dc 256), int32 / float32 /
+    bf16 payloads, on each lane set of ``_delta_cases``; timed on
+    bench_merge's own inputs (``kernel_inputs``).  ``ms`` is the kernel's
+    device time (the profiler's).  The bound counts each register's key
+    and one source row (the bank's or the winning lane's) read and written
+    once, and every lane's (idx, key) read once."""
+    from repro_torch.benchmarks import bench_merge
+    from repro_torch.kernels import delta_apply as kdelta
+    from repro_torch.kernels import ops, ref
+    checked = 0
+    for k, d, dc in BANK_SWEEP + [bench_merge.KERNEL_SHAPE]:
+        for dtype in BANK_DTYPES:
+            key = _i32(rng.integers(0, 10_000, k))
+            pay = _bank_pay(rng, (k, d), dtype)
+            for di, dk, dp in _delta_cases(rng, k, d, min(dc, k), dtype):
+                got = ops.delta_apply(key, pay, di, dk, dp)
+                want = ref.delta_apply(key, pay, di, dk, dp)
+                torch.cuda.synchronize()
+                if not _bank_equal(got, want):
+                    fail(f"delta_apply disagrees with its plain version at "
+                         f"K {k}, D {d}, Dc {di.numel()}, {dtype}")
+                checked += 1
+    key, pay, idx, dkey, dpay = bench_merge.kernel_inputs("cuda")
+    k, d, dc = bench_merge.KERNEL_SHAPE
+    # Each output row is copied from one source row, the bank's or its
+    # winning lane's: K keys and rows read and written, and every lane's
+    # (idx, key) read once.
+    bms, by = bound(2 * k * (4 + d * 4) + 8 * dc, k + dc, F32_FLOPS_PER_S)
+    return dict(
+        name="delta_apply", route="cuda",
+        source="src/repro_torch/kernels/csrc/delta_apply.cu",
+        replaces="src/repro/kernels/delta_apply.py:72",
+        shapes=f"key i32[{k}], pay[{k},{d}] i32, lanes i32[{dc}] + "
+               f"pay[{dc},{d}] (bench_merge.kernel_rows)",
+        checked_bitwise=f"{checked} cases: K,D,Dc {BANK_SWEEP} and "
+                        f"{bench_merge.KERNEL_SHAPE} x int32/float32/bf16 x "
+                        f"unique+empty / duplicates+out-of-range / Dc 0 / "
+                        f"Dc 1",
+        max_abs_err=0.0, pools_bitwise=True,
+        ms=kernel_device_ms(
+            lambda: kdelta.delta_apply(key, pay, idx, dkey, dpay),
+            "delta_apply_rows"),
+        wrapper_ms=cuda_ms(lambda: ops.delta_apply(key, pay, idx, dkey,
+                                                   dpay)),
+        plain_ms=cuda_ms(lambda: ref.delta_apply(key, pay, idx, dkey, dpay)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def bench_merge_phase() -> dict:
+    """The port's ``bench_merge --quick`` on the card, through its entry
+    point: every cell's delta sync exact, delta < pmax < allgather bytes
+    at rate 0.05 (JAX's acceptance, at R 4; at R 2 pmax = allgather), and the kernel rows through ``delta_apply`` (launches
+    counted from 0 just before the run).  The sweep's states are 16 KB:
+    its rows time eager host work, not the card."""
+    import contextlib
+    import io
+    from repro_torch.benchmarks import bench_merge
+    from repro_torch.kernels import ops
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        bench_merge.main(["--quick"])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    lines = out.getvalue().splitlines()
+    if lines[0] != "name,us_per_call,derived":
+        fail(f"bench_merge printed no CSV header: {lines[:1]}")
+    rows = {}
+    for line in lines[1:]:
+        name, us, derived = line.split(",")
+        rows[name] = dict(us=float(us), **dict(
+            kv.split("=") for kv in derived.split(";")))
+    merges = {n: r for n, r in rows.items() if n.startswith("merge/")}
+    if len(merges) != 12 or any(r["exact"] != "1" for r in merges.values()):
+        fail(f"bench_merge: a delta sync was not exact: {merges}")
+    for r in (2, 4):
+        cell = f"R{r}_S256_rate0.05"
+        d, p, a = (int(rows[f"merge/{s}/{cell}"]["bytes"])
+                   for s in ("delta", "pmax", "allgather"))
+        # At R 2 the ring's 2(R-1) state copies equal allgather's R(R-1).
+        if not (d < p and (p < a if r > 2 else p == a)):
+            fail(f"bench_merge {cell}: delta < pmax < allgather fails: "
+                 f"{d}, {p}, {a}")
+    kern = [n for n in rows if n.startswith("kernel/delta_apply/")]
+    if sorted(kern) != ["kernel/delta_apply/cuda/K4096_D128_Dc256",
+                        "kernel/delta_apply/ref/K4096_D128_Dc256"]:
+        fail(f"bench_merge kernel rows: {kern}")
+    if counts["delta_apply"] <= 0:
+        fail("bench_merge ran no delta_apply kernel")
+    return {"rows": lines, "launches": counts, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -1677,6 +1883,28 @@ def recurrent_trial(cfg, params) -> dict:
     return res
 
 
+def _path_launches(results, name: str) -> list[int]:
+    """Kernel ``name``'s count in every launch-count dict that the paths'
+    results hold (under a ``launches`` key, at any depth)."""
+    found = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                if k == "launches" and isinstance(v, dict):
+                    found.append(v[name])
+                else:
+                    walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(results)
+    if not found:
+        fail(f"no path recorded launch counts for {name}")
+    return found
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # The trials' prompts hash (task, TODO) pairs: a fixed hash seed
@@ -1705,6 +1933,8 @@ def main() -> int:
     emit({"kernel_check": [{k: row[k] for k in ("name", "max_abs_err",
                                                  "ms", "plain_ms")}
                            for row in kernels]})
+    bench = bench_merge_phase()
+    emit({"bench_merge": bench, "card": card})
     cfg, params, serving = serving_phase()
     emit({"serving": serving, "card": card})
     trial, trial_counts = trial_phase(cfg, params)
@@ -1712,7 +1942,7 @@ def main() -> int:
     disagg = disagg_phase(cfg, params)
     emit({"disagg_serving": {k: v for k, v in disagg.items()
                              if k.startswith("streams")}, "card": card})
-    replicated_trial(cfg, params)
+    trial_g = replicated_trial(cfg, params)
     del params                  # the MLA model takes the card's memory next
     torch.cuda.empty_cache()
     mla_cfg, mla_params, mla_serving = mla_serving_phase()
@@ -1722,7 +1952,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec_cfg, rec_params, rec_serving = recurrent_serving_phase()
     emit({"recurrent_serving": rec_serving, "card": card})
-    recurrent_trial(rec_cfg, rec_params)
+    trial_f = recurrent_trial(rec_cfg, rec_params)
     del rec_params
     gc.collect()                # so the peak memory read is whisper's own
     torch.cuda.empty_cache()
@@ -1731,8 +1961,14 @@ def main() -> int:
     # Launches: the float kernels and linear_scan on the serving
     # workloads, the quantized kernels on trials (a) and (e),
     # page_transfer on the disaggregated run with adoption on,
-    # flash_attention on the whisper Engine, each path's counts read right
-    # after its run.
+    # flash_attention on the whisper Engine, delta_apply on bench_merge,
+    # each path's counts read right after its run.  lww_merge has no path:
+    # its count is summed over every path's counts, and must be 0.
+    paths = [bench, serving, trial, disagg, trial_g, mla_serving, trial_e,
+             rec_serving, trial_f, whisper]
+    lww = _path_launches(paths, "lww_merge")
+    if sum(lww) != 0:
+        fail(f"a path launched lww_merge, which none calls: {lww}")
     launches = {"paged_mla_chunk":
                 mla_serving["scheduler"]["launches"]["paged_mla_chunk"],
                 "paged_mla_decode":
@@ -1755,7 +1991,9 @@ def main() -> int:
                 rec_serving["scheduler"]["launches"]["linear_scan"],
                 "page_transfer": disagg["on"]["page_transfer_launches"],
                 "flash_attention":
-                whisper["kernel"]["launches"]["flash_attention"]}
+                whisper["kernel"]["launches"]["flash_attention"],
+                "delta_apply": bench["launches"]["delta_apply"],
+                "lww_merge": sum(lww)}
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] == "decode_attention":

@@ -17,6 +17,6 @@ by several replicas, as the orchestrator's merged documents are.
   protocol  optimistic write-verify claim protocol
   observe   version-vector subscriptions, invalidation signals
   delta     delta-state sync: frontiers, O(Δ) extraction, join-apply
-  merge     local replica joins (the collective merges are not ported yet)
+  merge     local replica joins and the pmax join over a replica axis
   tree      pytree helpers over NamedTuples, dicts and lists of tensors
 """

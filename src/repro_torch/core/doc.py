@@ -111,9 +111,10 @@ def append_token_batch(doc: SlotDoc, slots: torch.Tensor,
 
 
 def valid_mask(doc: SlotDoc) -> torch.Tensor:
-    idx = torch.arange(doc.slot_capacity, dtype=torch.int32,
-                       device=doc.tokens.device)[None, :]
-    return idx < doc.length[:, None]
+    """bool[K, S]; replicas stacked on a leading axis pass through."""
+    idx = torch.arange(doc.tokens.shape[-1], dtype=torch.int32,
+                       device=doc.tokens.device)
+    return idx < doc.length.unsqueeze(-1)
 
 
 def merge(a: SlotDoc, b: SlotDoc) -> SlotDoc:

@@ -104,10 +104,12 @@ class GLog(NamedTuple):
         return GLog(count=count, fields=fields)
 
     def valid_mask(self) -> torch.Tensor:
-        """bool[C, L] — which slots hold observed entries."""
-        idx = torch.arange(self.capacity, dtype=torch.int32,
-                           device=self.count.device)[None, :]
-        return idx < self.count[:, None]
+        """bool[C, L] — which slots hold observed entries.  Written over
+        trailing axes, so replicas stacked on a leading axis pass through
+        (``merge.pmax_merge``)."""
+        cap = next(iter(self.fields.values())).shape[self.count.dim()]
+        idx = torch.arange(cap, dtype=torch.int32, device=self.count.device)
+        return idx < self.count.unsqueeze(-1)
 
     def join(self, other: "GLog") -> "GLog":
         mine = self.valid_mask()

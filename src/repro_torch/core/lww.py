@@ -6,9 +6,10 @@ the join of the total order on ``(clock, client)`` — commutative,
 associative and idempotent.  A well-behaved client never reuses a clock, so
 the winner's payload is well defined.
 
-The standalone ``lww_merge`` TPU kernel (``repro/kernels/lww_merge.py``) is
-not ported yet (ROADMAP.md queue 2 item 10); this tensor code is the
-semantic path, as the jnp join is in the JAX package.
+The standalone ``lww_merge`` kernel (``kernels/ops.lww_merge``, the port
+of ``repro/kernels/lww_merge.py``) joins one packed-key bank with one
+payload matrix; this tensor code is the semantic path, as the jnp join is
+in the JAX package, and no path of either package calls the kernel.
 """
 from __future__ import annotations
 

@@ -44,9 +44,10 @@ class RGA(NamedTuple):
         return self.num_clients * self.capacity
 
     def valid_mask(self) -> torch.Tensor:
-        idx = torch.arange(self.capacity, dtype=torch.int32,
-                           device=self.count.device)[None, :]
-        return idx < self.count[:, None]
+        """bool[C, L]; replicas stacked on a leading axis pass through."""
+        idx = torch.arange(self.op_clock.shape[-1], dtype=torch.int32,
+                           device=self.count.device)
+        return idx < self.count.unsqueeze(-1)
 
     def max_clock(self) -> torch.Tensor:
         """Largest observed Lamport time (for the Lamport receive rule)."""

@@ -30,7 +30,7 @@ SOURCES = ("decode_attention", "paged_decode_attention",
            "paged_chunk_attention_quant", "paged_mla_decode",
            "paged_mla_chunk", "paged_mla_decode_quant",
            "paged_mla_chunk_quant", "linear_scan", "page_transfer",
-           "flash_attention")
+           "flash_attention", "lww_merge", "delta_apply")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -126,6 +126,17 @@ def ptr(kernel: str, name: str, t: torch.Tensor, device: torch.device, *,
         raise ValueError(f"{kernel}: {name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def byte_ptr(kernel: str, name: str, t: torch.Tensor,
+             device: torch.device) -> ctypes.c_void_p:
+    """Device pointer of ``t`` for a kernel that moves rows as bytes and
+    takes any alignment: checks device and contiguity only."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
     return ctypes.c_void_p(t.data_ptr())
 
 

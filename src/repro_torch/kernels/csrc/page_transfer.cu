@@ -16,12 +16,12 @@
 //     here one block per lane would leave a one-lane transfer (what an
 //     adoption issues per page) on one SM, and an OLMo-1B row is 64 KB a
 //     leaf, so the row is spread over 8 blocks.
-//   * 16-byte vector loads and stores where the row's byte size and both
-//     pool base pointers are 16-byte aligned (then every row and every
-//     slice is); 4-byte words where they are 4-byte aligned; single bytes
-//     otherwise (an int8 row of odd width).  The width is chosen once per
-//     launch and passed in; every path is this kernel, never the plain
-//     version.
+//   * Rows are copied as bytes (byte_rows.cuh): 16-byte vector loads and
+//     stores where the row's byte size and both pool base pointers are
+//     16-byte aligned (then every row and every slice is); 4-byte words
+//     where they are 4-byte aligned; single bytes otherwise (an int8 row of
+//     odd width).  The width is chosen once per launch; every path is this
+//     kernel, never the plain version.
 //   * Duplicate destinations: the Pallas kernel's grid is sequential, so
 //     where live lanes share a dst_id the last one wins.  Here blocks run
 //     in any order, so a lane skips itself if any later live lane targets
@@ -31,8 +31,7 @@
 //     less than the row it decides about.
 //   * No TMA and no cp.async.bulk: plain vector loads already stream one
 //     row per block set; a bulk-copy design is later, measured work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "byte_rows.cuh"
 
 namespace {
 
@@ -43,17 +42,17 @@ template <typename V>
 __device__ __forceinline__ void copy_slice(const char* __restrict__ src,
                                            char* __restrict__ dst,
                                            long long lo, long long hi) {
-  const V* s = reinterpret_cast<const V*>(src + lo);
-  V* d = reinterpret_cast<V*>(dst + lo);
   const long long n = (hi - lo) / static_cast<long long>(sizeof(V));
-  for (long long i = threadIdx.x; i < n; i += NT) d[i] = s[i];
+  for (long long i = threadIdx.x; i < n; i += NT)
+    copy_access<V>(src + lo, dst + lo, i);
 }
 
+template <typename V>
 __global__ void __launch_bounds__(NT)
     transfer(const char* __restrict__ src, char* __restrict__ dst,
              const int* __restrict__ src_ids, const int* __restrict__ dst_ids,
-             int n, long long num_src, long long num_dst, long long row_bytes,
-             int vec) {
+             int n, long long num_src, long long num_dst,
+             long long row_bytes) {
   const int lane = blockIdx.x;
   const int s = src_ids[lane];
   const int d = dst_ids[lane];
@@ -70,12 +69,7 @@ __global__ void __launch_bounds__(NT)
   const long long hi = lo + SLICE < row_bytes ? lo + SLICE : row_bytes;
   const char* srow = src + row_s * row_bytes;
   char* drow = dst + static_cast<long long>(d) * row_bytes;
-  if (vec == 16)
-    copy_slice<uint4>(srow, drow, lo, hi);
-  else if (vec == 4)
-    copy_slice<uint32_t>(srow, drow, lo, hi);
-  else
-    copy_slice<uint8_t>(srow, drow, lo, hi);
+  copy_slice<V>(srow, drow, lo, hi);
 }
 
 }  // namespace
@@ -92,14 +86,15 @@ extern "C" int page_transfer(const void* src, void* dst, const void* src_ids,
                              long long num_dst, long long row_bytes,
                              void* stream) {
   if (n <= 0 || row_bytes <= 0 || num_src <= 0) return 0;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src) |
-                      reinterpret_cast<uintptr_t>(dst) |
-                      static_cast<uintptr_t>(row_bytes);
-  const int vec = a % 16 == 0 ? 16 : (a % 4 == 0 ? 4 : 1);
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(src) |
+                         reinterpret_cast<uintptr_t>(dst) |
+                         static_cast<uintptr_t>(row_bytes);
   const dim3 grid(n, static_cast<unsigned>((row_bytes + SLICE - 1) / SLICE));
-  transfer<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(src), static_cast<char*>(dst),
-      static_cast<const int*>(src_ids), static_cast<const int*>(dst_ids), n,
-      num_src, num_dst, row_bytes, vec);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dispatch_width(bits, [&](auto v) {
+    transfer<decltype(v)><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const char*>(src), static_cast<char*>(dst),
+        static_cast<const int*>(src_ids), static_cast<const int*>(dst_ids), n,
+        num_src, num_dst, row_bytes);
+    return cudaGetLastError();
+  }));
 }

@@ -1,5 +1,6 @@
 """Public wrappers around the port's kernels: attention, the RG-LRU's
-linear recurrence and the cross-pool page transfer.
+linear recurrence, the cross-pool page transfer and the two register-bank
+operations of replica sync.
 
 Each wrapper applies the contract of its ``repro.kernels.ops`` counterpart
 on every path, then dispatches by device:
@@ -35,14 +36,18 @@ counterpart here.
                                             start, span, ln, scale=s)
     y, h_last = ops.linear_scan(a, b, h0)          # h_t = a_t h_{t-1} + b_t
     dst_pool = ops.page_transfer(src_pool, dst_pool, src_ids, dst_ids)
+    key, pay = ops.lww_merge(key_a, pay_a, key_b, pay_b)      # LWW join
+    key, pay = ops.delta_apply(key, pay, d_idx, d_key, d_pay)
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import delta_apply as _delta
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import linear_scan as _scan
+from repro_torch.kernels import lww_merge as _lww
 from repro_torch.kernels import paged_chunk_attention as _pchunk
 from repro_torch.kernels import paged_chunk_attention_quant as _pchunk_q
 from repro_torch.kernels import paged_decode_attention as _pdec
@@ -61,7 +66,8 @@ KERNELS = {"decode_attention": _dec, "paged_decode_attention": _pdec,
            "paged_mla_decode": _mdec, "paged_mla_chunk": _mchunk,
            "paged_mla_decode_quant": _mdec_q,
            "paged_mla_chunk_quant": _mchunk_q, "linear_scan": _scan,
-           "page_transfer": _xfer, "flash_attention": _flash}
+           "page_transfer": _xfer, "flash_attention": _flash,
+           "lww_merge": _lww, "delta_apply": _delta}
 
 
 def launch_counts() -> dict[str, int]:
@@ -407,3 +413,65 @@ def page_transfer(src_pool, dst_pool, src_ids, dst_ids, *,
         src_pool, dst_pool,
         src_ids.to(device=dev, dtype=torch.int32).contiguous(),
         dst_ids.to(device=dev, dtype=torch.int32).contiguous())
+
+
+def _bank(kernel: str, key, pay) -> None:
+    """Raise unless ``key`` is int32 [K] and ``pay`` is [K, ...]."""
+    if key.dtype != torch.int32 or key.dim() != 1:
+        raise ValueError(f"{kernel}: keys must be 1-D int32, got "
+                         f"{key.dtype} {tuple(key.shape)}")
+    if pay.dim() < 1 or pay.shape[0] != key.shape[0]:
+        raise ValueError(f"{kernel}: payload {tuple(pay.shape)} does not "
+                         f"have one row per key ({key.shape[0]})")
+
+
+def lww_merge(key_a, pay_a, key_b, pay_b, *, impl: str = "kernel"):
+    """LWW join of two register banks: per register the larger packed
+    (clock, client) key wins and brings its payload row; on equal keys
+    ``a`` wins.  key_*: int32 [K]; pay_*: [K, D] of one shape and dtype
+    (any dtype: the card copies rows as bytes).  Returns new (key, pay).
+    Nothing is padded: the JAX wrapper's 128-lane padding has no
+    counterpart."""
+    _bank("lww_merge", key_a, pay_a)
+    _bank("lww_merge", key_b, pay_b)
+    if key_a.shape != key_b.shape or pay_a.shape != pay_b.shape \
+            or pay_a.dtype != pay_b.dtype:
+        raise ValueError(
+            f"lww_merge: banks do not match: a {tuple(pay_a.shape)} "
+            f"({pay_a.dtype}) vs b {tuple(pay_b.shape)} ({pay_b.dtype})")
+    if _plain(key_a, impl):
+        return ref.lww_merge(key_a, pay_a, key_b, pay_b)
+    if key_a.shape[0] == 0:
+        return key_a.clone(), pay_a.clone()
+    return _lww.lww_merge(key_a.contiguous(), pay_a.contiguous(),
+                          key_b.contiguous(), pay_b.contiguous())
+
+
+def delta_apply(key, pay, d_idx, d_key, d_pay, *, impl: str = "kernel"):
+    """Scatter-apply an LWW delta buffer into a register bank.
+
+    key: int32 [K]; pay: [K, D]; d_idx, d_key: int32 [Dc]; d_pay: [Dc, D],
+    cast to ``pay``'s dtype.  Lane ``j`` writes register ``d_idx[j]`` where
+    ``d_key[j]`` is strictly greater than the bank's key; a ``d_idx``
+    outside [0, K) (-1 by convention) is an empty lane.  Where lanes share
+    a target, the largest key wins, then the lowest lane
+    (``ref.delta_apply``).  Returns new (key, pay).
+    """
+    _bank("delta_apply", key, pay)
+    _bank("delta_apply", d_key, d_pay)
+    if d_idx.dtype != torch.int32 or d_idx.shape != d_key.shape:
+        raise ValueError(f"delta_apply: d_idx must be int32 "
+                         f"{tuple(d_key.shape)}, got {d_idx.dtype} "
+                         f"{tuple(d_idx.shape)}")
+    if d_pay.shape[1:] != pay.shape[1:]:
+        raise ValueError(f"delta_apply: lane rows {tuple(d_pay.shape[1:])} "
+                         f"do not match bank rows {tuple(pay.shape[1:])}")
+    if _plain(key, impl):
+        return ref.delta_apply(key, pay, d_idx, d_key, d_pay)
+    if key.shape[0] == 0:
+        return key.clone(), pay.clone()
+    if key.shape[0] >= 2 ** 31:
+        raise ValueError("delta_apply: the kernel takes K < 2^31 registers")
+    return _delta.delta_apply(key.contiguous(), pay.contiguous(),
+                              d_idx.contiguous(), d_key.contiguous(),
+                              d_pay.to(pay.dtype).contiguous())

@@ -23,13 +23,6 @@ _ARGTYPES = [_b.PTR] * 4 + [_b.INT, _LL, _LL, _LL, _b.PTR]
 launches = 0            # kernel launches through this wrapper
 
 
-def _check(name: str, t: torch.Tensor, dev: torch.device) -> None:
-    if t.device != dev:
-        raise ValueError(f"{NAME}: {name} is on {t.device}, not {dev}")
-    if not t.is_contiguous():
-        raise ValueError(f"{NAME}: {name} must be contiguous")
-
-
 def page_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
                   src_ids: torch.Tensor, dst_ids: torch.Tensor
                   ) -> torch.Tensor:
@@ -38,9 +31,9 @@ def page_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     device.  Updates ``dst_pool`` in place and returns it."""
     global launches
     dev = dst_pool.device
-    for name, t in (("src_pool", src_pool), ("dst_pool", dst_pool),
-                    ("src_ids", src_ids), ("dst_ids", dst_ids)):
-        _check(name, t, dev)
+    args = [_b.byte_ptr(NAME, name, t, dev) for name, t in (
+        ("src_pool", src_pool), ("dst_pool", dst_pool),
+        ("src_ids", src_ids), ("dst_ids", dst_ids))]
     for name, t in (("src_ids", src_ids), ("dst_ids", dst_ids)):
         if t.dtype != torch.int32 or t.shape != src_ids.shape:
             raise ValueError(f"{NAME}: {name} must be int32 "
@@ -50,12 +43,9 @@ def page_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
         if dst_pool.shape[0] else 0
     lib = _b.load(NAME, _ARGTYPES)
     with torch.cuda.device(dev):
-        status = lib.page_transfer(
-            ctypes.c_void_p(src_pool.data_ptr()),
-            ctypes.c_void_p(dst_pool.data_ptr()),
-            ctypes.c_void_p(src_ids.data_ptr()),
-            ctypes.c_void_p(dst_ids.data_ptr()), n, src_pool.shape[0],
-            dst_pool.shape[0], row_bytes, _b.stream(dev))
+        status = lib.page_transfer(*args, n, src_pool.shape[0],
+                                   dst_pool.shape[0], row_bytes,
+                                   _b.stream(dev))
     launches += 1
     _b.raise_on_error(NAME, lib, status)
     return dst_pool

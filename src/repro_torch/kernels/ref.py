@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the kernels (the correctness contract): the
 attention kernels over float and quantized pools, MHA and MLA, blocked
 (flash) attention over whole sequences, the diagonal linear recurrence of
-the RG-LRU, and the cross-pool page transfer of disaggregated serving.
+the RG-LRU, the cross-pool page transfer of disaggregated serving, and the
+two register-bank operations of replica sync: the LWW join of two banks and
+the LWW-guarded scatter of a delta buffer into a bank.
 
 Each function is the mathematical definition with no tiling, line for line
 in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
@@ -11,7 +13,8 @@ dtype, the MLA contexts in float32 (as JAX's).
 
 Unlike the JAX oracles, which return fresh pools, the paged versions write
 the new K/V into the pools IN PLACE and return the same tensors — the port
-never copies a page pool per step.
+never copies a page pool per step.  The register-bank versions return new
+tensors, as JAX's do.
 """
 from __future__ import annotations
 
@@ -483,3 +486,63 @@ def page_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     rows = src_pool[s[win].clamp(0, src_pool.shape[0] - 1)]
     dst_pool[d[win]] = rows
     return dst_pool
+
+
+# ---------------------------------------------------------------------------
+# Register banks: LWW join and delta scatter-apply (replica sync)
+# ---------------------------------------------------------------------------
+
+INT32_MIN = torch.iinfo(torch.int32).min
+
+
+def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-register mask [K] shaped to broadcast over ``x`` [K, ...]."""
+    return mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+
+
+def lww_merge(key_a: torch.Tensor, pay_a: torch.Tensor, key_b: torch.Tensor,
+              pay_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-register join of two banks: the larger packed (clock, client)
+    key wins and its payload row comes with it; on equal keys ``a`` wins.
+
+    key_*: int32 [K]; pay_*: [K, D] (any dtype).  Returns new tensors.
+    """
+    b_wins = key_b > key_a
+    return (torch.where(b_wins, key_b, key_a),
+            torch.where(_rows(b_wins, pay_a), pay_b, pay_a))
+
+
+def delta_apply(key: torch.Tensor, pay: torch.Tensor, d_idx: torch.Tensor,
+                d_key: torch.Tensor, d_pay: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply an LWW delta buffer: lane ``j`` writes register ``d_idx[j]``
+    (key ``d_key[j]``, payload row ``d_pay[j]`` cast to ``pay``'s dtype)
+    where its key is strictly greater than the bank's.
+
+    key: int32 [K]; pay: [K, D]; d_idx, d_key: int32 [Dc]; d_pay: [Dc, D].
+    A ``d_idx`` outside [0, K) is an empty lane (-1 by convention; JAX's
+    ``mode="drop"`` drops every such index).  Returns new tensors.
+
+    Duplicate targets: for each register the lane with the LARGEST key
+    wins, if that key beats the bank's; among lanes with that same key the
+    LOWEST lane index wins.  That is the result of the Pallas kernel's
+    in-order lane sweep with a strict ``>`` (JAX's jnp oracle leaves it to
+    XLA's scatter order).  Here it is two deterministic reductions: the
+    max key per target, then the min lane index among the lanes at it.
+    """
+    k, dc = key.shape[0], d_idx.shape[0]
+    tgt = d_idx.long()
+    live = (tgt >= 0) & (tgt < k)
+    tgt = torch.where(live, tgt, k)                 # empty lanes: spare row k
+    bank = torch.cat([key, key.new_full((1,), INT32_MIN)])
+    top = bank.scatter_reduce(0, tgt, d_key.to(key.dtype), "amax")
+    at_top = live & (d_key == top[tgt]) & (d_key > bank[tgt])
+    lane = torch.arange(dc, device=key.device)
+    first = torch.full((k + 1,), dc, dtype=torch.long,
+                       device=key.device).scatter_reduce(
+        0, torch.where(at_top, tgt, k), torch.where(at_top, lane, dc),
+        "amin")[:k]
+    won = first < dc
+    out_pay = pay.clone()
+    out_pay[won] = d_pay.to(pay.dtype)[first[won]]
+    return torch.where(won, top[:k], key), out_pay

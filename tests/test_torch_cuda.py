@@ -2,8 +2,9 @@
 version on the same CUDA inputs (the quantized-pool kernels for int8 and
 fp8-e4m3 pools included, the four paged-MLA kernels at the full (512, 64)
 and the test (32, 8) latent widths, ``decode_attention`` up to head_dim 256,
-the RG-LRU's ``linear_scan``, the cross-pool ``page_transfer`` and
-``flash_attention`` on JAX's cases and whisper's encoder shape).
+the RG-LRU's ``linear_scan``, the cross-pool ``page_transfer``,
+``flash_attention`` on JAX's cases and whisper's encoder shape, and the
+register-bank kernels ``lww_merge`` and ``delta_apply``).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -18,7 +19,8 @@ whatever the pool (a bf16 or dequantized row widens to float32 exactly),
 so they are held to 1e-5.  Pools (and the quantized pools' scales) must
 match bitwise.  ``linear_scan`` must match bitwise: kernel and plain version
 round each step once (the kernel's FMA, the plain version's float64 step).
-``page_transfer`` is a copy of bits: destination pools bitwise.
+``page_transfer`` is a copy of bits: destination pools bitwise, and so
+are ``lww_merge``'s and ``delta_apply``'s keys and payload bytes.
 ``flash_attention``'s rows with no live key come out 0 (the plain version's
 NaN); only rows with a live key are compared.
 """
@@ -646,3 +648,148 @@ def test_flash_attention_rejects_what_it_cannot_take(card):
         ops.flash_attention(q, torch.zeros(1, 3, 8, 32, device=card),
                             torch.zeros(1, 3, 8, 32, device=card))
     assert ops.launch_counts()["flash_attention"] == before
+
+
+# -- lww_merge and delta_apply: register banks, held bitwise ---------------
+
+# JAX's sweep shapes (tests/test_kernels.py) and bench_merge's bank.
+BANK_SHAPES = [(1, 1), (7, 3), (128, 8), (1000, 17), (4096, 4), (4096, 128)]
+BANK_DTYPES = [torch.int32, torch.float32, torch.bfloat16, torch.int8]
+DELTA_DC = {1: 1, 7: 4, 128: 16, 1000: 33, 4096: 256}
+
+
+def _bank_pay(r, shape, dtype, dev):
+    if dtype in (torch.int32, torch.int8):
+        return _t(r.integers(-99, 99, shape), dtype, dev)
+    return _t(r.normal(size=shape), dtype, dev)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("keys", ["random", "ties", "int32_min"])
+@pytest.mark.parametrize("dtype", BANK_DTYPES)
+@pytest.mark.parametrize("k,d", BANK_SHAPES)
+def test_lww_merge_kernel_matches_plain(card, k, d, dtype, keys):
+    """Bitwise, keys and payload bytes, on equal keys (a wins) and
+    INT32_MIN keys too."""
+    r = np.random.default_rng(k + d)
+    ka = r.integers(0, 10_000, k).astype(np.int32)
+    kb = r.integers(0, 10_000, k).astype(np.int32)
+    if keys == "ties":
+        kb[::2] = ka[::2]
+    elif keys == "int32_min":
+        ka[::3] = np.iinfo(np.int32).min
+        kb[::2] = np.iinfo(np.int32).min
+    ka, kb = _t(ka, torch.int32, card), _t(kb, torch.int32, card)
+    pa, pb = (_bank_pay(r, (k, d), dtype, card) for _ in range(2))
+    before = ops.launch_counts()["lww_merge"]
+    got = ops.lww_merge(ka, pa, kb, pb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lww_merge"] == before + 1
+    want = ref.lww_merge(ka, pa, kb, pb)
+    assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert got[1].dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", BANK_DTYPES)
+@pytest.mark.parametrize("k,d", BANK_SHAPES)
+def test_delta_apply_kernel_matches_plain(card, k, d, dtype):
+    """Unique targets with empty lanes, then duplicate targets with equal
+    maximal keys, keys equal to the bank's, -1, < -1 and >= K lanes:
+    bitwise against the plain version (largest key, then lowest lane)."""
+    dc = min(DELTA_DC[k], k)
+    r = np.random.default_rng(k * 7 + d)
+    key = _t(r.integers(0, 10_000, k), torch.int32, card)
+    pay = _bank_pay(r, (k, d), dtype, card)
+    idx = r.permutation(k)[:dc].astype(np.int32)
+    idx[r.random(dc) < 0.25] = -1
+    dkey = r.integers(0, 20_000, dc)
+    cases = [(idx, dkey, dc)]
+    n = max(dc, 8)
+    dup = r.integers(-3, k + 3, n).astype(np.int64)
+    dup[:4] = k // 2
+    dup[4] = -7
+    dup[5] = 2 ** 31 - 1
+    dkey2 = r.integers(0, 10_000, n)
+    dkey2[:4] = [20_000, 30_000, 30_000, 25_000]
+    dkey2[6] = np.iinfo(np.int32).min
+    cases.append((dup.astype(np.int32), dkey2, n))
+    for idx_, dkey_, n_ in cases:
+        di = _t(idx_, torch.int32, card)
+        dk = _t(dkey_, torch.int32, card)
+        dp = _bank_pay(r, (n_, d), dtype, card)
+        before = ops.launch_counts()["delta_apply"]
+        got = ops.delta_apply(key, pay, di, dk, dp)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["delta_apply"] == before + 1
+        want = ref.delta_apply(key, pay, di, dk, dp)
+        assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+
+
+def test_register_bank_kernel_edges(card):
+    """Dc 0 and 1; K 0 returns without a launch; lanes cast to the bank's
+    dtype; unaligned views take the 4- and 1-byte paths and stay exact."""
+    r = np.random.default_rng(9)
+    key = _t(r.integers(0, 100, 40), torch.int32, card)
+    pay = _bank_pay(r, (40, 6), torch.bfloat16, card)
+    for dc in (0, 1):
+        di = _t(r.integers(0, 40, dc), torch.int32, card)
+        dk = _t(r.integers(50, 200, dc), torch.int32, card)
+        dp = _bank_pay(r, (dc, 6), torch.float32, card)   # cast to bf16
+        got = ops.delta_apply(key, pay, di, dk, dp)
+        want = ref.delta_apply(key, pay, di, dk, dp)
+        assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+    before = ops.launch_counts()
+    empty_k = torch.zeros(0, dtype=torch.int32, device=card)
+    empty_p = torch.zeros(0, 6, device=card)
+    out = ops.lww_merge(empty_k, empty_p, empty_k, empty_p)
+    assert out[0].shape == (0,) and out[1].shape == (0, 6)
+    out = ops.delta_apply(empty_k, empty_p, empty_k[:0], empty_k[:0],
+                          empty_p)
+    assert out[1].shape == (0, 6)
+    assert ops.launch_counts() == before
+    for dtype, d in ((torch.int8, 3), (torch.float32, 3)):    # 3 B, 12 B
+        flat = _bank_pay(r, (1 + 30 * d,), dtype, card)
+        pa = flat[1:].view(30, d)                  # base one element off
+        pb = _bank_pay(r, (30, d), dtype, card)
+        ka = _t(r.integers(0, 9, 30), torch.int32, card)
+        kb = _t(r.integers(0, 9, 30), torch.int32, card)
+        got = ops.lww_merge(ka, pa, kb, pb)
+        want = ref.lww_merge(ka, pa, kb, pb)
+        assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+        di = _t(r.integers(-1, 31, 12), torch.int32, card)
+        dk = _t(r.integers(0, 12, 12), torch.int32, card)
+        dp = _bank_pay(r, (12, d), dtype, card)
+        got = ops.delta_apply(ka, pa, di, dk, dp)
+        want = ref.delta_apply(ka, pa, di, dk, dp)
+        assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+
+
+def test_register_bank_kernels_never_fall_back(card, monkeypatch):
+    """Where a kernel cannot run (here: its library does not load), a CUDA
+    tensor with impl="kernel" raises; the plain result is never returned.
+    impl="ref" still takes the plain version on the card."""
+    from repro_torch.kernels import build
+
+    def no_library(name, argtypes):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    key = torch.arange(8, dtype=torch.int32, device=card)
+    pay = torch.ones(8, 4, device=card)
+    idx = torch.tensor([3], dtype=torch.int32, device=card)
+    dk = torch.tensor([99], dtype=torch.int32, device=card)
+    before = ops.launch_counts()
+    monkeypatch.setattr(build, "load", no_library)
+    for call in (lambda: ops.lww_merge(key, pay, key.flip(0), pay * 2),
+                 lambda: ops.delta_apply(key, pay, idx, dk, pay[:1] * 3)):
+        result = None
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            result = call()
+        assert result is None
+    assert ops.launch_counts() == before
+    got = ops.delta_apply(key, pay, idx, dk, pay[:1] * 3, impl="ref")
+    assert got[0][3] == 99 and bool((got[1][3] == 3).all())
+    assert ops.launch_counts() == before
