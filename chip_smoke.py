@@ -14,14 +14,18 @@
    kernels at DeepSeek-V2-Lite's (16 heads over a 512 + 64 latent row,
    pool rows of 640; bf16, int8 and fp8 pools), ``decode_attention`` also
    at RecurrentGemma-2B's local attention (10 query heads on 1 KV head of
-   256), ``linear_scan`` at its RG-LRU's (batch 8, width 2560: the
-   mixed step's 64 steps with ragged identity-padded rows, prefill's 128)
-   and ``page_transfer`` bitwise on every pool leaf adoption moves (OLMo's
+   256) and whisper-tiny's decoder (6 heads of 64 over 256 keys), each with
+   its split plan and, beside the event times, the profiler's device time
+   of the kernels and of SDPA (a plan of several splits must show its
+   combine kernel in the trace), ``linear_scan`` at its RG-LRU's (batch
+   8, width 2560: the mixed step's 64 steps with ragged identity-padded
+   rows, prefill's 128) and ``page_transfer`` bitwise on every pool leaf adoption moves (OLMo's
    bf16 / int8 / fp8 rows and f32 scales, MLA's latent rows and scales;
    one lane and 64 with -1 lanes, out-of-range and repeated destinations,
    pools of 513 and 400 pages) and ``flash_attention`` at whisper-tiny's
    encoder shape (q/k/v [8, 6, 1500, 64] bf16, bidirectional; timed against
-   SDPA), causal GQA with Tq < Tk, and a float32 sliding window, and the
+   SDPA; the trace must show the tensor-core ``flash_fwd_mma``), causal
+   GQA with Tq < Tk, and a float32 sliding window, and the
    register-bank kernels ``lww_merge`` and ``delta_apply`` bitwise at
    JAX's sweep shapes and ``bench_merge``'s bank (K 4096, D 128, Dc 256;
    int32 / float32 / bf16 payloads; equal and INT32_MIN keys; duplicate
@@ -147,28 +151,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, match: str, iters: int = 20) -> float:
-    """Mean device time in ms of the kernels whose name holds ``match``
-    over ``iters`` calls of ``fn``, read from torch.profiler: for a kernel
-    shorter than its wrapper's host work, events around the calls time the
-    host instead.  A trace that came back with no such kernel is taken
-    again, up to three times: once in a full run the profiler returned an
-    empty trace of a kernel it timed in every other run."""
+def device_kernel_us(fn, iters: int = 20) -> dict[str, float]:
+    """Mean device time in µs a call of ``fn``, by CUDA kernel name (and
+    memory operation), read from one torch.profiler trace of ``iters``
+    calls after one untraced call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def kernel_device_ms(fn, match: str, iters: int = 20) -> float:
+    """Mean device time in ms of the kernels whose name holds ``match``
+    (``""``: every kernel of the call) over ``iters`` calls of ``fn``, read
+    from torch.profiler: for a kernel shorter than its wrapper's host work,
+    events around the calls time the host instead.  A trace that came back
+    with no such kernel is taken again, up to three times: once in a full
+    run the profiler returned an empty trace of a kernel it timed in every
+    other run."""
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and match in e.key)
+        total_us = sum(us for name, us in device_kernel_us(fn, iters).items()
+                       if match in name)
         if total_us > 0:
-            return total_us / iters / 1e3
+            return total_us / 1e3
     fail(f"the profiler saw no kernel named like {match!r} in 3 traces")
+
+
+def device_kernel_names(fn) -> list[str]:
+    """The CUDA kernels one call of ``fn`` ran, by name (a trace that came
+    back empty is taken again, up to three times)."""
+    for _ in range(3):
+        names = sorted(device_kernel_us(fn, iters=1))
+        if names:
+            return names
+    fail("the profiler saw no kernel in 3 traces")
 
 
 def bound(nbytes: float, flops: float,
@@ -439,7 +462,6 @@ def mla_kernel_rows(rng):
 
 
 def kernel_phase():
-    from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_chunk_attention as kchunk
     from repro_torch.kernels import paged_decode_attention as kpdec
@@ -531,39 +553,25 @@ def kernel_phase():
 
     # decode_attention: dense [B, H, 1024, D] cache, ragged kv_len.
     kv_len = np.array([1024, 18, 301, 512, 641, 6, 1000, 129])
-    q = torch.randn((B, H, D), device="cuda").bfloat16()
-    k = torch.randn((B, H, MAX_LEN, D), device="cuda").bfloat16()
-    v = torch.randn((B, H, MAX_LEN, D), device="cuda").bfloat16()
-    kl = torch.as_tensor(kv_len, dtype=torch.int32, device="cuda")
-    o1 = ops.decode_attention(q, k, v, kl, scale=scale)
-    o2 = ref.decode_attention(q, k, v, kl, scale=scale)
-    err, ok = close(o1, o2)
-    if not ok:
-        fail(f"decode_attention disagrees: max_abs_err {err}")
-    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
-            < kl[:, None])[:, None, None, :]
-    lib = torch.nn.functional.scaled_dot_product_attention
-    o3 = lib(q[:, :, None], k, v, attn_mask=mask, scale=scale)[:, :, 0]
-    lib_err, lib_ok = close(o3, o2)
-    if not lib_ok:
-        fail(f"the SDPA yardstick computes another function: {lib_err}")
-    keys = int(kv_len.sum())
-    bms, by = bound(2 * keys * H * D * 2 + 2 * q.numel() * 2 + B * 4,
-                    4 * keys * H * D)
-    rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:95",
-        shapes=f"q[{B},{H},{D}] bf16, k/v[{B},{H},{MAX_LEN},{D}], kv_len "
-               f"{kv_len.tolist()}",
-        max_abs_err=err, pools_bitwise=None,
-        ms=cuda_ms(lambda: kdec.decode_attention(q, k, v, kl, scale=scale)),
-        plain_ms=cuda_ms(lambda: ref.decode_attention(q, k, v, kl,
-                                                      scale=scale)),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: lib(q[:, :, None], k, v, attn_mask=mask,
-                                       scale=scale))))
-    rows[-1].update(decode_attention_d256(rng))
+    row = dict(name="decode_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/decode_attention.cu",
+               replaces="src/repro/kernels/decode_attention.py:95",
+               pools_bitwise=None)
+    row.update(decode_attention_case(
+        "", "OLMo-1B", *_decode_inputs(B, H, H, MAX_LEN, D), kv_len))
+    row.update(decode_attention_case(
+        "d256_", "head_dim 256, MQA", *_decode_inputs(
+            B, RG_HQ, RG_HKV, MAX_LEN, RG_D), kv_len))
+    if row["d256_nsplit"] < 2:
+        fail(f"decode_attention at RecurrentGemma's shape ran one split: "
+             f"{row['d256_device_kernels']}")
+    # whisper-tiny's decoder self-attention (workload.WHISPER): 6 heads of
+    # 64 over its max_len 256 cache, ragged kv_len up to 256.
+    row.update(decode_attention_case(
+        "d64_", "head_dim 64, whisper decoder", *_decode_inputs(
+            B, WH_H, WH_H, WH_MAX_LEN, WH_D),
+        np.array([256, 33, 1, 200, 129, 84, 255, 17])))
+    rows.append(row)
     rows += quant_kernel_rows(rng)
     rows += mla_kernel_rows(rng)
     rows.append(linear_scan_row(rng))
@@ -577,6 +585,7 @@ def kernel_phase():
 # whisper-tiny's encoder attention (workload.WHISPER): 6 heads of 64 over
 # its 1500 frames, batch 8, bidirectional.
 WH_B, WH_H, WH_T, WH_D = 8, 6, 1500, 64
+WH_MAX_LEN = workload.WHISPER["max_len"]     # the decoder's cache
 # Kernel against plain version, float32 outputs: the same math summed in
 # another order.
 KERNEL_TOL_F32 = 1e-5
@@ -584,11 +593,14 @@ KERNEL_TOL_F32 = 1e-5
 
 def flash_attention_row() -> dict:
     """``flash_attention`` at the whisper encoder's shape (held to the
-    plain version under the bf16 rule, timed against it and SDPA), and two
-    more cases held the same way: causal GQA with Tq < Tk (bf16) and a
-    float32 sliding window (1e-5).  The bound: q, k, v read and out written
-    once against 4·B·Hq·Tq·Tk·D FLOPs at the bf16 tensor-core peak; here
-    the operations win."""
+    plain version under the bf16 rule, timed against it and SDPA by events,
+    and by the profiler's device time: ``device_ms`` the kernel's,
+    ``library_device_ms`` every kernel of the SDPA call; the trace must show
+    the tensor-core kernel ``flash_fwd_mma``), and two more cases held the
+    same way: causal GQA with Tq < Tk (bf16) and a float32 sliding window
+    (1e-5).  The bound: q, k, v read and out written once against
+    4·B·Hq·Tq·Tk·D FLOPs at the bf16 tensor-core peak; here the operations
+    win."""
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -633,6 +645,12 @@ def flash_attention_row() -> dict:
         fail(f"the SDPA yardstick computes another function: {lib_err}")
     bms, by = bound(4 * q.numel() * 2,
                     4 * WH_B * WH_H * WH_T * WH_T * WH_D)
+    names = device_kernel_names(lambda: kflash.flash_attention(
+        q, k, v, causal=False, scale=scale, window=None))
+    ran = [n for n in names if "flash_fwd" in n]
+    if not ran or not all("flash_fwd_mma" in n for n in ran):
+        fail(f"flash_attention (bf16) did not run the tensor-core kernel: "
+             f"{names}")
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -643,8 +661,12 @@ def flash_attention_row() -> dict:
             q, k, v, causal=False, scale=scale, window=None)),
         plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=False,
                                                      scale=scale)),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: lib(q, k, v, scale=scale)), **extra)
+        device_ms=kernel_device_ms(lambda: kflash.flash_attention(
+            q, k, v, causal=False, scale=scale, window=None), "flash_fwd"),
+        bound_ms=bms, bound_by=by, device_kernels=ran,
+        library_ms=cuda_ms(lambda: lib(q, k, v, scale=scale)),
+        library_device_ms=kernel_device_ms(lambda: lib(q, k, v, scale=scale),
+                                           ""), **extra)
 
 
 # RecurrentGemma-2B's shapes (workload.RECURRENT_ARCH): local attention of
@@ -653,47 +675,70 @@ def flash_attention_row() -> dict:
 RG_HQ, RG_HKV, RG_D, RG_W = 10, 1, 256, 2560
 
 
-def decode_attention_d256(rng) -> dict:
-    """``decode_attention`` at the recurrent model's local-attention
-    shapes (its head_dim 256 tiles in dynamic shared memory): held to the
-    plain version under the bf16 rule, timed against it and SDPA; the
-    bound counts the valid prefixes' K/V."""
+def _decode_inputs(b, hq, hkv, s, d):
+    """q [b, hq, d] and k, v [b, hkv, s, d], bf16, random."""
+    return (torch.randn((b, hq, d), device="cuda").bfloat16(),
+            torch.randn((b, hkv, s, d), device="cuda").bfloat16(),
+            torch.randn((b, hkv, s, d), device="cuda").bfloat16())
+
+
+def decode_attention_case(tag, label, q, k, v, kv_len) -> dict:
+    """``decode_attention`` at one main path's shape, keys prefixed by
+    ``tag``: held to the plain version under the bf16 rule; timed by
+    events (``ms``, ``plain_ms``, SDPA's ``library_ms``) and by the
+    profiler's device time (``device_ms``: the split walk and the combine,
+    ``dense_attend_*``; ``library_device_ms``: every kernel of the SDPA
+    call); the split plan (``nsplit``, ``split_len``, ``blocks``) beside
+    them.  A plan of more than one split must show its combine kernel in
+    the trace.  The bound counts the valid prefixes' K/V, q and out."""
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ops, ref
-    scale = RG_D ** -0.5
-    kv_len = np.array([1024, 18, 301, 512, 641, 6, 1000, 129])
-    q = torch.randn((B, RG_HQ, RG_D), device="cuda").bfloat16()
-    k = torch.randn((B, RG_HKV, MAX_LEN, RG_D), device="cuda").bfloat16()
-    v = torch.randn((B, RG_HKV, MAX_LEN, RG_D), device="cuda").bfloat16()
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    scale = d ** -0.5
     kl = torch.as_tensor(kv_len, dtype=torch.int32, device="cuda")
     o1 = ops.decode_attention(q, k, v, kl, scale=scale)
     o2 = ref.decode_attention(q, k, v, kl, scale=scale)
     err, ok = close(o1, o2)
     if not ok:
-        fail(f"decode_attention (head_dim 256, MQA) disagrees: max_abs_err "
-             f"{err}")
-    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
+        fail(f"decode_attention ({label}) disagrees: max_abs_err {err}")
+    mask = (torch.arange(s, device="cuda")[None, :]
             < kl[:, None])[:, None, None, :]
     lib = torch.nn.functional.scaled_dot_product_attention
-    kx, vx = (t.expand(-1, RG_HQ, -1, -1) for t in (k, v))
+    kx, vx = (t.expand(-1, hq, -1, -1) if hkv != hq else t for t in (k, v))
     lib_err, lib_ok = close(lib(q[:, :, None], kx, vx, attn_mask=mask,
                                 scale=scale)[:, :, 0], o2)
     if not lib_ok:
         fail(f"the SDPA yardstick computes another function: {lib_err}")
+    plan = kdec.split_plan(b, hq, s, d, kdec.sm_count(0))
+    names = device_kernel_names(
+        lambda: kdec.decode_attention(q, k, v, kl, scale=scale))
+    ran = [n for n in names if "dense_attend" in n]
+    if not any("dense_attend_split" in n for n in ran) or (
+            plan.nsplit > 1) != any("dense_attend_combine" in n for n in ran):
+        fail(f"decode_attention ({label}): plan {plan} ran {names}")
     keys = int(kv_len.sum())
-    bms, by = bound(2 * keys * RG_HKV * RG_D * 2 + 2 * q.numel() * 2 + B * 4,
-                    4 * keys * RG_HQ * RG_D)
-    return dict(
-        d256_shapes=f"q[{B},{RG_HQ},{RG_D}] bf16, k/v[{B},{RG_HKV},"
-                    f"{MAX_LEN},{RG_D}], kv_len {kv_len.tolist()}",
-        d256_max_abs_err=err,
-        d256_ms=cuda_ms(lambda: kdec.decode_attention(q, k, v, kl,
-                                                      scale=scale)),
-        d256_plain_ms=cuda_ms(lambda: ref.decode_attention(q, k, v, kl,
-                                                           scale=scale)),
-        d256_bound_ms=bms, d256_bound_by=by,
-        d256_library_ms=cuda_ms(lambda: lib(q[:, :, None], kx, vx,
-                                            attn_mask=mask, scale=scale)))
+    bms, by = bound(2 * keys * hkv * d * 2 + 2 * q.numel() * 2 + b * 4,
+                    4 * keys * hq * d)
+    return {
+        f"{tag}shapes": f"q[{b},{hq},{d}] bf16, k/v[{b},{hkv},{s},{d}], "
+                        f"kv_len {kv_len.tolist()}",
+        f"{tag}max_abs_err": err,
+        f"{tag}ms": cuda_ms(lambda: kdec.decode_attention(q, k, v, kl,
+                                                          scale=scale)),
+        f"{tag}device_ms": kernel_device_ms(
+            lambda: kdec.decode_attention(q, k, v, kl, scale=scale),
+            "dense_attend"),
+        f"{tag}plain_ms": cuda_ms(lambda: ref.decode_attention(
+            q, k, v, kl, scale=scale)),
+        f"{tag}bound_ms": bms, f"{tag}bound_by": by,
+        f"{tag}library_ms": cuda_ms(lambda: lib(
+            q[:, :, None], kx, vx, attn_mask=mask, scale=scale)),
+        f"{tag}library_device_ms": kernel_device_ms(lambda: lib(
+            q[:, :, None], kx, vx, attn_mask=mask, scale=scale), ""),
+        f"{tag}device_kernels": ran,
+        f"{tag}nsplit": plan.nsplit, f"{tag}split_len": plan.split_len,
+        f"{tag}blocks": plan.blocks}
 
 
 # linear_scan against its plain version: both round each step once (the

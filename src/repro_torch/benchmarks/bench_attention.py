@@ -1,0 +1,148 @@
+"""Times ``flash_attention`` and ``decode_attention`` at the shapes of the
+port's main paths, on one CUDA card, against SDPA.
+
+  python src/repro_torch/benchmarks/bench_attention.py [--src DIR]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed (by
+default the tree this file lives in), so one call can time two trees in
+turns (parent, change, change, parent) on the same card.  Each line of
+output is one JSON object: the kernel, its shape, the tree, the
+kernel's time by CUDA events around the wrapper (``ms``) and by the
+profiler's device time (``device_ms``: the kernels whose name holds
+``flash_fwd`` / ``dense_attend``; ``device_us_by_kernel`` splits it by
+kernel), SDPA's two times (``library_ms``,
+``library_device_ms``: every kernel of the call), and the largest
+difference from the plain version (``max_abs_err``).  The last line names
+the card and its power limit.  Without a card it exits with code 2.
+
+Shapes: whisper-tiny's encoder (q/k/v [8, 6, 1500, 64] bf16,
+bidirectional); ``decode_attention`` at OLMo-1B's dense ``Engine`` (q [8,
+16, 128], k/v [8, 16, 1024, 128]), RecurrentGemma-2B's local attention
+(q [8, 10, 256], k/v [8, 1, 1024, 256]) and whisper-tiny's decoder (q [8,
+6, 64], k/v [8, 6, 256, 64]), bf16, ragged kv_len.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+LENS_1024 = [1024, 18, 301, 512, 641, 6, 1000, 129]
+LENS_256 = [256, 33, 1, 200, 129, 84, 255, 17]
+DECODE = {   # name: (B, Hq, Hkv, S, D, kv_len)
+    "decode_attention_d128": (8, 16, 16, 1024, 128, LENS_1024),
+    "decode_attention_d256": (8, 10, 1, 1024, 256, LENS_1024),
+    "decode_attention_d64": (8, 6, 6, 256, 64, LENS_256),
+}
+
+
+def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_us(fn, iters: int = 20) -> dict[str, float]:
+    """Mean device time in µs a call of ``fn`` by CUDA kernel name, from
+    torch.profiler (a trace that comes back empty is taken again, up to
+    three times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.self_device_time_total / iters
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        if got:
+            return got
+    raise RuntimeError("the profiler saw no kernel in 3 traces")
+
+
+def _short(name: str) -> str:
+    """A kernel's name without ``void``, its namespace and its arguments:
+    ``void (anonymous namespace)::f<int, 64>(int*)`` -> ``f<int, 64>``."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0]
+
+
+def _row(name, shape, tree, fn, plain, lib, match) -> dict:
+    got, want = fn(), plain()
+    live = ~torch.isnan(want.float())
+    err = float((got.float() - want.float())[live].abs().max())
+    kern = {k: us for k, us in device_us(fn).items() if match in k}
+    return dict(kernel=name, shape=shape, tree=tree, max_abs_err=err,
+                ms=events_ms(fn), device_ms=sum(kern.values()) / 1e3,
+                device_us_by_kernel={_short(k): us for k, us in kern.items()},
+                library_ms=events_ms(lib),
+                library_device_ms=sum(device_us(lib).values()) / 1e3)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_attention: no CUDA card is present", file=sys.stderr)
+        return 2
+    sys.path.insert(0, args.src)
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    q, k, v = (rand(8, 6, 1500, 64) for _ in range(3))
+    scale = 64 ** -0.5
+    print(json.dumps(_row(
+        "flash_attention", "q/k/v[8,6,1500,64] bf16, bidirectional",
+        args.src,
+        lambda: kflash.flash_attention(q, k, v, causal=False, scale=scale,
+                                       window=None),
+        lambda: ref.flash_attention(q, k, v, causal=False, scale=scale),
+        lambda: sdpa(q, k, v, scale=scale), "flash_fwd")), flush=True)
+    for name, (b, hq, hkv, s, d, lens) in DECODE.items():
+        q, k, v = rand(b, hq, d), rand(b, hkv, s, d), rand(b, hkv, s, d)
+        kl = torch.as_tensor(np.array(lens), dtype=torch.int32, device=dev)
+        mask = (torch.arange(s, device=dev)[None, :]
+                < kl[:, None])[:, None, None, :]
+        kx, vx = k.expand(-1, hq, -1, -1), v.expand(-1, hq, -1, -1)
+        scale = d ** -0.5
+        print(json.dumps(_row(
+            name, f"q[{b},{hq},{d}] k/v[{b},{hkv},{s},{d}] bf16, kv_len "
+                  f"{lens}", args.src,
+            lambda: kdec.decode_attention(q, k, v, kl, scale=scale),
+            lambda: ref.decode_attention(q, k, v, kl, scale=scale),
+            lambda: sdpa(q[:, :, None], kx, vx, attn_mask=mask,
+                         scale=scale)[:, :, 0], "dense_attend")), flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -141,30 +141,128 @@ def test_paged_decode_kernel_matches_plain(card, case, dtype):
 
 
 DENSE_CASES = [
-    # (B, Hq, Hkv, S, D)
-    (1, 1, 1, 128, 64),
-    (2, 4, 1, 300, 64),
-    (4, 8, 2, 1024, 128),
-    (1, 2, 2, 96, 32),
-    (3, 4, 4, 40, 16),
-    (8, 10, 1, 1024, 256),                  # RecurrentGemma: MQA, group 10
-    (2, 1, 1, 300, 256),                    # head_dim 256, group 1
+    # (B, Hq, Hkv, S, D, kv_len: None draws it from 1..S)
+    (1, 1, 1, 128, 64, None),
+    (2, 4, 1, 300, 64, None),
+    (4, 8, 2, 1024, 128, None),
+    (1, 2, 2, 96, 32, None),
+    (3, 4, 4, 40, 16, None),                # one split: the block writes out
+    (8, 10, 1, 1024, 256, None),            # RecurrentGemma: MQA, group 10
+    (2, 1, 1, 300, 256, None),              # head_dim 256, group 1
+    # whisper's decoder self-attention; kv_len 0, 1 and S, a split boundary
+    (8, 6, 6, 256, 64, [0, 1, 256, 42, 255, 0, 17, 43]),
+    (3, 4, 1, 1000, 128, [1000, 0, 993]),   # S not a multiple of the split
+    (2, 3, 3, 40, 16, [0, 40]),             # one split, kv_len 0
+    (2, 32, 2, 200, 64, [200, 3]),          # group 16
+    (1, 20, 1, 64, 32, [64]),               # group 20
 ]
+
+
+def _dense_inputs(case, dtype, dev, seed=3):
+    b, hq, hkv, s, d, lens = case
+    r = np.random.default_rng(seed)
+    q = _t(r.normal(size=(b, hq, d)), dtype, dev)
+    k = _t(r.normal(size=(b, hkv, s, d)), dtype, dev)
+    v = _t(r.normal(size=(b, hkv, s, d)), dtype, dev)
+    lens = r.integers(1, s + 1, b) if lens is None else np.asarray(lens)
+    return q, k, v, _t(lens, torch.int32, dev)
 
 
 @pytest.mark.parametrize("case", DENSE_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(card, case, dtype):
-    b, hq, hkv, s, d = case
-    r = np.random.default_rng(3)
-    q = _t(r.normal(size=(b, hq, d)), dtype, card)
-    k = _t(r.normal(size=(b, hkv, s, d)), dtype, card)
-    v = _t(r.normal(size=(b, hkv, s, d)), dtype, card)
-    kv_len = _t(r.integers(1, s + 1, b), torch.int32, card)
+    """Rows with kv_len > 0 within the tolerance; rows with kv_len 0 come
+    out exactly 0 from the kernel (the plain version's NaN)."""
+    q, k, v, kv_len = _dense_inputs(case, dtype, card)
+    before = ops.launch_counts()["decode_attention"]
     o1 = ops.decode_attention(q, k, v, kv_len)
+    assert ops.launch_counts()["decode_attention"] == before + 1
     o2 = ref.decode_attention(q, k, v, kv_len)
     torch.cuda.synchronize()
-    torch.testing.assert_close(o1.float(), o2.float(), **_tol(dtype))
+    live = kv_len > 0
+    torch.testing.assert_close(o1[live].float(), o2[live].float(),
+                               **_tol(dtype))
+    assert bool((o1[~live] == 0).all())
+
+
+def test_decode_split_plan_edges(card):
+    """What the plan and the combine must handle: one split (the block
+    writes out), several with S not a multiple of the split length, and
+    kv_len 0, 1, on a split boundary and either side of it, S - 1 and S
+    (empty trailing splits), at whisper's decoder shape."""
+    from repro_torch.kernels import decode_attention as kdec
+    sms = kdec.sm_count(card.index or 0)
+    plans = [kdec.split_plan(c[0], c[1], c[3], c[4], sms)
+             for c in DENSE_CASES]
+    assert plans[4].nsplit == 1 and plans[9].nsplit == 1
+    odd = plans[8]
+    assert odd.nsplit > 1 and 1000 % odd.split_len
+    case = DENSE_CASES[7]
+    n = plans[7].split_len
+    assert plans[7].nsplit > 2
+    for dtype in DTYPES:
+        q, k, v, _ = _dense_inputs(case, dtype, card, seed=7)
+        kv_len = _t([0, 1, n - 1, n, n + 1, 2 * n, 255, 256], torch.int32,
+                    card)
+        o1 = ops.decode_attention(q, k, v, kv_len)
+        o2 = ref.decode_attention(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o1[1:].float(), o2[1:].float(),
+                                   **_tol(dtype))
+        assert bool((o1[0] == 0).all())
+
+
+def _device_kernels(fn) -> set[str]:
+    """Names of the CUDA kernels one call of ``fn`` ran (torch.profiler;
+    a trace that comes back empty, as the profiler's traces now and then
+    do, is taken again, up to three times).  The tests that use it come
+    before ``test_failed_launch_raises_and_returns_nothing`` in this file:
+    after that refused launch every later trace of the process came back
+    empty (seen on the H100, three traces a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    return set()
+
+
+def test_decode_attention_runs_split_kv(card):
+    """RecurrentGemma's shape runs the split walk over several key ranges
+    and the combine; a one-split plan runs the walk alone."""
+    from repro_torch.kernels import decode_attention as kdec
+    q, k, v, kv_len = _dense_inputs(DENSE_CASES[5], torch.bfloat16, card)
+    plan = kdec.split_plan(8, 10, 1024, 256,
+                           kdec.sm_count(card.index or 0))
+    assert plan.nsplit > 1 and plan.blocks >= plan.target
+    names = _device_kernels(lambda: ops.decode_attention(q, k, v, kv_len))
+    assert any("dense_attend_split" in n for n in names), names
+    assert any("dense_attend_combine" in n for n in names), names
+    q, k, v, kv_len = _dense_inputs(DENSE_CASES[4], torch.bfloat16, card)
+    names = _device_kernels(lambda: ops.decode_attention(q, k, v, kv_len))
+    assert any("dense_attend_split" in n for n in names), names
+    assert not any("dense_attend_combine" in n for n in names), names
+
+
+def test_flash_attention_routes_by_dtype(card):
+    """bf16 runs the tensor-core kernel (flash_fwd_mma), float32 the FMA
+    one (flash_fwd): the profiler's kernel names tell them apart."""
+    r = np.random.default_rng(6)
+    for dtype, want, other in ((torch.bfloat16, "flash_fwd_mma", None),
+                               (torch.float32, "flash_fwd", "mma")):
+        q, k, v = (_t(r.normal(size=(2, 4, 100, 64)), dtype, card)
+                   for _ in range(3))
+        seen = _device_kernels(
+            lambda: ops.flash_attention(q, k, v, causal=False))
+        names = [n for n in seen if "flash_fwd" in n]
+        assert names and all(want in n for n in names), seen
+        assert other is None or not any(other in n for n in names), seen
 
 
 MLA_CASES = [
