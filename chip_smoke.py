@@ -30,6 +30,10 @@
    JAX's sweep shapes and ``bench_merge``'s bank (K 4096, D 128, Dc 256;
    int32 / float32 / bf16 payloads; equal and INT32_MIN keys; duplicate
    targets with equal maximal keys, -1, < -1 and >= K lanes, Dc 0 and 1);
+   the two quantized chunk kernels also carry their tensor-core walk's
+   profile: the profiler's device time of the write, walk and combine,
+   the key-split plan (nsplit, split_len, blocks), and a trace that must
+   show ``chunk_mma`` / ``mla_mma::walk`` and none of the old walks;
    then runs the port's ``bench_merge --quick`` (the replica-sync sweep:
    every delta sync exact, delta < pmax < allgather bytes at rate 0.05;
    its kernel rows launch ``delta_apply``);
@@ -256,11 +260,35 @@ def _quant_case(rng, lens, qdtype):
     return [kq, ks, vq, vs], bt, trash
 
 
+def walk_fields(fn, plan, want: str, forbid: tuple, prefix: str = "") -> dict:
+    """A tensor-core walk's profile (the two quantized chunk kernels):
+    ``device_ms`` the profiler's device time of every kernel one call of
+    ``fn`` (the kernel module's wrapper) runs, its write, walk and
+    combine; the key-split plan; the kernel names.  The trace must show a
+    kernel named like ``want``, none like the old walks in ``forbid``, and
+    the combine exactly when the plan splits."""
+    names = device_kernel_names(fn)
+    old = [n for n in names if any(f in n for f in forbid)]
+    combined = any("combine" in n for n in names)
+    if not any(want in n for n in names) or old or (
+            combined != (plan.nsplit > 1)):
+        fail(f"the trace of a {want} call shows {names} (plan {plan})")
+    return {f"{prefix}device_ms": kernel_device_ms(fn, ""),
+            f"{prefix}nsplit": plan.nsplit,
+            f"{prefix}split_len": plan.split_len,
+            f"{prefix}blocks": plan.blocks,
+            f"{prefix}device_kernels": names}
+
+
 def quant_kernel_rows(rng):
     """The two quantized-pool kernels against their plain versions, int8
     and fp8, at the shapes of the float kernels' checks.  The row reports
-    the int8 pools (the trial's); fp8 adds its own error and times."""
+    the int8 pools (the trial's); fp8 adds its own error and times.  The
+    chunk kernel's row adds its walk's profile (``walk_fields``: the
+    tensor-core ``chunk_mma``, never the old ``chunk_attend_quant``)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_chunk_attention_quant as kcq
+    from repro_torch.kernels.decode_attention import sm_count
     scale = D ** -0.5
     rows = []
     start = np.array([0, 100, 300, 447, 700, 900, 959, 64])
@@ -311,6 +339,13 @@ def quant_kernel_rows(rng):
             plain_ms = cuda_ms(lambda: sp["op"](q, *twin, bt, *sp["idx"],
                                                 kn, vn, scale=scale,
                                                 impl="ref"))
+            if name == "paged_chunk_attention_quant":
+                row.update(walk_fields(
+                    lambda: kcq.paged_chunk_attention_quant(
+                        q, *pools, bt, *sp["idx"], kn, vn, scale=scale),
+                    kcq.split_plan(B, H, MAX_LEN, sm_count(0)), "chunk_mma",
+                    ("chunk_attend_quant", "attend_kv"),
+                    "" if qname == "int8" else "fp8_"))
             if qname == "int8":
                 row.update(shapes=f"q{list(sp['qshape'])} bf16, int8 pools "
                                   f"[{trash + 1},{H},{PS},{D}] + f32 scales",
@@ -366,8 +401,12 @@ def mla_kernel_rows(rng):
     extra error and time) for the ``_quant`` pair; ragged rows, -1 and
     trash-page table entries.  Timed through ``ops``, as the model calls
     them (the wrapper's concat of q_abs and q_rope into one float32 q
-    included)."""
+    included).  The chunk_quant row adds its walk's profile
+    (``walk_fields``: the tensor-core ``mla_mma::walk``, never an
+    ``mla::attend`` instantiation)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_mla_chunk_quant as kmq
+    from repro_torch.kernels.decode_attention import sm_count
     scale = (128 + MLA_RD) ** -0.5
     lw = MLA_R + MLA_RD
     start = np.array([0, 100, 300, 447, 700, 900, 959, 64])
@@ -424,6 +463,14 @@ def mla_kernel_rows(rng):
                                     scale=scale))
             plain_ms = cuda_ms(lambda: op(q_abs, q_rope, *twin, bt, *idx,
                                           new, scale=scale, impl="ref"))
+            if name == "paged_mla_chunk_quant":
+                q_cat = torch.cat([q_abs, q_rope], -1).contiguous()
+                row.update(walk_fields(
+                    lambda: kmq.paged_mla_chunk_quant(
+                        q_cat, *pools, bt, *idx, new, r=MLA_R, scale=scale),
+                    kmq.split_plan(B, CHUNK, H, MAX_LEN, sm_count(0)),
+                    "mla_mma::walk", ("mla::attend",),
+                    "fp8_" if qname == "fp8" else ""))
             if qname == "fp8":
                 row.update(fp8_max_abs_err=err, fp8_pools_bitwise=bitwise,
                            fp8_ms=ms, fp8_plain_ms=plain_ms)

@@ -1,5 +1,7 @@
 """Times ``flash_attention`` and ``decode_attention`` at the shapes of the
-port's main paths, on one CUDA card, against SDPA.
+port's main paths, on one CUDA card, against SDPA, and the two quantized
+chunk walks (``paged_chunk_attention_quant``, ``paged_mla_chunk_quant``)
+through ``ops``, as the models call them.
 
   python src/repro_torch/benchmarks/bench_attention.py [--src DIR]
 
@@ -19,7 +21,15 @@ Shapes: whisper-tiny's encoder (q/k/v [8, 6, 1500, 64] bf16,
 bidirectional); ``decode_attention`` at OLMo-1B's dense ``Engine`` (q [8,
 16, 128], k/v [8, 16, 1024, 128]), RecurrentGemma-2B's local attention
 (q [8, 10, 256], k/v [8, 1, 1024, 256]) and whisper-tiny's decoder (q [8,
-6, 64], k/v [8, 6, 256, 64]), bf16, ragged kv_len.
+6, 64], k/v [8, 6, 256, 64]), bf16, ragged kv_len.  The quantized chunk
+walks (int8 and fp8 pools with f32 row scales, page 16, max_len 1024): at
+``chip_smoke.py``'s kernel phase (8 rows, chunk 64, start / span as there;
+OLMo-1B's q [8, 16, 64, 128] bf16, DeepSeek-V2-Lite's 16 heads over a
+512 + 64 latent row in pool rows of 640) and at the agent trials' (4 rows,
+chunk 32: ``decode`` all span 1, ``mixed`` three span-1 rows and a 32-token
+prompt chunk).  Their ``device_ms`` sums every kernel of the call (the
+quantizing write, the walk, a combine), there is no library call, and
+``max_abs_err`` is against the plain version at the defined positions.
 """
 from __future__ import annotations
 
@@ -95,6 +105,89 @@ def _row(name, shape, tree, fn, plain, lib, match) -> dict:
                 library_device_ms=sum(device_us(lib).values()) / 1e3)
 
 
+# The quantized chunk walks: (rows, chunk, start, span) of each shape.
+PS, MAX_LEN = 16, 1024
+QUANT_SHAPES = {
+    "kernel_phase": (8, 64, [0, 100, 300, 447, 700, 900, 959, 64],
+                     [64, 64, 1, 1, 0, 30, 64, 17]),
+    "trial_decode": (4, 32, [412, 590, 733, 96], [1, 1, 1, 1]),
+    "trial_mixed": (4, 32, [412, 590, 733, 96], [1, 1, 1, 32]),
+}
+MLA_R, MLA_RD, MLA_DP = 512, 64, 640
+
+
+def _table(b, start, span, dev):
+    """[b, MAX_LEN / PS] pages drawn from a seeded permutation, the
+    unallocated slots on the trash page (the last), row 1's tail at -1."""
+    maxp = MAX_LEN // PS
+    perm = np.random.default_rng(3).permutation(b * maxp)
+    bt = np.full((b, maxp), b * maxp, np.int32)
+    used = 0
+    for i, n in enumerate(np.add(start, span)):
+        k = -(-int(n) // PS)
+        bt[i, :k] = perm[used:used + k]
+        used += k
+    bt[1, -(-int(start[1] + span[1]) // PS):] = -1
+    return torch.as_tensor(bt, device=dev)
+
+
+def _quant_rows(tree, gen, dev):
+    """JSON rows of the two quantized chunk walks at QUANT_SHAPES."""
+    from repro_torch.kernels import ops, ref
+    for shape, (b, c, start, span) in QUANT_SHAPES.items():
+        st = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        sp = torch.as_tensor(span, dtype=torch.int32, device=dev)
+        bt = _table(b, start, span, dev)
+        pages = b * (MAX_LEN // PS) + 1
+        live = (torch.arange(c, device=dev)[None, :]
+                < sp[:, None])[:, None, :, None]
+        for qname, qdtype in (("int8", torch.int8),
+                              ("fp8", torch.float8_e4m3fn)):
+            def rand(*shape):
+                return torch.randn(shape, generator=gen, device=dev)
+            # OLMo-1B's MHA walk, bf16 q and new rows.
+            q = rand(b, 16, c, 128).bfloat16()
+            kn, vn = (rand(b, 16, c, 128).bfloat16() for _ in range(2))
+            pools = [*ref.quantize_rows(rand(pages, 16, PS, 128), qdtype),
+                     *ref.quantize_rows(rand(pages, 16, PS, 128), qdtype)]
+            twin = [t.clone() for t in pools]
+            def mha(impl="kernel", pools=pools):
+                return ops.paged_chunk_attention_quant(
+                    q, *pools, bt, st, sp, kn, vn, scale=128 ** -0.5,
+                    impl=impl)[0]
+            yield _walk_row("paged_chunk_attention_quant", shape, qname,
+                            f"q[{b},16,{c},128] bf16, pools[{pages},16,"
+                            f"{PS},128]", tree, mha,
+                            lambda: mha("ref", twin), live)
+            # DeepSeek-V2-Lite's MLA walk, float32 q, bf16 new rows.
+            q_abs, q_rope = rand(b, 16, c, MLA_R), rand(b, 16, c, MLA_RD)
+            new = rand(b, c, MLA_DP).bfloat16()
+            new[..., MLA_R + MLA_RD:] = 0
+            lat = list(ref.quantize_rows(rand(pages, PS, MLA_DP), qdtype))
+            ltwin = [t.clone() for t in lat]
+            def mla(impl="kernel", lat=lat):
+                return ops.paged_mla_chunk_quant(
+                    q_abs, q_rope, *lat, bt, st, sp, new,
+                    scale=(128 + MLA_RD) ** -0.5, impl=impl)[0]
+            yield _walk_row("paged_mla_chunk_quant", shape, qname,
+                            f"q_abs[{b},16,{c},{MLA_R}] + q_rope f32, pool"
+                            f"[{pages},{PS},{MLA_DP}]", tree, mla,
+                            lambda: mla("ref", ltwin), live)
+
+
+def _walk_row(name, shape, qname, shapes, tree, fn, plain, live) -> dict:
+    got, want = fn(), plain()
+    err = float(torch.where(live, got.float() - want.float(), 0)
+                .abs().max())
+    kern = device_us(fn)
+    return dict(kernel=name, shape=shape, pool=qname,
+                shapes=f"{shapes}, start/span {QUANT_SHAPES[shape][2:]}",
+                tree=tree, max_abs_err=err, ms=events_ms(fn),
+                device_ms=sum(kern.values()) / 1e3,
+                device_us_by_kernel={_short(k): us for k, us in kern.items()},
+                library_ms=None, library_device_ms=None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
@@ -136,6 +229,8 @@ def main(argv=None) -> int:
             lambda: ref.decode_attention(q, k, v, kl, scale=scale),
             lambda: sdpa(q[:, :, None], kx, vx, attn_mask=mask,
                          scale=scale)[:, :, 0], "dense_attend")), flush=True)
+    for row in _quant_rows(args.src, gen, dev):
+        print(json.dumps(row), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

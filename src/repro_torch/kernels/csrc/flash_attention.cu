@@ -57,6 +57,7 @@
 // with shuffles.  The tiles take 49 KB at D 64 and 89 KB at D 128;
 // ptxas: 63-80 registers, no spill.
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -295,73 +296,7 @@ struct MmaTiles {
   bf16 v[2][MK][D + PAD];
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; !in fills the 16 bytes with
-// zeros and reads nothing (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 × 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, and r[i] is its fragment (lane l: row l/4, columns 2(l%4),
-// 2(l%4)+1; with .trans the transposed matrix's).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a · b for a 16 × 16 bf16 A (row major), a 16 × 8 bf16 B (column
-// major) and a 16 × 8 float32 C.  With g = lane/4, j = lane%4: a[0..3]
-// hold A[g][2j..], A[g+8][2j..], A[g][2j+8..], A[g+8][2j+8..]; b0, b1
-// hold B[2j..][g], B[2j+8..][g]; c holds C[g][2j], C[g][2j+1],
-// C[g+8][2j], C[g+8][2j+1].
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair, round to nearest even; lo in the low half
-// (the lower column of an mma fragment).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+using namespace tc;       // cp.async, ldmatrix, mma_bf16 (mma_common.cuh)
 
 template <int D>
 __global__ void __launch_bounds__(MT)

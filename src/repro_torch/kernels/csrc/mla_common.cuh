@@ -303,8 +303,9 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// The quantizing write of the _quant kernels, as its own launch: grid (B),
-// one warp per Dp-wide row (rt::quantize_row: abs-max over the whole row,
+// The quantizing write of the _quant kernels, as its own launch: grid (B,
+// Z), the span's rows spread over the Z blocks of a batch row (the decode
+// kernel launches Z = 1), one warp per Dp-wide row (rt::quantize_row: abs-max over the whole row,
 // pad columns included, as the plain version's quantize_rows), one f32
 // scale per row into scales [P, ps].  latent_new is IT (float32 or bf16)
 // [B, c, Dp].
@@ -321,7 +322,7 @@ __global__ void __launch_bounds__(NT)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int st = start[b];
   const int sp = span == nullptr ? 1 : span[b];
-  for (int j = warp; j < sp; j += WARPS) {
+  for (int j = blockIdx.y * WARPS + warp; j < sp; j += gridDim.y * WARPS) {
     const int t = st + j;
     if (t >= maxp * ps) continue;           // warp-uniform
     const int page = bt[b * maxp + t / ps];

@@ -1,0 +1,560 @@
+// The tensor-core walk of chunked mixed-step MLA over a quantized latent
+// page pool (sm_90a): paged_mla_chunk_quant's attend.  mla::attend
+// (mla_common.cuh) stays the walk of the float-pool and decode kernels.
+//
+// MLA is multi-query attention: every head of every span position scores
+// the same latent rows concat([ckv; krope]) (L = r + rd live features),
+// and the value is the row's first r.  So the MMA rows are (position,
+// head) pairs with the heads inner, m = j·H + h, and one block owns one
+// m16 tile of them: at H 16 a span-1 decode row is one full tile, and
+// every latent row a block gathers serves all of its 16 rows.
+//
+// walk, grid (B, ymax = max(2·tiles, nsplit)), 4 warps, 2 blocks an SM:
+//   - Rows m < span·H are live; tiles past them are zeroed by the block
+//     of their index.  A row of T live tiles and keys [0, hi) gives each
+//     tile ns = min(ymax / T, nsplit, ceil(hi / min_len)) blocks (at least
+//     1), read from start and span on the card: decode rows spread over up
+//     to nsplit blocks, prompt chunks over their tiles and the grid's
+//     spare blocks; block i walks tile i / ns over the (i % ns)-th run of
+//     ceil(hi / ns) keys (whole key tiles).  nsplit and min_len come from
+//     shapes alone (paged_mla_chunk_quant.py · split_plan).
+//   - q (float32) enters as three bf16 terms hi + mid + lo (each remainder
+//     exact in float32, the sum within 2^-24 of q), built once a block into
+//     shared memory ([3][16][L16 + 8] bf16, 56 KB at L 576; ldmatrix reads
+//     the A fragments) from 16-byte loads, six in flight a thread.  That
+//     keeps the scores float32 in effect.
+//   - Latent rows are gathered through the block table by cp.async as raw
+//     bytes (L rounded up to 16 bytes a row, 576 at DeepSeek-V2-Lite, not
+//     2,304 as float) with their f32 scales, in a two-stage ring of 32
+//     keys: the next tile's gather overlaps this tile's MMAs.  int8 and
+//     e4m3 codes are exact in bf16: B fragments are built from the bytes
+//     (Codec::quad_bf16) as the MMAs need them, no converted tile: each
+//     byte is read by one warp (S splits L, P·V splits the columns).  An S
+//     step permutes its k order so a fragment is one 4-byte load.
+//     Columns at or past L (the pool's pad) are zeroed in the fragment:
+//     never scored.
+//   - S = Q·K^T on mma.sync.m16n8k16 (bf16 in, float32 accumulators): the
+//     warps split the k16 steps over L (warp w takes w, w+4, ...), three
+//     MMAs (one a q term) a fragment into three accumulators; the partial
+//     scores meet in shared memory and every warp sums the four in the
+//     same order, so all hold the same S and the same softmax state.  (8
+//     warps, splitting the keys too, measured slower: PERF.md.)
+//   - The row's scale and the softmax scale multiply the score column
+//     after the MMA (s · s_t · scale · log2 e); online softmax with exp2f
+//     in float32, guarded as flash_fwd_mma's.  l sums the float32 p.
+//   - O += (p · s_t) · V: the V scale folds into P (V is the row's first r
+//     columns, so s_t is the same scale), which enters as three bf16 terms
+//     by truncation (tc::split_trunc: logic ops, no conversion
+//     instructions; two terms left the float32 rule under a 2x margin in
+//     the CPU emulation of tests/test_torch_quant_mma.py, three keep it at
+//     about 0.2 of it);
+//     V fragments come from the same raw tile (4 bytes a fragment from 4
+//     rows by one ldmatrix.trans and byte permutes).  Warp w owns value
+//     columns 32·(w + 4k): 64 accumulators a thread at r = 512.
+//   - One split: the block writes ctx = O / l (0 where l = 0 or the row is
+//     past the span).  Several: it writes the float32 partial (O, m, l) of
+//     each row into scratch, and combine (a second launch, grid (B,
+//     ymax / 2, 16)) forms ctx = sum 2^(m_i - M)·O_i / sum 2^(m_i -
+//     M)·l_i over the splits with a live key, M = max m_i.
+// Shared memory at L 576: q terms 56,064 B + raw ring 37,888 + scales 256
+// + score exchange 10,240 = 104,448 B (dynamic); ptxas -v (sm_90a): 220
+// (int8) / 231 (fp8) registers, no spill: two blocks an SM (PERF.md,
+// kernel table row 7).
+#pragma once
+
+#include "mma_common.cuh"
+#include "quant_common.cuh"
+
+namespace mla_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 128;            // threads a block
+constexpr int NW = NT / 32;        // warps
+constexpr int ROWS = 16;           // (position, head) rows a block
+constexpr int KT = 32;             // keys a tile
+constexpr int NK = KT / 8;         // n8 key tiles a tile (S)
+constexpr int NQ = 3;              // bf16 terms of q
+constexpr int NP = 3;              // bf16 terms of p · s_t
+constexpr int MAX_R = 512;         // value columns
+constexpr int NV4 = MAX_R / 32 / NW;   // 32-column value groups a warp
+constexpr int XS = KT + 8;         // row stride of the score exchange
+constexpr int MAX_SPLITS = 32;     // the combine's weights: one a lane
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Byte offsets of the dynamic shared memory of a walk over L features.
+struct Layout {
+  int lq;        // L rounded up to 16
+  int qs;        // row stride of a q term (bf16 elements): lq + 8
+  int rs;        // row stride of a raw latent row (bytes): an odd count of
+                 // 16 B, so the 8 rows of a fragment fall in 8 banks
+  int raw_off, sc_off, xs_off, bytes;
+};
+
+__host__ __device__ inline Layout layout(int L) {
+  Layout y;
+  y.lq = (L + 15) / 16 * 16;
+  y.qs = y.lq + 8;
+  y.rs = 16 * ((y.lq / 16) | 1);
+  y.raw_off = NQ * ROWS * y.qs * 2;
+  y.sc_off = y.raw_off + 2 * KT * y.rs;
+  y.xs_off = y.sc_off + 2 * KT * 4;
+  y.bytes = y.xs_off + NW * ROWS * XS * 4;
+  return y;
+}
+
+constexpr int ROW_BLOCKS = 2;      // grid rows a batch row: 2 a tile
+
+// Blocks (splits) of each live tile of a row with ``tlive`` live tiles and
+// keys [0, hi): as many as the row's ``ymax`` grid blocks hold, at most
+// ``nsplit``, each split at least ``min_len`` keys.
+__host__ __device__ __forceinline__ int row_splits(int tlive, int hi,
+                                                   int nsplit, int ymax,
+                                                   int min_len) {
+  if (tlive <= 0) return 1;
+  int ns = ymax / tlive;
+  if (ns > nsplit) ns = nsplit;
+  const int by_keys = (hi + min_len - 1) / min_len;
+  if (ns > by_keys) ns = by_keys;
+  return ns > 1 ? ns : 1;
+}
+
+// Keys a split of a row's [0, hi) takes: a whole number of key tiles.
+__host__ __device__ __forceinline__ int split_keys(int hi, int ns) {
+  return ((hi + ns - 1) / ns + KT - 1) / KT * KT;
+}
+
+// The k order of an S step: the MMA's k slots 2j, 2j+1, 2j+8, 2j+9 (a
+// thread's B elements) take latent columns 4j..4j+3 of the 16, so a B
+// fragment is one 4-byte load of the raw row; q's terms are stored in the
+// same order (column 4j + e of a 16 in slot 2j + (e & 1) + 8·(e >> 1)).
+
+template <class Codec>
+__global__ void __launch_bounds__(NT, 2)
+    walk(const float* __restrict__ q, float* __restrict__ ctx,
+         const uint8_t* __restrict__ pool, const float* __restrict__ scales,
+         const int* __restrict__ bt, const int* __restrict__ start,
+         const int* __restrict__ span, float* __restrict__ part_o,
+         float* __restrict__ part_ml, int h, int c, int r, int L, int dp,
+         int ps, int maxp, int nsplit, int min_len, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout y = layout(L);
+  bf16* qs = reinterpret_cast<bf16*>(smem);             // [NQ][ROWS][qs]
+  uint8_t* raw = smem + y.raw_off;                      // [2][KT][rs]
+  float* sc = reinterpret_cast<float*>(smem + y.sc_off);   // [2][KT]
+  float* xs = reinterpret_cast<float*>(smem + y.xs_off);   // [NW][ROWS][XS]
+
+  const int b = blockIdx.x, blk = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, j4 = lane & 3;
+  const int nrows = c * h;
+  const int tiles = (nrows + ROWS - 1) / ROWS;
+  const int live = span[b] * h;            // rows m < live are defined
+  const int tlive = (live + ROWS - 1) / ROWS;
+  const int cap = maxp * ps;
+  const int row_hi = min(start[b] + span[b], cap);   // the row's keys
+  const int ymax = gridDim.y;
+  const int ns = row_splits(tlive, row_hi, nsplit, ymax, min_len);
+  // ctx element offset of row m ([B, H, C, r]; q the same with L).
+  auto row_off = [&](int m, int width) {
+    return ((static_cast<size_t>(b) * h + m % h) * c + m / h) *
+           static_cast<size_t>(width);
+  };
+
+  if (blk < tiles && blk >= tlive) {       // a tile past the span: zeros
+    const int m0 = blk * ROWS, nr = min(ROWS, nrows - m0);
+    for (int rr = 0; rr < nr; ++rr) {
+      float* dst = ctx + row_off(m0 + rr, r);
+      for (int col = tid; col < r; col += NT) dst[col] = 0.f;
+    }
+  }
+  if (blk >= tlive * ns) return;
+  const int tile = blk / ns, split = blk % ns;
+  const int m0 = tile * ROWS;
+  const int st = start[b];
+  // Keys of this block: [k_lo, k_hi), the split's share of the tile's
+  // [0, hi) (splits cut the row's [0, row_hi) into equal runs of tiles).
+  const int hi = min(st + (min(m0 + ROWS, live) - 1) / h + 1, cap);
+  const int per = split_keys(row_hi, ns);
+  const int k_lo = split * per;
+  const int k_hi = min(hi, k_lo + per);
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + KT - 1) / KT : 0;
+  const int chunks = y.lq / 16;            // 16-byte copies a latent row
+  const int* bt_row = bt + static_cast<size_t>(b) * maxp;
+
+  // Four threads a key: one table lookup a tile, then every fourth
+  // 16-byte chunk of the row (a warp's copies cover 8 rows' 64 B runs).
+  constexpr int TPK = NT / KT;
+  const int lkey = tid / TPK, lpart = tid % TPK;
+  auto load = [&](int stage, int t0) {
+    const int t = t0 + lkey;
+    const bool in = t < k_hi;
+    int page = in ? bt_row[t / ps] : 0;
+    if (page < 0) page = 0;                // -1 entries read page 0
+    const size_t row = static_cast<size_t>(page) * ps + (in ? t % ps : 0);
+    uint8_t* dst = raw + (stage * KT + lkey) * y.rs;
+    const uint8_t* src = pool + row * dp;
+    for (int ch = lpart; ch < chunks; ch += TPK)
+      tc::cp_async16(dst + ch * 16, src + ch * 16, in);
+    if (lpart == 0) tc::cp_async4(sc + stage * KT + lkey, scales + row, in);
+  };
+
+  if (ntiles > 0) {
+    // q rows from global memory four floats a load (16 bytes where L is a
+    // multiple of 4), QB loads in flight a thread, split into the bf16
+    // terms in registers: columns 4j..4j+3 of a 16 land in k slots 2j,
+    // 2j+1 and 2j+8, 2j+9, two 4-byte stores a term.
+    constexpr int QB = 6;
+    const int q4 = y.lq / 4;
+    const bool vec = (L & 3) == 0;
+    for (int x0 = tid; x0 < ROWS * q4; x0 += QB * NT) {
+      float v[QB][4];
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int x = x0 + u * NT, rr = x / q4, col = 4 * (x % q4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[u][e] = 0.f;
+        if (x < ROWS * q4 && m0 + rr < live) {
+          const float* src = q + row_off(m0 + rr, L) + col;
+          if (vec && col + 4 <= L) {
+            const float4 f = *reinterpret_cast<const float4*>(src);
+            v[u][0] = f.x;
+            v[u][1] = f.y;
+            v[u][2] = f.z;
+            v[u][3] = f.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col + e < L) v[u][e] = src[e];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int x = x0 + u * NT, rr = x / q4, col = 4 * (x % q4);
+        if (x >= ROWS * q4) continue;
+        bf16 t[4][NQ];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tc::split_bf16<NQ>(v[u][e], t[e]);
+        const int at = rr * y.qs + (col & ~15) + 2 * ((col >> 2) & 3);
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          bf16* dst = qs + i * ROWS * y.qs + at;
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __halves2bfloat162(t[0][i], t[1][i]);
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8) =
+              __halves2bfloat162(t[2][i], t[3][i]);
+        }
+      }
+    }
+    __syncthreads();
+    load(0, k_lo);
+  }
+  tc::cp_async_commit();
+
+  bool on[2];
+  int pos[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int m = m0 + g + 8 * e;
+    on[e] = m < live;
+    pos[e] = st + m / h;
+  }
+  float o[4 * NV4][4];
+#pragma unroll
+  for (int n = 0; n < 4 * NV4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+  const int nks = y.lq / 16;               // k16 steps over L
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = k_lo + it * KT, stg = it & 1;
+    if (it + 1 < ntiles) {
+      load(stg ^ 1, t0 + KT);              // the slot tile it-1 freed
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint8_t* kt = raw + stg * KT * y.rs;
+    const float* sct = sc + stg * KT;
+
+    // This warp's share of S = Q K^T: k16 steps warp, warp + 4, ...
+    float sa[NQ][NK][4];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[i][n][e] = 0.f;
+#pragma unroll 3
+    for (int ks = warp; ks < nks; ks += NW) {
+      uint32_t af[NQ][4];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        tc::ldmatrix_x4(af[i], qs + (i * ROWS + (lane & 15)) * y.qs +
+                                   ks * 16 + (lane >> 4) * 8);
+      // Columns 4j..4j+3 of this step; those at or past L (the pool's
+      // pad, only in the last step) are zeroed: never scored.
+      const int col = ks * 16 + 4 * j4;
+      const int keep = L - col;
+      const uint32_t mask = keep >= 4   ? 0xffffffffu
+                            : keep <= 0 ? 0u
+                                        : (1u << (8 * keep)) - 1u;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const uint32_t w = mask & *reinterpret_cast<const uint32_t*>(
+                                      kt + (n * 8 + g) * y.rs + col);
+        uint32_t b0, b1;
+        Codec::quad_bf16(w, b0, b1);
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) tc::mma_bf16(sa[i][n], af[i], b0, b1);
+      }
+    }
+    float* xw = xs + warp * ROWS * XS;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(xw + (g + 8 * hf) * XS + n * 8 + 2 * j4) =
+            make_float2((sa[0][n][2 * hf] + sa[1][n][2 * hf]) +
+                            sa[2][n][2 * hf],
+                        (sa[0][n][2 * hf + 1] + sa[1][n][2 * hf + 1]) +
+                            sa[2][n][2 * hf + 1]);
+    __syncthreads();
+
+    // S (every warp sums the four shares in the same order), scaled by
+    // each key's scale, masked, then the online softmax of rows g, g + 8.
+    float s[NK][4];
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = n * 8 + 2 * j4 + (e & 1), t = t0 + kk, rr = e >> 1;
+        const int at = (g + 8 * rr) * XS + kk;
+        float x = ((xs[at] + xs[ROWS * XS + at]) + xs[2 * ROWS * XS + at]) +
+                  xs[3 * ROWS * XS + at];
+        x *= sct[kk] * scale_log2;
+        if (!on[rr] || t >= k_hi || t > pos[rr]) x = -INFINITY;
+        s[n][e] = x;
+        mx[rr] = fmaxf(mx[rr], x);
+      }
+    }
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float mn = tc::quad_max(mx[rr]);
+      mu[rr] = mn == -INFINITY ? 0.f : mn;    // no live key yet: p = 0
+      alpha[rr] = exp2f(mrow[rr] - mu[rr]);
+      mrow[rr] = mn;
+      lrow[rr] *= alpha[rr];
+    }
+#pragma unroll
+    for (int n = 0; n < 4 * NV4; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - mu[e >> 1]);
+        lrow[e >> 1] += p;
+        s[n][e] = p * sct[n * 8 + 2 * j4 + (e & 1)];   // p · s_t
+      }
+    }
+
+    // O += (P · s_t) V over this warp's 32-column groups, P in three bf16
+    // terms.  One ldmatrix.trans of the raw bytes (a b16 unit = two
+    // columns) gives a thread keys 2j, 2j+1 (and 2j+8, 2j+9) at columns
+    // 2g, 2g+1 of 16; byte permutes part them into the even-column and the
+    // odd-column n8 tiles.  A group past r reads clamped columns and is
+    // never stored: no branch in the loop.
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t p0[NP], p1[NP], p2[NP], p3[NP];
+      tc::split_trunc<NP>(s[2 * kk][0], s[2 * kk][1], p0);
+      tc::split_trunc<NP>(s[2 * kk][2], s[2 * kk][3], p1);
+      tc::split_trunc<NP>(s[2 * kk + 1][0], s[2 * kk + 1][1], p2);
+      tc::split_trunc<NP>(s[2 * kk + 1][2], s[2 * kk + 1][3], p3);
+      const uint8_t* v0 =
+          kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * y.rs;
+#pragma unroll
+      for (int k4 = 0; k4 < NV4; ++k4) {
+        const int grp = warp + NW * k4;
+        uint32_t r4[4];
+        tc::ldmatrix_x4_trans(
+            r4, v0 + min(grp * 32 + (lane >> 4) * 16, y.lq - 16));
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+          for (int odd = 0; odd < 2; ++odd) {
+            uint32_t b0, b1;
+            Codec::quad_bf16(__byte_perm(r4[2 * hf], r4[2 * hf + 1],
+                                         odd ? 0x7531 : 0x6420),
+                             b0, b1);
+#pragma unroll
+            for (int i = 0; i < NP; ++i) {
+              const uint32_t pa[4] = {p0[i], p1[i], p2[i], p3[i]};
+              tc::mma_bf16(o[4 * k4 + 2 * hf + odd], pa, b0, b1);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                       // the ring slot is free again
+  }
+
+  const float lsum[2] = {tc::quad_sum(lrow[0]), tc::quad_sum(lrow[1])};
+  const int slot = tile * ns + split;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int m = m0 + g + 8 * e;
+    if (m >= nrows) continue;
+    float* dst;
+    float mul;
+    if (ns == 1) {
+      dst = ctx + row_off(m, r);
+      mul = on[e] && lsum[e] > 0.f ? 1.f / lsum[e] : 0.f;
+    } else {
+      const size_t prow =
+          (static_cast<size_t>(b) * ymax + slot) * ROWS + g + 8 * e;
+      dst = part_o + prow * r;
+      mul = 1.f;
+      if (warp == 0 && j4 == 0) {
+        part_ml[2 * prow] = mrow[e];
+        part_ml[2 * prow + 1] = lsum[e];
+      }
+    }
+    // Group grp's half hf: this thread's columns base .. base + 3 are the
+    // even tile's 2j, the odd tile's 2j, the even's 2j+1, the odd's 2j+1.
+#pragma unroll
+    for (int k4 = 0; k4 < NV4; ++k4) {
+      const int grp = warp + NW * k4;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int base = grp * 32 + hf * 16 + 4 * j4;
+        const float* ev = o[4 * k4 + 2 * hf];
+        const float* od = o[4 * k4 + 2 * hf + 1];
+        const float v4[4] = {ev[2 * e] * mul, od[2 * e] * mul,
+                             ev[2 * e + 1] * mul, od[2 * e + 1] * mul};
+        if (base + 4 <= r && (r & 3) == 0) {
+          *reinterpret_cast<float4*>(dst + base) =
+              make_float4(v4[0], v4[1], v4[2], v4[3]);
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (base + x < r) dst[base + x] = v4[x];
+        }
+      }
+    }
+  }
+}
+
+// ctx of the rows whose keys were split: grid (B, ymax / 2, ROWS), one
+// block a row of a live tile (a split row has at most ymax / 2 tiles).
+// The split weights 2^(m_i - M) go to shared memory first; each thread
+// then sums its columns over the splits with the loads of eight splits in
+// flight at a time.
+__global__ void __launch_bounds__(NT)
+    combine(float* __restrict__ ctx, const float* __restrict__ part_o,
+            const float* __restrict__ part_ml, const int* __restrict__ span,
+            const int* __restrict__ start, int h, int c, int r, int cap,
+            int nsplit, int ymax, int min_len) {
+  __shared__ float w_s[MAX_SPLITS];
+  __shared__ float inv_s;
+  const int b = blockIdx.x, tile = blockIdx.y, rr = blockIdx.z;
+  const int live = span[b] * h;
+  const int tlive = (live + ROWS - 1) / ROWS;
+  const int ns = row_splits(tlive, min(start[b] + span[b], cap), nsplit,
+                            ymax, min_len);
+  const int m = tile * ROWS + rr;
+  if (ns == 1 || tile >= tlive || m >= c * h) return;
+  float* dst = ctx + ((static_cast<size_t>(b) * h + m % h) * c + m / h) * r;
+  if (m >= live) {
+    for (int col = threadIdx.x; col < r; col += NT) dst[col] = 0.f;
+    return;
+  }
+  const size_t p0 = (static_cast<size_t>(b) * ymax + tile * ns) * ROWS + rr;
+  if (threadIdx.x < 32) {
+    const int s = threadIdx.x;
+    float mi = -INFINITY, li = 0.f;
+    for (int i = s; i < ns; i += 32) {     // ns <= MAX_SPLITS <= 32
+      mi = part_ml[2 * (p0 + i * ROWS)];
+      li = part_ml[2 * (p0 + i * ROWS) + 1];
+    }
+    const float mmax = rt::warp_max(mi);
+    const float w = mi == -INFINITY ? 0.f : exp2f(mi - mmax);
+    const float lsum = rt::warp_sum(w * li);
+    if (s < ns) w_s[s] = w;
+    if (s == 0) inv_s = lsum > 0.f ? 1.f / lsum : 0.f;
+  }
+  __syncthreads();
+  const float inv = inv_s;
+  // Each thread's columns tid + NT·k; the loads of 8 splits in flight.
+  constexpr int CPT = MAX_R / NT;          // columns a thread at most
+  const float* src = part_o + p0 * r;
+  float acc[CPT] = {};
+  for (int s0 = 0; s0 < ns; s0 += 8) {
+    float v[8][CPT];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        const int col = threadIdx.x + NT * k;
+        v[u][k] = s0 + u < ns && col < r
+                      ? src[static_cast<size_t>(s0 + u) * ROWS * r + col]
+                      : 0.f;
+      }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float wu = s0 + u < ns ? w_s[s0 + u] : 0.f;
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) acc[k] += wu * v[u][k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (threadIdx.x + NT * k < r) dst[threadIdx.x + NT * k] = acc[k] * inv;
+}
+
+// The walk (and, with several splits, the combine) over a pool of codec
+// Codec; returns the CUDA status.  part: B·ymax·ROWS·(r + 2) floats of
+// scratch, ymax = max(ROW_BLOCKS·tiles, nsplit), when nsplit > 1 (O
+// partials, then (m, l) pairs).
+template <class Codec>
+int attend(const float* q, float* ctx, const void* pool, const float* scales,
+           const int* bt, const int* start, const int* span, float* part,
+           int b, int h, int c, int r, int L, int dp, int ps, int maxp,
+           int nsplit, int min_len, float scale, cudaStream_t stream) {
+  if (r > MAX_R || nsplit < 1 || nsplit > MAX_SPLITS || min_len < 1 ||
+      (nsplit > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout y = layout(L);
+  cudaError_t err = cudaFuncSetAttribute(
+      walk<Codec>, cudaFuncAttributeMaxDynamicSharedMemorySize, y.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (c * h + ROWS - 1) / ROWS;
+  const int ymax = max(ROW_BLOCKS * tiles, nsplit);
+  float* part_o = part;
+  float* part_ml = part == nullptr
+                       ? nullptr
+                       : part + static_cast<size_t>(b) * ymax * ROWS * r;
+  walk<Codec><<<dim3(b, ymax), NT, y.bytes, stream>>>(
+      q, ctx, static_cast<const uint8_t*>(pool), scales, bt, start, span,
+      part_o, part_ml, h, c, r, L, dp, ps, maxp, nsplit, min_len,
+      scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  combine<<<dim3(b, ymax / 2, ROWS), NT, 0, stream>>>(
+      ctx, part_o, part_ml, span, start, h, c, r, maxp * ps, nsplit, ymax,
+      min_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mla_mma

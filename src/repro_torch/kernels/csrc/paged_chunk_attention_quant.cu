@@ -13,73 +13,31 @@
 //
 // Design: write_tokens_quant scatters and quantizes the span first (its own
 // launch, so every key a query may read is resident before any block reads
-// it, and a -1 entry reads page 0 as the plain version does).  Then the
-// walk of paged_chunk_attention — one block per (row, KV head, tile of 16
-// query rows), keys gathered token by token through the block table — with
-// the dequantizing loader of quant_common.cuh.  Blocks whose rows all lie
-// past the row's span write zeros and read no keys.  No atomics.
-#include "quant_common.cuh"
-
-namespace {
-
-template <typename T, class Codec, int D>
-__global__ void __launch_bounds__(rt::NT)
-    chunk_attend_quant(const T* __restrict__ q, T* __restrict__ out,
-                       const typename Codec::S* __restrict__ kp,
-                       const typename Codec::S* __restrict__ vp,
-                       const float* __restrict__ ks,
-                       const float* __restrict__ vs,
-                       const int* __restrict__ bt,
-                       const int* __restrict__ start,
-                       const int* __restrict__ span, int hq, int hkv, int c,
-                       int ps, int maxp, float scale, int window) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int group = hq / hkv;
-  const int r0 = blockIdx.z * rt::QR;
-  const int nrows = min(rt::QR, group * c - r0);
-  __shared__ rt::RowSet rows;
-  if (threadIdx.x < nrows) {
-    const int rr = r0 + threadIdx.x;
-    const int g = rr / c, j = rr % c;
-    rows.off[threadIdx.x] =
-        ((static_cast<long long>(b) * hq + h * group + g) * c + j) * D;
-    rows.pos[threadIdx.x] = start[b] + j;
-    rows.on[threadIdx.x] = j < span[b];
-  }
-  __syncthreads();
-  const rt::PagedKeys keys{bt + static_cast<size_t>(b) * maxp, hkv, h, ps, D};
-  const rt::QuantKV<Codec> kv{kp, vp, ks, vs, keys};
-  rt::attend_kv<T, D>(q, out, kv, rows, nrows, maxp * ps, scale, window);
-}
-
-template <typename T, class Codec>
-int launch(const void* q, void* out, const void* kp, const void* vp,
-           const float* ks, const float* vs, const int* bt, const int* start,
-           const int* span, int b, int hq, int hkv, int c, int d, int ps,
-           int maxp, float scale, int window, cudaStream_t stream) {
-  using S = typename Codec::S;
-  const dim3 grid(b, hkv, (hq / hkv * c + rt::QR - 1) / rt::QR);
-  RT_DISPATCH_D(d, chunk_attend_quant<T, Codec, HD><<<grid, rt::NT, 0,
-                                                      stream>>>(
-                       static_cast<const T*>(q), static_cast<T*>(out),
-                       static_cast<const S*>(kp), static_cast<const S*>(vp),
-                       ks, vs, bt, start, span, hq, hkv, c, ps, maxp, scale,
-                       window));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// it, and a -1 entry reads page 0 as the plain version does; pools and
+// scales bitwise the plain version's).  Then the tensor-core walk
+// attend_mma::chunk_mma (attend_mma.cuh: one block a (row, KV head)
+// walking its live query rows 64 at a time, raw int8/e4m3 K/V tiles by
+// cp.async in a three-stage ring, mma.sync bf16 with the row scales
+// outside the MMA).  No atomics.
+//
+// ptxas -v (sm_90a, -O3; build.FLAGS passes it): see PERF.md's kernel
+// table, row 5.
+#include "attend_mma.cuh"
 
 // dtype: q/out, kvdtype: k/v_new, each 0 = float32, 1 = bfloat16; qdtype:
 // pools 0 = int8, 1 = fp8-e4m3.  k/v_new are [B, Hkv, C, D]; scales
-// float32 [P, Hkv, ps].  Returns cudaGetLastError() after the launches (0
-// on success), cudaErrorInvalidValue for an unsupported dtype or head_dim.
+// float32 [P, Hkv, ps]; part: float32 scratch of B·Hkv·nsplit·C·(Hq/Hkv)·
+// (D + 2) (null when nsplit is 1); the key split (nsplit ranges of
+// split_len keys) is paged_chunk_attention_quant.py · split_plan's.
+// Returns cudaGetLastError() after the launches (0 on success),
+// cudaErrorInvalidValue for an unsupported dtype or head_dim.
 extern "C" int paged_chunk_attention_quant(
     int dtype, int kvdtype, int qdtype, const void* q, void* out,
     void* k_pages, void* v_pages, float* k_scales, float* v_scales,
     const void* k_new, const void* v_new, const int* block_tables,
-    const int* start, const int* span, int b, int hq, int hkv, int c, int d,
-    int ps, int maxp, float scale, int window, void* stream) {
+    const int* start, const int* span, float* part, int b, int hq, int hkv,
+    int c, int d, int ps, int maxp, float scale, int window, int nsplit,
+    int split_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b == 0 || c == 0) return 0;
   const int err = rt::write_quant(kvdtype, qdtype, k_pages, v_pages,
@@ -87,9 +45,10 @@ extern "C" int paged_chunk_attention_quant(
                                   block_tables, start, span, b, c, d, hkv, ps,
                                   maxp, s);
   if (err) return err;
-#define RT_CALL(T, C)                                                     \
-  launch<T, C>(q, out, k_pages, v_pages, k_scales, v_scales, block_tables, \
-               start, span, b, hq, hkv, c, d, ps, maxp, scale, window, s)
+#define RT_CALL(T, C)                                                       \
+  attend_mma::attend<T, C>(q, out, k_pages, v_pages, k_scales, v_scales,   \
+                           block_tables, start, span, part, b, hq, hkv, c,  \
+                           d, ps, maxp, scale, window, nsplit, split_len, s)
   RT_DISPATCH_QUANT(dtype, qdtype, RT_CALL);
 #undef RT_CALL
 }

@@ -28,6 +28,23 @@ struct Int8Codec {
   __device__ __forceinline__ static float dequant(S v) {
     return static_cast<float>(v);
   }
+  // Four codes (byte i of w) as two bf16 pairs, exactly, in full-rate ALU
+  // operations (no conversion instruction): 2^23 + 128 + v as a float by
+  // byte permutes, less 2^23 + 128, is v; |v| <= 128 has at most 8
+  // significant bits, so its bf16 is the float's upper half.  lo holds
+  // codes 0, 1 (code 0 in the low half), hi codes 2, 3: the B fragments of
+  // the tensor-core walks.
+  __device__ __forceinline__ static void quad_bf16(uint32_t w, uint32_t& lo,
+                                                   uint32_t& hi) {
+    const uint32_t u = w ^ 0x80808080u;          // codes + 128, as bytes
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) -
+             8388736.f;
+    lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
 };
 
 struct Fp8Codec {
@@ -40,6 +57,25 @@ struct Fp8Codec {
     const __half_raw h = __nv_cvt_fp8_to_halfraw(
         static_cast<__nv_fp8_storage_t>(v), __NV_E4M3);
     return __half2float(__half(h));
+  }
+  // Four codes (byte i of w) as two bf16 pairs (see Int8Codec), exactly,
+  // in full-rate ALU operations: the sign and the 7 exponent / mantissa
+  // bits placed under a float's sign and exponent make the code's value
+  // times 2^-120 (subnormal codes included: float keeps denormals), and
+  // the product with 2^120 is exact; 4 significant bits fit bf16.  The
+  // NaN codes 0x7f / 0xff give +-480 (quantize_rows never writes them).
+  __device__ __forceinline__ static void quad_bf16(uint32_t w, uint32_t& lo,
+                                                   uint32_t& hi) {
+    const float f0 = __uint_as_float(((w & 0x80u) << 24) |
+                                     ((w & 0x7fu) << 20)) * 0x1p120f;
+    const float f1 = __uint_as_float(((w & 0x8000u) << 16) |
+                                     ((w & 0x7f00u) << 12)) * 0x1p120f;
+    const float f2 = __uint_as_float(((w & 0x800000u) << 8) |
+                                     ((w & 0x7f0000u) << 4)) * 0x1p120f;
+    const float f3 = __uint_as_float((w & 0x80000000u) |
+                                     ((w & 0x7f000000u) >> 4)) * 0x1p120f;
+    lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+    hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
   }
 };
 
@@ -89,8 +125,9 @@ __device__ __forceinline__ void quantize_row(typename Codec::S* pool,
   if (lane == 0) scales[dst] = scale;
 }
 
-// The quantizing write, as its own launch before the walk: grid (B, Hkv),
-// one warp per (token, K or V) row.  Token j < span[b] of row b (span ==
+// The quantizing write, as its own launch before the walk: grid (B, Hkv,
+// Z), one warp per (token, K or V) row, the span's 2·span rows spread over
+// the Z blocks of a (row, head).  Token j < span[b] of row b (span ==
 // nullptr: one token at start[b]) lands in page bt[b, (start+j)/ps] slot
 // (start+j)%ps; -1 pages and positions past the table drop.  k/v_new are
 // KT (float32 or bf16) [B, Hkv, c, D].
@@ -109,7 +146,8 @@ __global__ void __launch_bounds__(NT)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int st = start[b];
   const int sp = span == nullptr ? 1 : span[b];
-  for (int i = warp; i < 2 * sp; i += NT / 32) {
+  for (int i = blockIdx.z * (NT / 32) + warp; i < 2 * sp;
+       i += gridDim.z * (NT / 32)) {
     const int j = i >> 1, t = st + j;
     if (t >= maxp * ps) continue;           // warp-uniform
     const int page = bt[b * maxp + t / ps];
@@ -147,7 +185,8 @@ int launch_write_quant(void* kp, void* vp, float* ks, float* vs,
                        int d, int hkv, int ps, int maxp,
                        cudaStream_t stream) {
   using S = typename Codec::S;
-  write_tokens_quant<KT, Codec><<<dim3(b, hkv), NT, 0, stream>>>(
+  write_tokens_quant<KT, Codec>
+      <<<dim3(b, hkv, (2 * c + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
       static_cast<S*>(kp), static_cast<S*>(vp), ks, vs,
       static_cast<const KT*>(kn), static_cast<const KT*>(vn), bt, start, span,
       c, d, hkv, ps, maxp);

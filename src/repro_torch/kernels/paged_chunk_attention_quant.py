@@ -4,21 +4,64 @@ fused into the call.
 
 Replaces ``src/repro/kernels/paged_chunk_attention.py`` ·
 ``paged_chunk_attention_quant``; the CUDA source and its design notes are
-in ``csrc/paged_chunk_attention_quant.cu``.  Callers go through
+in ``csrc/paged_chunk_attention_quant.cu`` (the tensor-core walk in
+``csrc/attend_mma.cuh``).  Callers go through
 ``ops.paged_chunk_attention_quant``, which applies the wrapper contract
 (clamps, casts) and sends CPU tensors to ``ref``.
+
+The keys of a row whose live query rows fit one pass of the walk (64) are
+split over blocks by ``split_plan``, which reads shapes only: ``start`` and
+``span`` stay on the card.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build as _b
+from repro_torch.kernels.decode_attention import sm_count
 
 NAME = "paged_chunk_attention_quant"
-_ARGTYPES = [_b.INT] * 3 + [_b.PTR] * 11 + [_b.INT] * 7 + [
-    _b.FLOAT, _b.INT, _b.PTR]
+_ARGTYPES = ([_b.INT] * 3 + [_b.PTR] * 12 + [_b.INT] * 7
+             + [_b.FLOAT] + [_b.INT] * 3 + [_b.PTR])
+
+KEY_TILE = 64            # keys a tile of the walk
+MIN_SPLIT_LEN = 128      # keys a split takes at least: two tiles
+MAX_SPLITS = 16          # and at most this many splits a row
+BLOCKS_PER_SM = 2        # the plan aims at this many blocks an SM
 
 launches = 0            # kernel launches through this wrapper
+
+
+class SplitPlan(NamedTuple):
+    nsplit: int         # key ranges a one-pass row is split into
+    split_len: int      # keys a range: [i·split_len, (i+1)·split_len)
+    blocks: int         # blocks of the walk's grid
+    target: int         # the blocks the plan aims at
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
+    """The split of the keys [0, cap) (cap = the table's maxp·ps) over
+    blocks, from shapes alone.
+
+    The walk takes one block a (row, KV head); the plan aims at
+    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs (two fit an SM), or
+    more (the range length rounds down to a multiple of ``KEY_TILE``),
+    with ranges of at least ``MIN_SPLIT_LEN`` keys, at most ``MAX_SPLITS``
+    of them.  They cover [0, cap) with no gap and
+    no overlap, the last one cut at cap.  The grid is (b, hkv, nsplit)."""
+    heads = b * hkv
+    want = max(1, -(-BLOCKS_PER_SM * sms // max(heads, 1)))
+    split_len = cap // min(want, MAX_SPLITS) // KEY_TILE * KEY_TILE
+    split_len = max(MIN_SPLIT_LEN, split_len, -(-cap // MAX_SPLITS))
+    split_len = -(-split_len // KEY_TILE) * KEY_TILE
+    nsplit = max(1, -(-cap // split_len))
+    target = heads * min(want, MAX_SPLITS,
+                         max(1, -(-cap // MIN_SPLIT_LEN)))
+    return SplitPlan(nsplit, split_len, heads * nsplit, target)
 
 
 def paged_chunk_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
@@ -49,6 +92,10 @@ def paged_chunk_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{NAME}: window must be >= 1, got {window}")
     f32 = torch.float32
     out = torch.empty_like(q)
+    plan = split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0))
+    part = (torch.empty(b * hkv * plan.nsplit * c * (hq // hkv) * (d + 2),
+                        dtype=f32, device=dev)
+            if plan.nsplit > 1 else None)
     args = [_b.ptr(NAME, "q", q, dev, dtype=q.dtype),
             _b.ptr(NAME, "out", out, dev),
             _b.ptr(NAME, "k_pages", k_pages, dev),
@@ -64,12 +111,13 @@ def paged_chunk_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
             _b.ptr(NAME, "block_tables", block_tables, dev,
                    dtype=torch.int32, shape=(b, maxp)),
             _b.ptr(NAME, "start", start, dev, dtype=torch.int32, shape=(b,)),
-            _b.ptr(NAME, "span", span, dev, dtype=torch.int32, shape=(b,))]
+            _b.ptr(NAME, "span", span, dev, dtype=torch.int32, shape=(b,)),
+            _b.PTR(None if part is None else part.data_ptr())]
     lib = _b.load(NAME, _ARGTYPES)
     with torch.cuda.device(dev):
         status = lib.paged_chunk_attention_quant(
             code, kvcode, qcode, *args, b, hq, hkv, c, d, ps, maxp, scale,
-            window or 0, _b.stream(dev))
+            window or 0, plan.nsplit, plan.split_len, _b.stream(dev))
     launches += 1
     _b.raise_on_error(NAME, lib, status)
     return out, k_pages, v_pages, k_scales, v_scales

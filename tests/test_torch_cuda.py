@@ -3,8 +3,10 @@ version on the same CUDA inputs (the quantized-pool kernels for int8 and
 fp8-e4m3 pools included, the four paged-MLA kernels at the full (512, 64)
 and the test (32, 8) latent widths, ``decode_attention`` up to head_dim 256,
 the RG-LRU's ``linear_scan``, the cross-pool ``page_transfer``,
-``flash_attention`` on JAX's cases and whisper's encoder shape, and the
-register-bank kernels ``lww_merge`` and ``delta_apply``).
+``flash_attention`` on JAX's cases and whisper's encoder shape, the
+register-bank kernels ``lww_merge`` and ``delta_apply``, and the two
+quantized chunk kernels' tensor-core walks on spans 1..64 at page and tile
+edges, GQA groups, windows and key splits).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -521,6 +523,127 @@ def test_quant_kernels_reject_float_pools(card):
     kn = torch.zeros(1, 2, 32, device=card)
     with pytest.raises(ValueError, match="pool dtype"):
         ops.paged_decode_attention_quant(q, kp, sc, kp, sc, bt, pos, kn, kn)
+
+
+# -- the tensor-core walks of the two quantized chunk kernels ---------------
+
+# Spans the old 16-row tiles never met together, starts on page (16) and
+# key-tile (64; the MLA walk's 32) edges; cap 1024 so the split plans cut
+# the keys of one-pass rows.
+WALK_SPANS = [1, 15, 16, 17, 31, 32, 63, 64]
+WALK_STARTS = [0, 16, 63, 64, 127, 128, 320, 959]
+
+
+def _walk_tables(rng, b, maxp, ps, start, span, pool):
+    """A seeded permutation of pages; each row's slots past its last key
+    on the trash page (pool - 1, shared), row 1's on -1."""
+    bt = rng.permutation(pool - 1)[:b * maxp].reshape(b, maxp).astype(
+        np.int32)
+    for i in range(b):
+        used = -(-int(start[i] + span[i]) // ps)
+        bt[i, used:] = pool - 1 if i != 1 else -1
+    return bt
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("window", [None, 1, 16, 200])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 2), (16, 2)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_chunk_quant_walk_edges(card, dtype, hq, hkv, window, qdtype):
+    """The MHA walk against its plain version: GQA groups 2 / 4 / 8 (one
+    pass and several), windows, spans 1..64 at page and tile edges, the
+    trash page and -1 entries, bf16 and float32 q and new rows, and a key
+    split (cap 1024) for the one-pass rows."""
+    from repro_torch.kernels import paged_chunk_attention_quant as kq
+    b, ps, maxp, d, c = 8, 16, 64, 128, 64
+    plan = kq.split_plan(b, hkv, maxp * ps, torch.cuda.get_device_properties(
+        card).multi_processor_count)
+    assert plan.nsplit > 1
+    r = np.random.default_rng(21)
+    pool = b * maxp + 2
+    kq_, ks, vq, vs = (*ref.quantize_rows(_t(r.normal(size=(pool, hkv, ps,
+                                                             d)),
+                                             torch.float32, card), qdtype),
+                       *ref.quantize_rows(_t(r.normal(size=(pool, hkv, ps,
+                                                             d)),
+                                             torch.float32, card), qdtype))
+    bt = _t(_walk_tables(r, b, maxp, ps, WALK_STARTS, WALK_SPANS, pool),
+            torch.int32, card)
+    start = _t(WALK_STARTS, torch.int32, card)
+    span = _t(WALK_SPANS, torch.int32, card)
+    q = _t(r.normal(size=(b, hq, c, d)), dtype, card)
+    kn = _t(r.normal(size=(b, hkv, c, d)), dtype, card)
+    vn = _t(r.normal(size=(b, hkv, c, d)), dtype, card)
+    plain = [t.clone() for t in (kq_, ks, vq, vs)]
+    o1, *p1 = ops.paged_chunk_attention_quant(
+        q, kq_, ks, vq, vs, bt, start, span, kn, vn, window=window)
+    o2, *p2 = ops.paged_chunk_attention_quant(
+        q, *plain, bt, start, span, kn, vn, window=window, impl="ref")
+    torch.cuda.synchronize()
+    trash = pool - 1
+    assert all(_same_bits(x[:trash], y[:trash]) for x, y in zip(p1, p2))
+    live = (torch.arange(c, device=card)[None, :]
+            < span[:, None])[:, None, :, None]
+    assert bool((o1.float()[~live.expand_as(o1)] == 0).all())
+    torch.testing.assert_close(torch.where(live, o1, 0).float(),
+                               torch.where(live, o2, 0).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("new_dtype", DTYPES)
+@pytest.mark.parametrize("shape", ["full", "narrow"])
+@pytest.mark.parametrize("step", ["decode", "mixed"])
+def test_paged_mla_chunk_quant_walk_edges(card, step, shape, new_dtype,
+                                          qdtype):
+    """The MLA walk against its plain version: decode-heavy batches whose
+    split plan cuts the key range (every row span 1, start on page and tile
+    edges), and mixed spans 1..64; full width (16 heads over 512 + 64) and
+    a narrow one (20 heads over 200 + 24: tiles that straddle positions,
+    partial value tiles, pad columns); the trash page and -1 entries;
+    float32 and bf16 new rows.  Contexts within 1e-5, zero past the span."""
+    from repro_torch.kernels import paged_mla_chunk_quant as km
+    from repro_torch.models.cache import pad128
+    h, r, rd = (16, 512, 64) if shape == "full" else (20, 200, 24)
+    ps, maxp = 16, 64
+    if step == "decode":
+        b, c = 4, 32
+        start, span = [63, 64, 320, 959], [1, 1, 1, 1]
+    else:
+        b, c = 8, 64
+        start, span = WALK_STARTS, WALK_SPANS
+    plan = km.split_plan(b, c, h, maxp * ps,
+                         torch.cuda.get_device_properties(
+                             card).multi_processor_count)
+    assert plan.nsplit > 1
+    dp = pad128(r + rd)
+    rng = np.random.default_rng(22)
+    pool = b * maxp + 2
+    pools = list(ref.quantize_rows(
+        _t(rng.normal(size=(pool, ps, dp)), torch.float32, card), qdtype))
+    bt = _t(_walk_tables(rng, b, maxp, ps, start, span, pool), torch.int32,
+            card)
+    q_abs = _t(rng.normal(size=(b, h, c, r)), torch.float32, card)
+    q_rope = _t(rng.normal(size=(b, h, c, rd)), torch.float32, card)
+    new = rng.normal(size=(b, c, dp))
+    new[..., r + rd:] = 0
+    new = _t(new, new_dtype, card)
+    st, sp = _t(start, torch.int32, card), _t(span, torch.int32, card)
+    plain = [t.clone() for t in pools]
+    c1, *p1 = ops.paged_mla_chunk_quant(q_abs, q_rope, *pools, bt, st, sp,
+                                        new, scale=(128 + rd) ** -0.5)
+    c2, *p2 = ops.paged_mla_chunk_quant(q_abs, q_rope, *plain, bt, st, sp,
+                                        new, scale=(128 + rd) ** -0.5,
+                                        impl="ref")
+    torch.cuda.synchronize()
+    trash = pool - 1
+    assert all(_same_bits(x[:trash], y[:trash]) for x, y in zip(p1, p2))
+    live = (torch.arange(c, device=card)[None, :]
+            < sp[:, None])[:, None, :, None]
+    assert bool((c1[~live.expand_as(c1)] == 0).all())
+    torch.testing.assert_close(torch.where(live, c1, 0),
+                               torch.where(live, c2, 0), rtol=1e-5,
+                               atol=1e-5)
 
 
 SCAN_CASES = [

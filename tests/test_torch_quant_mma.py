@@ -1,0 +1,451 @@
+"""The numerics of the two tensor-core walks over quantized page pools
+(``csrc/mla_mma.cuh``: ``paged_mla_chunk_quant``; ``csrc/attend_mma.cuh``:
+``paged_chunk_attention_quant``), on the CPU, where the CUDA kernels cannot
+run: the rules their designs rest on are held here.
+
+(a) Every int8 and every e4m3 code widens to bf16 exactly, so the K / V
+    fragments built from the raw bytes lose nothing.
+(b) A plain-torch emulation of the MLA walk as its source documents it: q
+    (float32) in three bf16 terms, each scored against the codes, the row
+    scale and the softmax scale on the score column after the dot, p · s_t
+    in three bf16 terms by truncation against the codes (two terms measured
+    0.52-0.81 of the rule at these inputs, under the 2x margin), the keys
+    cut by ``split_plan`` and ``row_splits`` and merged by the combine's
+    formula.  It is held to
+    ``ref.paged_mla_chunk_quant`` at full width (16 heads, L 576, r 512,
+    max_len 1024) on the kernel phase's ragged start / span and on a
+    decode-heavy step, within the float32 rule (1e-5 abs + 1e-5 rel), and
+    must keep a margin of at least 2x under it.  The port's plain version
+    is held to JAX's ``paged_mla_chunk_quant`` oracle on the same numpy
+    inputs at a small size.
+(c) The same for the MHA walk (bf16 q as one term, p · s_v rounded to bf16
+    once) against ``ref.paged_chunk_attention_quant`` within the card's
+    bf16 rule (4e-3 + 2^-7·|x|), with GQA groups and windows, and the
+    port's plain version against JAX's oracle.
+(d) The two walks' split plans (``paged_mla_chunk_quant.split_plan``,
+    ``paged_chunk_attention_quant.split_plan``): shapes only, their ranges
+    cover [0, maxp·ps), and the blocks a decode-only step gets at the
+    agent trials' shapes.
+"""
+from __future__ import annotations
+
+import inspect
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import paged_chunk_attention_quant as kmha  # noqa: E402,E501
+from repro_torch.kernels import paged_mla_chunk_quant as kmla  # noqa: E402
+
+LOG2E = 1.4426950408889634
+H100_SMS = 132
+QDTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+# chip_smoke.py's kernel phase and a decode-heavy agent-trial step.
+PHASE = dict(start=[0, 100, 300, 447, 700, 900, 959, 64],
+             span=[64, 64, 1, 1, 0, 30, 64, 17], c=64)
+TRIAL = dict(start=[412, 590, 733, 96], span=[1, 1, 1, 32], c=32)
+PS, MAX_LEN = 16, 1024
+
+
+def _terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """x (float32) as n bf16 terms: each the bf16 rounding of what the
+    earlier ones left (as tc::split_bf16)."""
+    out = []
+    for _ in range(n):
+        t = x.bfloat16().float()
+        out.append(t)
+        x = x - t
+    return out
+
+
+def _trunc_terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """x (float32) as n bf16 terms by truncation: each keeps the upper 16
+    bits of what the earlier ones left (as tc::split_trunc)."""
+    out = []
+    for _ in range(n):
+        t = (x.view(torch.int32) & -65536).view(torch.float32)
+        out.append(t)
+        x = x - t
+    return out
+
+
+def _margin(got, want, atol, rtol) -> float:
+    """The largest error as a share of the rule atol + rtol·|want|."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+@pytest.mark.parametrize("name", list(QDTYPES))
+def test_every_code_widens_to_bf16_exactly(name):
+    codes = torch.arange(256, dtype=torch.uint8).view(QDTYPES[name])
+    x = codes.float()
+    live = ~torch.isnan(x)
+    assert bool(torch.isnan(x).sum() == (0 if name == "int8" else 2))
+    assert torch.equal(x[live].bfloat16().float(), x[live])
+
+
+def test_three_bf16_terms_hold_float32():
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=100_000).astype(np.float32)) * 10.0 ** torch.randint(
+        -20, 20, (100_000,), generator=torch.Generator().manual_seed(0))
+    t = _terms(x, 3)
+    assert bool(((t[0] + t[1] + t[2] - x).abs()
+                 <= 2.0 ** -24 * x.abs()).all())
+    assert torch.equal(_terms(x.bfloat16().float(), 1)[0],
+                       x.bfloat16().float())
+    t = _trunc_terms(x, 3)
+    assert bool(((t[0] + t[1] + t[2] - x).abs()
+                 <= 2.0 ** -22 * x.abs()).all())
+
+
+# -- the MLA walk -----------------------------------------------------------
+
+def _mla_inputs(seed, b, c, h, r, rd, dp, qdtype, start, span, maxp):
+    """numpy inputs: q_abs / q_rope, a pool of quantized random rows (and
+    its float rows), a block table on a seeded permutation (row 1's tail
+    at -1), bf16-exact new rows with zero pad columns."""
+    rng = np.random.default_rng(seed)
+    pages = b * maxp + 1
+    q_abs = rng.normal(size=(b, h, c, r)).astype(np.float32)
+    q_rope = rng.normal(size=(b, h, c, rd)).astype(np.float32)
+    rows = rng.normal(size=(pages, PS, dp)).astype(np.float32)
+    perm = rng.permutation(b * maxp)
+    bt = np.full((b, maxp), b * maxp, np.int32)
+    used = 0
+    for i, n in enumerate(np.add(start, span)):
+        k = -(-int(n) // PS)
+        bt[i, :k] = perm[used:used + k]
+        used += k
+    bt[1, -(-int(start[1] + span[1]) // PS):] = -1
+    new = rng.normal(size=(b, c, dp)).astype(np.float32)
+    new[..., r + rd:] = 0
+    new = torch.from_numpy(new).bfloat16().float().numpy()
+    return q_abs, q_rope, rows, bt, new
+
+
+def _mla_emulation(q_abs, q_rope, codes, scales, bt, start, span, r, scale,
+                   plan, nq=3, npp=3):
+    """ctx [B, H, C, r] by the walk's arithmetic (see the module note);
+    rows past the span are 0."""
+    b, h, c, _ = q_abs.shape
+    q = torch.cat([q_abs, q_rope], -1)
+    L = q.shape[-1]
+    cap = bt.shape[1] * PS
+    pages = bt.clamp(min=0).long()
+    kc = codes.float()[pages].reshape(b, cap, -1)[..., :L]
+    ks = scales[pages].reshape(b, cap)
+    ctx = torch.zeros(b, h, c, r)
+    for bi in range(b):
+        sp = int(span[bi])
+        if sp == 0:
+            continue
+        st = int(start[bi])
+        hi = min(st + sp, cap)
+        ns = kmla.row_splits(-(-sp * h // kmla.ROWS), hi, plan.nsplit,
+                             kmla.grid_rows(c, h, plan.nsplit),
+                             plan.split_len)
+        per = kmla.split_keys(hi, ns)
+        qt = _terms(q[bi, :, :sp], nq)                     # [H, sp, L] each
+        k = kc[bi, :hi]
+        dot = qt[0] @ k.T
+        for t in qt[1:]:
+            dot = dot + t @ k.T
+        x = dot * ks[bi, :hi] * (scale * LOG2E)
+        pos = st + torch.arange(sp)
+        x = x.masked_fill(torch.arange(hi)[None, :] > pos[:, None],
+                          -math.inf)
+        ms, ls, os_ = [], [], []
+        for s in range(ns):
+            lo, up = s * per, min(hi, (s + 1) * per)
+            if lo >= up:
+                continue
+            xs = x[..., lo:up]
+            m = xs.max(-1, keepdim=True).values
+            p = torch.exp2(xs - torch.where(m == -math.inf, 0.0, m))
+            pv = _trunc_terms(p * ks[bi, lo:up], npp)
+            o = pv[0] @ kc[bi, lo:up, :r]
+            for t in pv[1:]:
+                o = o + t @ kc[bi, lo:up, :r]
+            ms.append(m)
+            ls.append(p.sum(-1, keepdim=True))
+            os_.append(o)
+        big = torch.stack(ms).max(0).values
+        w = [torch.where(m == -math.inf, 0.0, torch.exp2(m - big))
+             for m in ms]
+        num = sum(wi * oi for wi, oi in zip(w, os_))
+        den = sum(wi * li for wi, li in zip(w, ls))
+        ctx[bi, :, :sp] = torch.where(den > 0, num / den.clamp(min=1e-30),
+                                      0.0)
+    return ctx
+
+
+def _mla_case(step, qname, nq=3, npp=3):
+    """(emulated ctx, plain ctx, live mask) at full width."""
+    r, rd, dp, h = 512, 64, 640, 16
+    start, span, c = step["start"], step["span"], step["c"]
+    b, maxp = len(start), MAX_LEN // PS
+    q_abs, q_rope, rows, bt, new = _mla_inputs(
+        3, b, c, h, r, rd, dp, QDTYPES[qname], start, span, maxp)
+    codes, scales = ref.quantize_rows(torch.from_numpy(rows), QDTYPES[qname])
+    st, sp = torch.tensor(start), torch.tensor(span)
+    btt = torch.from_numpy(bt)
+    scale = (128 + rd) ** -0.5
+    want, codes, scales = ops.paged_mla_chunk_quant(
+        torch.from_numpy(q_abs), torch.from_numpy(q_rope), codes, scales,
+        btt, st, sp, torch.from_numpy(new), scale=scale)
+    plan = kmla.split_plan(b, c, h, maxp * PS, H100_SMS)
+    got = _mla_emulation(torch.from_numpy(q_abs), torch.from_numpy(q_rope),
+                         codes, scales, btt, st, sp, r, scale, plan, nq, npp)
+    live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
+    return got, want, live, plan
+
+
+@pytest.mark.parametrize("qname", list(QDTYPES))
+@pytest.mark.parametrize("step", ["phase", "trial"])
+def test_mla_walk_keeps_the_float32_rule(step, qname):
+    got, want, live, plan = _mla_case(PHASE if step == "phase" else TRIAL,
+                                      qname)
+    if step == "trial":
+        assert plan.nsplit > 1               # the decode rows are split
+    got, want = torch.where(live, got, 0), torch.where(live, want, 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert _margin(got, want, 1e-5, 1e-5) <= 0.5
+
+
+def test_mla_plain_version_matches_jax_oracle():
+    r, rd, dp, h, c = 32, 8, 128, 4, 5
+    start, span = [3, 20, 0], [5, 1, 0]
+    b, maxp = 3, 4
+    for qname, qdtype in QDTYPES.items():
+        q_abs, q_rope, rows, bt, new = _mla_inputs(
+            5, b, c, h, r, rd, dp, qdtype, start, span, maxp)
+        codes, scales = ref.quantize_rows(torch.from_numpy(rows), qdtype)
+        jdt = jnp.int8 if qname == "int8" else jnp.float8_e4m3fn
+        jcodes, jscales = jref.quantize_rows(jnp.asarray(rows), jdt)
+        assert np.array_equal(codes.view(torch.uint8).numpy(),
+                              np.asarray(jcodes).view(np.uint8))
+        args = (np.asarray(start, np.int32), np.asarray(span, np.int32))
+        got, pool, sc = ops.paged_mla_chunk_quant(
+            torch.from_numpy(q_abs), torch.from_numpy(q_rope), codes,
+            scales, torch.from_numpy(bt), *map(torch.from_numpy, args),
+            torch.from_numpy(new), scale=0.1)
+        want, jpool, jsc = jref.paged_mla_chunk_quant(
+            jnp.asarray(q_abs), jnp.asarray(q_rope), jcodes, jscales,
+            jnp.asarray(bt), *map(jnp.asarray, args), jnp.asarray(new),
+            r=r, scale=0.1)
+        trash = b * maxp
+        assert np.array_equal(pool.view(torch.uint8).numpy()[:trash],
+                              np.asarray(jpool).view(np.uint8)[:trash])
+        np.testing.assert_array_equal(sc.numpy()[:trash],
+                                      np.asarray(jsc)[:trash])
+        live = np.arange(c)[None, :] < np.asarray(span)[:, None]
+        np.testing.assert_allclose(
+            got.numpy()[:, :, :, :][np.broadcast_to(
+                live[:, None, :, None], got.shape)],
+            np.asarray(want)[np.broadcast_to(live[:, None, :, None],
+                                             got.shape)],
+            rtol=1e-5, atol=1e-5)
+
+
+# -- the MHA walk -----------------------------------------------------------
+
+def _mha_emulation(q, codes_k, sk, codes_v, sv, bt, start, span, scale,
+                   window):
+    """out [B, Hq, C, D] (q's dtype) by the walk's arithmetic: q as one
+    bf16 term (it is bf16), the K scale and the softmax scale on the score
+    column, p · s_v rounded to bf16 once, l from the float32 p."""
+    b, hq, c, d = q.shape
+    hkv = codes_k.shape[1]
+    cap = bt.shape[1] * PS
+    pages = bt.clamp(min=0).long()
+
+    def gather(x):                       # [P, Hkv, ps, ...] -> [B, Hkv, cap, ...]
+        g = x[pages]                     # [B, maxp, Hkv, ps, ...]
+        g = g.transpose(1, 2)
+        return g.reshape(b, hkv, cap, *x.shape[3:])
+    kc, vc = gather(codes_k.float()), gather(codes_v.float())
+    ks, vs = gather(sk), gather(sv)
+    grp = hq // hkv
+    kc, vc, ks, vs = (t.repeat_interleave(grp, dim=1) for t in (kc, vc, ks, vs))
+    x = (q.float() @ kc.transpose(-1, -2)) * ks[:, :, None, :] * (
+        scale * LOG2E)
+    pos = start[:, None] + torch.arange(c)[None, :]            # [B, C]
+    t = torch.arange(cap)
+    dead = t[None, None, :] > pos[:, :, None]
+    if window:
+        dead |= t[None, None, :] <= pos[:, :, None] - window
+    x = x.masked_fill(dead[:, None], -math.inf)
+    m = x.max(-1, keepdim=True).values
+    p = torch.exp2(x - torch.where(m == -math.inf, 0.0, m))
+    pv = (p * vs[:, :, None, :]).bfloat16().float()
+    o = (pv @ vc) / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return o.to(q.dtype)
+
+
+MHA_CASES = {
+    # (B, Hq, Hkv, C, D, window, start, span)
+    "olmo_phase": (8, 16, 16, 64, 128, None, PHASE["start"], PHASE["span"]),
+    "gqa4_window16": (3, 8, 2, 16, 64, 16, [37, 5, 200], [16, 1, 9]),
+    "gqa2_window200": (3, 4, 2, 40, 128, 200, [301, 0, 650], [40, 17, 1]),
+    "gqa8_d32": (2, 16, 2, 5, 32, 1, [90, 12], [5, 3]),
+}
+
+
+def _mha_inputs(seed, case, qdtype):
+    b, hq, hkv, c, d, window, start, span = case
+    rng = np.random.default_rng(seed)
+    maxp = MAX_LEN // PS
+    pages = b * maxp + 1
+    q = rng.normal(size=(b, hq, c, d)).astype(np.float32)
+    kn, vn = (rng.normal(size=(b, hkv, c, d)).astype(np.float32)
+              for _ in range(2))
+    kp, vp = (rng.normal(size=(pages, hkv, PS, d)).astype(np.float32)
+              for _ in range(2))
+    bt = rng.permutation(b * maxp).reshape(b, maxp).astype(np.int32)
+    bt[0, -1] = -1
+    return q, kn, vn, kp, vp, bt
+
+
+@pytest.mark.parametrize("qname", list(QDTYPES))
+@pytest.mark.parametrize("name", list(MHA_CASES))
+def test_mha_walk_keeps_the_bf16_rule(name, qname):
+    case = MHA_CASES[name]
+    b, hq, hkv, c, d, window, start, span = case
+    q, kn, vn, kp, vp, bt = _mha_inputs(4, case, QDTYPES[qname])
+    qt = torch.from_numpy(q).bfloat16()
+    kq, ks = ref.quantize_rows(torch.from_numpy(kp), QDTYPES[qname])
+    vq, vs = ref.quantize_rows(torch.from_numpy(vp), QDTYPES[qname])
+    st, sp = torch.tensor(start), torch.tensor(span)
+    want, kq, vq, ks, vs = ops.paged_chunk_attention_quant(
+        qt, kq, ks, vq, vs, torch.from_numpy(bt), st, sp,
+        torch.from_numpy(kn).bfloat16(), torch.from_numpy(vn).bfloat16(),
+        window=window)
+    got = _mha_emulation(qt, kq, ks, vq, vs, torch.from_numpy(bt), st, sp,
+                         d ** -0.5, window)
+    live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
+    got = torch.where(live, got.float(), 0)
+    want = torch.where(live, want.float(), 0)
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=4e-3)
+
+
+def test_mha_plain_version_matches_jax_oracle():
+    case = MHA_CASES["gqa4_window16"]
+    b, hq, hkv, c, d, window, start, span = case
+    for qname, qdtype in QDTYPES.items():
+        q, kn, vn, kp, vp, bt = _mha_inputs(6, case, qdtype)
+        kq, ks = ref.quantize_rows(torch.from_numpy(kp), qdtype)
+        vq, vs = ref.quantize_rows(torch.from_numpy(vp), qdtype)
+        jdt = jnp.int8 if qname == "int8" else jnp.float8_e4m3fn
+        (jkq, jks), (jvq, jvs) = (jref.quantize_rows(jnp.asarray(x), jdt)
+                                  for x in (kp, vp))
+        args = (np.asarray(start, np.int32), np.asarray(span, np.int32))
+        got = ops.paged_chunk_attention_quant(
+            torch.from_numpy(q), kq, ks, vq, vs, torch.from_numpy(bt),
+            *map(torch.from_numpy, args), torch.from_numpy(kn),
+            torch.from_numpy(vn), window=window)[0]
+        want = jref.paged_chunk_attention_quant(
+            jnp.asarray(q), jkq, jks, jvq, jvs, jnp.asarray(bt),
+            *map(jnp.asarray, args), jnp.asarray(kn), jnp.asarray(vn),
+            window=window)[0]
+        live = np.broadcast_to(
+            (np.arange(c)[None, :] < np.asarray(span)[:, None])[
+                :, None, :, None], got.shape)
+        np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                                   rtol=1e-5, atol=1e-5)
+
+
+# -- the MLA split plan -----------------------------------------------------
+
+# (B, C, H, cap): the MLA agent trial (4 rows, chunk 32), the kernel phase,
+# the card tests' and edge shapes.
+PLAN_SHAPES = [(4, 32, 16, 1024), (8, 64, 16, 1024), (2, 16, 16, 128),
+               (3, 40, 16, 96), (1, 1, 16, 16), (1, 1, 1, 100_000),
+               (64, 32, 16, 4096), (2, 8, 20, 64)]
+
+
+def test_mla_split_plan_reads_shapes_only():
+    assert list(inspect.signature(kmla.split_plan).parameters) == [
+        "b", "c", "h", "cap", "sms"]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_mla_split_plan_covers_the_keys(shape):
+    """For every live tile count and row length the card may meet, a row's
+    splits cut its keys [0, hi) into runs of whole key tiles that cover it
+    once, and they fit the grids (the walk's ymax blocks a row, the
+    combine's ymax / 2 tiles)."""
+    b, c, h, cap = shape
+    plan = kmla.split_plan(b, c, h, cap, H100_SMS)
+    ymax = kmla.grid_rows(c, h, plan.nsplit)
+    assert 1 <= plan.nsplit <= kmla.MAX_SPLITS
+    assert plan.blocks == b * ymax
+    tiles = -(-c * h // kmla.ROWS)
+    for tlive in range(1, tiles + 1):
+        for hi in sorted({1, 31, 64, 65, 300, cap - 1, cap} & set(
+                range(1, cap + 1))):
+            ns = kmla.row_splits(tlive, hi, plan.nsplit, ymax,
+                                 plan.split_len)
+            per = kmla.split_keys(hi, ns)
+            assert per % kmla.KEY_TILE == 0 and 1 <= ns <= plan.nsplit
+            covered = np.zeros(hi, np.int64)
+            for s in range(ns):
+                covered[s * per:min(hi, (s + 1) * per)] += 1
+            assert (covered == 1).all()
+            assert tlive * ns <= ymax
+            assert ns == 1 or tlive <= ymax // 2
+
+
+def test_mla_split_plan_feeds_the_card_at_the_trial_shape():
+    """A decode-only step of the MLA agent trial (4 rows, chunk 32, max_len
+    1024, page 16) spreads each row over nsplit blocks: the plan reaches
+    its target, as many blocks as ``BLOCKS_TARGET`` an SM, ``MAX_SPLITS``
+    a row and ``MIN_SPLIT_LEN`` keys a split allow; a prompt chunk (32 live
+    tiles) takes two blocks a tile."""
+    b, c, h, cap = PLAN_SHAPES[0]
+    plan = kmla.split_plan(b, c, h, cap, H100_SMS)
+    ymax = kmla.grid_rows(c, h, plan.nsplit)
+    assert plan.nsplit > 1
+    assert b * kmla.row_splits(1, 1000, plan.nsplit, ymax) == plan.target
+    assert plan.target == b * min(-(-kmla.BLOCKS_TARGET * H100_SMS // b),
+                                  kmla.MAX_SPLITS,
+                                  cap // kmla.MIN_SPLIT_LEN)
+    assert kmla.row_splits(32, 1000, plan.nsplit, ymax) == 2
+
+
+# -- the MHA split plan -----------------------------------------------------
+
+# (B, Hkv, cap): the agent trial (4 rows, OLMo-1B's 16 KV heads, max_len
+# 1024), the kernel phase, card-test and edge shapes.
+MHA_PLAN_SHAPES = [(4, 16, 1024), (8, 16, 1024), (8, 2, 1024), (2, 2, 32),
+                   (1, 1, 100_000), (64, 8, 4096), (3, 2, 48)]
+
+
+def test_mha_split_plan_reads_shapes_only():
+    assert list(inspect.signature(kmha.split_plan).parameters) == [
+        "b", "hkv", "cap", "sms"]
+
+
+@pytest.mark.parametrize("shape", MHA_PLAN_SHAPES)
+def test_mha_split_plan_covers_the_keys(shape):
+    b, hkv, cap = shape
+    plan = kmha.split_plan(b, hkv, cap, H100_SMS)
+    assert 1 <= plan.nsplit <= kmha.MAX_SPLITS
+    assert plan.split_len % kmha.KEY_TILE == 0
+    assert (plan.nsplit - 1) * plan.split_len < cap <= (
+        plan.nsplit * plan.split_len)
+    assert plan.blocks == b * hkv * plan.nsplit >= plan.target
+
+
+def test_mha_split_plan_feeds_the_card_at_the_trial_shape():
+    """The agent trial's decode-heavy steps (4 rows, 16 KV heads): the
+    B·Hkv = 64 blocks of an unsplit walk leave half the SMs idle; the plan
+    gives at least ``BLOCKS_PER_SM`` blocks an SM."""
+    plan = kmha.split_plan(*MHA_PLAN_SHAPES[0], H100_SMS)
+    assert plan.nsplit > 1
+    assert plan.blocks >= plan.target >= kmha.BLOCKS_PER_SM * H100_SMS
+    assert plan.split_len >= kmha.MIN_SPLIT_LEN
