@@ -30,10 +30,11 @@
    JAX's sweep shapes and ``bench_merge``'s bank (K 4096, D 128, Dc 256;
    int32 / float32 / bf16 payloads; equal and INT32_MIN keys; duplicate
    targets with equal maximal keys, -1, < -1 and >= K lanes, Dc 0 and 1);
-   the two quantized chunk kernels also carry their tensor-core walk's
-   profile: the profiler's device time of the write, walk and combine,
-   the key-split plan (nsplit, split_len, blocks), and a trace that must
-   show ``chunk_mma`` / ``mla_mma::walk`` and none of the old walks;
+   the four chunk kernels (bf16 and quantized pools) also carry their
+   tensor-core walk's profile: the profiler's device time of the write,
+   walk and combine, the key-split plan (nsplit, split_len, blocks), and a
+   trace that must show ``chunk_mma`` / ``mla_mma::walk`` and none of the
+   old walks;
    then runs the port's ``bench_merge --quick`` (the replica-sync sweep:
    every delta sync exact, delta < pmax < allgather bytes at rate 0.05;
    its kernel rows launch ``delta_apply``);
@@ -261,7 +262,7 @@ def _quant_case(rng, lens, qdtype):
 
 
 def walk_fields(fn, plan, want: str, forbid: tuple, prefix: str = "") -> dict:
-    """A tensor-core walk's profile (the two quantized chunk kernels):
+    """A tensor-core walk's profile (the four chunk kernels):
     ``device_ms`` the profiler's device time of every kernel one call of
     ``fn`` (the kernel module's wrapper) runs, its write, walk and
     combine; the key-split plan; the kernel names.  The trace must show a
@@ -401,10 +402,11 @@ def mla_kernel_rows(rng):
     extra error and time) for the ``_quant`` pair; ragged rows, -1 and
     trash-page table entries.  Timed through ``ops``, as the model calls
     them (the wrapper's concat of q_abs and q_rope into one float32 q
-    included).  The chunk_quant row adds its walk's profile
+    included).  The two chunk rows add their walk's profile
     (``walk_fields``: the tensor-core ``mla_mma::walk``, never an
     ``mla::attend`` instantiation)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_mla_chunk as kmc
     from repro_torch.kernels import paged_mla_chunk_quant as kmq
     from repro_torch.kernels.decode_attention import sm_count
     scale = (128 + MLA_RD) ** -0.5
@@ -463,11 +465,12 @@ def mla_kernel_rows(rng):
                                     scale=scale))
             plain_ms = cuda_ms(lambda: op(q_abs, q_rope, *twin, bt, *idx,
                                           new, scale=scale, impl="ref"))
-            if name == "paged_mla_chunk_quant":
+            if len(idx) == 2:               # the chunk walks
                 q_cat = torch.cat([q_abs, q_rope], -1).contiguous()
+                wrapper = getattr(kmq if quant else kmc, name)
                 row.update(walk_fields(
-                    lambda: kmq.paged_mla_chunk_quant(
-                        q_cat, *pools, bt, *idx, new, r=MLA_R, scale=scale),
+                    lambda: wrapper(q_cat, *pools, bt, *idx, new, r=MLA_R,
+                                    scale=scale),
                     kmq.split_plan(B, CHUNK, H, MAX_LEN, sm_count(0)),
                     "mla_mma::walk", ("mla::attend",),
                     "fp8_" if qname == "fp8" else ""))
@@ -512,6 +515,7 @@ def kernel_phase():
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_chunk_attention as kchunk
     from repro_torch.kernels import paged_decode_attention as kpdec
+    from repro_torch.kernels.decode_attention import sm_count
     rng = np.random.default_rng(0)
     scale = D ** -0.5
     rows = []
@@ -549,6 +553,10 @@ def kernel_phase():
     qk = int(sum(s * st_ + s * (s + 1) // 2 for s, st_ in zip(span, start)))
     flops = 4 * qk * H * D
     bms, by = bound(nbytes, flops)
+
+    def walk():
+        return kchunk.paged_chunk_attention(q, kp, vp, bt, st, sp, kn, vn,
+                                            scale=scale)
     rows.append(dict(
         name="paged_chunk_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
@@ -556,11 +564,12 @@ def kernel_phase():
         shapes=f"q[{B},{H},{CHUNK},{D}] bf16, pools[{trash + 1},{H},{PS},"
                f"{D}], start {start.tolist()}, span {span.tolist()}",
         max_abs_err=err, pools_bitwise=bitwise,
-        ms=cuda_ms(lambda: kchunk.paged_chunk_attention(
-            q, kp, vp, bt, st, sp, kn, vn, scale=scale)),
+        ms=cuda_ms(walk),
         plain_ms=cuda_ms(lambda: ref.paged_chunk_attention(
             q, kp2, vp2, bt, st, sp, kn, vn, scale=scale)),
-        bound_ms=bms, bound_by=by, library_ms=None))
+        bound_ms=bms, bound_by=by, library_ms=None,
+        **walk_fields(walk, kchunk.split_plan(B, H, MAX_LEN, sm_count(0)),
+                      "chunk_mma", ("chunk_attend", "attend_kv"))))
 
     # paged_decode_attention: one token per row at ragged positions.
     pos = np.array([1023, 17, 300, 511, 640, 5, 999, 128])

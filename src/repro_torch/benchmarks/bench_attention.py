@@ -1,7 +1,8 @@
 """Times ``flash_attention`` and ``decode_attention`` at the shapes of the
-port's main paths, on one CUDA card, against SDPA, and the two quantized
-chunk walks (``paged_chunk_attention_quant``, ``paged_mla_chunk_quant``)
-through ``ops``, as the models call them.
+port's main paths, on one CUDA card, against SDPA, and the four chunk
+walks (``paged_chunk_attention`` and ``paged_mla_chunk`` on bf16 pools,
+their ``_quant`` twins on int8 / fp8 pools) through ``ops``, as the models
+call them.
 
   python src/repro_torch/benchmarks/bench_attention.py [--src DIR]
 
@@ -27,9 +28,12 @@ walks (int8 and fp8 pools with f32 row scales, page 16, max_len 1024): at
 OLMo-1B's q [8, 16, 64, 128] bf16, DeepSeek-V2-Lite's 16 heads over a
 512 + 64 latent row in pool rows of 640) and at the agent trials' (4 rows,
 chunk 32: ``decode`` all span 1, ``mixed`` three span-1 rows and a 32-token
-prompt chunk).  Their ``device_ms`` sums every kernel of the call (the
-quantizing write, the walk, a combine), there is no library call, and
-``max_abs_err`` is against the plain version at the defined positions.
+prompt chunk).  The bf16 walks at the kernel phase and at a decode step
+of the OLMo-1B / MLA schedulers (``sched_decode``: 8 rows of span 1 in a
+64-wide chunk at ragged starts), bf16 pools (the MLA one [P, 16, 640]).
+Their ``device_ms`` sums every kernel of the call (the write, the walk, a
+combine), there is no library call, and ``max_abs_err`` is against the
+plain version at the defined positions.
 """
 from __future__ import annotations
 
@@ -113,6 +117,12 @@ QUANT_SHAPES = {
     "trial_decode": (4, 32, [412, 590, 733, 96], [1, 1, 1, 1]),
     "trial_mixed": (4, 32, [412, 590, 733, 96], [1, 1, 1, 32]),
 }
+# The shapes of every walk row; the bf16 walks take the kernel phase and a
+# decode step of the schedulers.
+WALK_SHAPES = {**QUANT_SHAPES,
+               "sched_decode": (8, 64, [412, 590, 733, 96, 1000, 17, 300,
+                                        640], [1] * 8)}
+BF16_SHAPES = ("kernel_phase", "sched_decode")
 MLA_R, MLA_RD, MLA_DP = 512, 64, 640
 
 
@@ -175,13 +185,55 @@ def _quant_rows(tree, gen, dev):
                             lambda: mla("ref", ltwin), live)
 
 
+def _bf16_rows(tree, gen, dev):
+    """JSON rows of the two bf16-pool chunk walks at BF16_SHAPES."""
+    from repro_torch.kernels import ops
+    for shape in BF16_SHAPES:
+        b, c, start, span = WALK_SHAPES[shape]
+        st = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        sp = torch.as_tensor(span, dtype=torch.int32, device=dev)
+        bt = _table(b, start, span, dev)
+        pages = b * (MAX_LEN // PS) + 1
+        live = (torch.arange(c, device=dev)[None, :]
+                < sp[:, None])[:, None, :, None]
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        q = rand(b, 16, c, 128).bfloat16()
+        kn, vn = (rand(b, 16, c, 128).bfloat16() for _ in range(2))
+        pools = [rand(pages, 16, PS, 128).bfloat16() for _ in range(2)]
+        twin = [t.clone() for t in pools]
+
+        def mha(impl="kernel", pools=pools):
+            return ops.paged_chunk_attention(
+                q, *pools, bt, st, sp, kn, vn, scale=128 ** -0.5,
+                impl=impl)[0]
+        yield _walk_row("paged_chunk_attention", shape, "bf16",
+                        f"q[{b},16,{c},128] bf16, pools[{pages},16,{PS},128]",
+                        tree, mha, lambda: mha("ref", twin), live)
+        q_abs, q_rope = rand(b, 16, c, MLA_R), rand(b, 16, c, MLA_RD)
+        new = rand(b, c, MLA_DP).bfloat16()
+        new[..., MLA_R + MLA_RD:] = 0
+        lat = [rand(pages, PS, MLA_DP).bfloat16()]
+        ltwin = [lat[0].clone()]
+
+        def mla(impl="kernel", lat=lat):
+            return ops.paged_mla_chunk(
+                q_abs, q_rope, *lat, bt, st, sp, new,
+                scale=(128 + MLA_RD) ** -0.5, impl=impl)[0]
+        yield _walk_row("paged_mla_chunk", shape, "bf16",
+                        f"q_abs[{b},16,{c},{MLA_R}] + q_rope f32, pool"
+                        f"[{pages},{PS},{MLA_DP}]", tree, mla,
+                        lambda: mla("ref", ltwin), live)
+
+
 def _walk_row(name, shape, qname, shapes, tree, fn, plain, live) -> dict:
     got, want = fn(), plain()
     err = float(torch.where(live, got.float() - want.float(), 0)
                 .abs().max())
     kern = device_us(fn)
     return dict(kernel=name, shape=shape, pool=qname,
-                shapes=f"{shapes}, start/span {QUANT_SHAPES[shape][2:]}",
+                shapes=f"{shapes}, start/span {WALK_SHAPES[shape][2:]}",
                 tree=tree, max_abs_err=err, ms=events_ms(fn),
                 device_ms=sum(kern.values()) / 1e3,
                 device_us_by_kernel={_short(k): us for k, us in kern.items()},
@@ -229,8 +281,9 @@ def main(argv=None) -> int:
             lambda: ref.decode_attention(q, k, v, kl, scale=scale),
             lambda: sdpa(q[:, :, None], kx, vx, attn_mask=mask,
                          scale=scale)[:, :, 0], "dense_attend")), flush=True)
-    for row in _quant_rows(args.src, gen, dev):
-        print(json.dumps(row), flush=True)
+    for rows in (_quant_rows, _bf16_rows):
+        for row in rows(args.src, gen, dev):
+            print(json.dumps(row), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,7 +1,9 @@
-// The tensor-core walk of chunked mixed-step attention over a quantized
-// paged KV cache (sm_90a): paged_chunk_attention_quant's attend.
-// rt::attend_kv (attention_common.cuh) stays the walk of the decode and
-// float-pool kernels.
+// The tensor-core walk of chunked mixed-step attention over a paged KV
+// cache (sm_90a): the attend of paged_chunk_attention (bf16 pools) and of
+// paged_chunk_attention_quant (int8 / e4m3 pools).  The pool is a policy
+// of the walk (CodePool, Bf16Pool below); rt::attend_kv
+// (attention_common.cuh) stays the walk of the decode kernels and of
+// float32 pools.
 //
 // FlashAttention-2 on mma.sync.m16n8k16, blocks of 4 warps for a (batch
 // row, KV head), grid (B, Hkv, nsplit):
@@ -17,37 +19,45 @@
 //     hi + mid + lo, float32 in effect); ldmatrix reads the A fragments.
 //   - A pass with fewer than 4 live row tiles of 16 (a span-1 row has one)
 //     splits each key tile between the warps: warp w takes row tile w %
-//     nrt and n8 key tiles of part w / nrt, keeps its own softmax state,
-//     and the parts merge in shared memory after the walk (in part order,
-//     the combine formula of split-KV), so a decode row keeps all 4 warps
-//     busy.
+//     nrt and n8 key tiles of part w / nrt (k16 steps: at most KT / 16
+//     parts), keeps its own softmax state, and the parts merge in shared
+//     memory after the walk (in part order, the combine formula of
+//     split-KV), so a decode row keeps the warps busy.
 //   - K and V rows are gathered per key through the block table by
-//     cp.async as raw bytes (D a row, 16 B a copy, with their f32 scales)
-//     in a three-stage ring of 64 keys, so two tiles' gathers are in
-//     flight behind the MMAs.  int8 and e4m3 codes are exact in bf16: the
-//     tile being walked is converted once (Codec::quad_bf16) into bf16 K
-//     and V tiles that every warp reads by ldmatrix (V transposed), as
-//     flash_fwd_mma reads its tiles.  (Fragments built from the bytes by
-//     each warp, the first design, converted each byte once a warp: 4
-//     times over in a prompt pass, PERF.md.)
-//   - S = Q K^T, then the score column times s_k,t · scale · log2 e;
-//     causal and window masks per element, and tiles outside the pass's
-//     [lo, hi) are never gathered.  Online softmax in float32 with exp2f,
-//     guarded as flash_fwd_mma's; l sums the float32 p.
-//   - O += (p · s_v,t) V with p · s_v,t as Terms<T>::P bf16 terms (bf16:
-//     rounded once, as flash_fwd_mma rounds P; float32: three terms by
-//     truncation, tc::split_trunc).  A row with no live key gives 0.
+//     cp.async (16 B a copy) into a ring of NST stages of KT keys, so NST -
+//     1 tiles' gathers are in flight behind the MMAs (3 stages either way:
+//     64 keys for codes, 32 for bf16 rows).  CodePool (int8 / e4m3 codes,
+//     one f32 scale a row): the
+//     codes are exact in bf16, and the tile being walked is converted once
+//     (Codec::quad_bf16) into bf16 K and V tiles that every warp reads.
+//     (Fragments built from the bytes by each warp, the first design,
+//     converted each byte once a warp: 4 times over in a prompt pass,
+//     PERF.md.)  Bf16Pool: a bf16 row is a B fragment's source as it
+//     lands, so the ring stage is the tile: no conversion pass, no scale,
+//     no extra barrier.  Either way every warp reads the tile by ldmatrix
+//     (V transposed) from rows padded to an odd count of 16 B, as
+//     flash_fwd_mma reads its tiles.
+//   - S = Q K^T, then the score column times scale · log2 e (CodePool:
+//     also s_k,t); causal and window masks per element, and tiles outside
+//     the pass's [lo, hi) are never gathered.  Online softmax in float32
+//     with exp2f, guarded as flash_fwd_mma's; l sums the float32 p.
+//   - O += P V (CodePool: p · s_v,t) with P as Terms<T>::P bf16 terms
+//     (bf16: rounded once, as flash_fwd_mma rounds P; float32: three terms
+//     by truncation, tc::split_trunc).  A row with no live key gives 0.
 //   - Split-KV: B·Hkv blocks alone (64 in the agent trial) left most of
 //     the 132 SMs idle and each decode row a serial walk of its key tiles
 //     (PERF.md: measured per-tile cycles), so the grid is (B, Hkv, nsplit):
 //     a row whose live rows fit one pass splits its keys over the nsplit
-//     blocks (ranges of split_len keys, a plan from shapes alone,
-//     paged_chunk_attention_quant.py · split_plan), each writing a float32
+//     blocks (ranges of split_len keys, a plan from shapes alone that aims
+//     at the policy's blocks an SM: paged_chunk_attention_quant.py and
+//     paged_chunk_attention.py · split_plan), each writing a float32
 //     partial (O, m, l), and chunk_combine (a second launch) forms out;
 //     longer rows are walked whole by block 0.
-// Footprint (ptxas -v, sm_90a; PERF.md, kernel table row 5): bf16 q at
-// head_dim 128 167-168 registers, no spill, 109,056 B of dynamic shared
-// memory: 2 blocks an SM; float32 q (the tests' route) 143,872 B, 1.
+// Footprint (ptxas -v, sm_90a; PERF.md, kernel table rows 1 and 5):
+// CodePool, bf16 q at head_dim 128: 167-168 registers, no spill, 109,056 B
+// of dynamic shared memory, 2 blocks an SM; float32 q (the tests' route)
+// 143,872 B, 1.  Bf16Pool at head_dim 128: q 17,408 B + a 3-stage ring of
+// 32 keys 52,224 B = 69,632 B, 3 blocks an SM.
 #pragma once
 
 #include "mma_common.cuh"
@@ -60,10 +70,31 @@ using bf16 = __nv_bfloat16;
 constexpr int NT = 128;            // threads a block
 constexpr int NW = NT / 32;        // warps
 constexpr int BR = NW * 16;        // query rows a pass
-constexpr int KT = 64;             // keys a tile
-constexpr int NK = KT / 8;         // n8 key tiles a tile (S)
-constexpr int NST = 3;             // ring stages
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Pool policies of the walk: how a K/V pool row is stored and tiled, and
+// the blocks an SM the walk is built for at head_dim 128 (bf16 q; the
+// split plans aim at them).
+// CodePool: int8 / e4m3 codes (one byte a value) with an f32 scale a row.
+template <class Codec_>
+struct CodePool {
+  using Codec = Codec_;
+  static constexpr bool SCALED = true;
+  static constexpr int ELEM = 1;     // bytes a value
+  static constexpr int KT = 64;      // keys a tile
+  static constexpr int NST = 3;      // ring stages
+  static constexpr int BLOCKS = 2;   // blocks an SM (109,056 B each)
+};
+// Bf16Pool: bf16 rows, no scale.  3 stages of 32 keys (69,632 B) hold 3
+// blocks an SM and measured faster than 2 stages of 64 (87,040 B, 2
+// blocks): PERF.md.
+struct Bf16Pool {
+  static constexpr bool SCALED = false;
+  static constexpr int ELEM = 2;
+  static constexpr int KT = 32;
+  static constexpr int NST = 3;
+  static constexpr int BLOCKS = 3;
+};
 
 // bf16 terms of q and of p · s_v by the query dtype.
 template <typename T>
@@ -77,22 +108,27 @@ struct Terms<__nv_bfloat16> {
   static constexpr int Q = 1, P = 1;
 };
 
-// Dynamic shared memory: q terms [Q][BR][D + 8] bf16, the raw ring
-// [NST][K, V][KT][D + 16] bytes, the scales [NST][K, V][KT], and the tile
-// being walked as bf16 [K, V][KT][D + 8] (rows padded by 16 B, so the 8
-// rows an ldmatrix phase reads fall in 8 bank groups).
-template <int D, int Q>
+// Dynamic shared memory: q terms [Q][BR][D + 8] bf16, the ring
+// [NST][K, V][KT] of rows of RS bytes, and for CodePool the scales [NST][K,
+// V][KT] and the tile being walked as bf16 [K, V][KT][D + 8].  Rows are
+// padded by 16 B (codes) or 8 values (bf16), so the 8 rows an ldmatrix
+// phase reads fall in 8 bank groups.  After the walk the ring holds the
+// merge of the warps' key parts.
+template <int D, int Q, class P>
 struct Smem {
   static constexpr int QS = D + 8;
-  static constexpr int RS = D + 16;
+  static constexpr int RS = P::SCALED ? D + 16 : 2 * QS;
   static constexpr int raw_off = Q * BR * QS * 2;
-  static constexpr int sc_off = raw_off + NST * 2 * KT * RS;
-  static constexpr int cv_off = sc_off + NST * 2 * KT * 4;
-  static constexpr int bytes = cv_off + 2 * KT * QS * 2;
+  static constexpr int sc_off = raw_off + P::NST * 2 * P::KT * RS;
+  static constexpr int cv_off = sc_off + (P::SCALED ? P::NST * 2 * P::KT * 4
+                                                    : 0);
+  static constexpr int bytes = cv_off + (P::SCALED ? 2 * P::KT * QS * 2 : 0);
+  static_assert(P::NST * 2 * P::KT * RS >= NW * 16 * (D + 2) * 4,
+                "the ring holds the merge of the key parts");
 };
 
-template <typename T, class Codec, int D>
-__global__ void __launch_bounds__(NT)
+template <typename T, class P, int D>
+__global__ void __launch_bounds__(NT, P::BLOCKS)
     chunk_mma(const T* __restrict__ q, T* __restrict__ out,
               const uint8_t* __restrict__ kp, const uint8_t* __restrict__ vp,
               const float* __restrict__ ks, const float* __restrict__ vs,
@@ -102,10 +138,13 @@ __global__ void __launch_bounds__(NT)
               float* __restrict__ part_o, float* __restrict__ part_ml,
               int nsplit, int split_len) {
   constexpr int NQ = Terms<T>::Q, NP = Terms<T>::P;
-  using L = Smem<D, NQ>;
+  using L = Smem<D, NQ, P>;
+  constexpr int KT = P::KT;        // keys a tile
+  constexpr int NK = KT / 8;       // n8 key tiles a tile (S)
+  constexpr int NST = P::NST;      // ring stages
   constexpr int KS = D / 16;       // k16 steps over D (S)
   constexpr int ND = D / 8;        // n8 column tiles over D (O)
-  constexpr int CH = D / 16;       // 16-byte copies a row
+  constexpr int CH = D * P::ELEM / 16;   // 16-byte copies a row
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   uint8_t* raw = smem + L::raw_off;
@@ -137,9 +176,11 @@ __global__ void __launch_bounds__(NT)
       *reinterpret_cast<uint4*>(out + row_off(live + x / (D / QV)) +
                                 x % (D / QV) * QV) = make_uint4(0, 0, 0, 0);
 
-  // Two threads a key: one table lookup a tile, then alternate 16-byte
-  // chunks of its K and its V row (a warp's copies cover whole sectors).
-  const int lkey = tid >> 1, lpart = tid & 1;
+  // NT / KT threads a key: one table lookup a tile, then alternate
+  // 16-byte chunks of its K and its V row (a warp's copies cover whole
+  // sectors).
+  constexpr int TPK = NT / KT;
+  const int lkey = tid / TPK, lpart = tid % TPK;
   for (int m0 = 0; m0 < live; m0 += BR) {
     // Keys the pass's live rows may attend: [lo, hi).
     const int nlive = min(BR, live - m0);
@@ -149,10 +190,11 @@ __global__ void __launch_bounds__(NT)
                        split * per);
     const int ntiles = hi > lo ? (hi - lo + KT - 1) / KT : 0;
     // Warp roles: nrt row tiles of 16 are live; the warps split each key
-    // tile ksplit ways between them (warp w: row tile wt = w % nrt, key part
-    // w / nrt, its n8 key tiles [nlo, nhi)), merged after the walk.
+    // tile ksplit ways between them, whole k16 steps a part (warp w: row
+    // tile wt = w % nrt, key part w / nrt, its n8 key tiles [nlo, nhi)),
+    // merged after the walk.
     const int nrt = (nlive + 15) / 16;
-    const int ksplit = NW / nrt;
+    const int ksplit = min(NW / nrt, KT / 16);
     const int wt = warp % nrt, kg = warp / nrt;
     const bool active = kg < ksplit;
     const int nlo = kg * (NK / ksplit), nhi = nlo + NK / ksplit;
@@ -165,14 +207,16 @@ __global__ void __launch_bounds__(NT)
       const size_t row =
           (static_cast<size_t>(page) * hkv + kvh) * ps + (in ? t % ps : 0);
       uint8_t* dst = raw + (stage * 2 * KT + lkey) * L::RS;
+      const size_t src = row * D * P::ELEM;
 #pragma unroll
-      for (int ch = lpart; ch < CH; ch += 2) {
-        tc::cp_async16(dst + ch * 16, kp + row * D + ch * 16, in);
-        tc::cp_async16(dst + KT * L::RS + ch * 16, vp + row * D + ch * 16,
-                       in);
+      for (int ch = lpart; ch < CH; ch += TPK) {
+        tc::cp_async16(dst + ch * 16, kp + src + ch * 16, in);
+        tc::cp_async16(dst + KT * L::RS + ch * 16, vp + src + ch * 16, in);
       }
-      tc::cp_async4(sc + (stage * 2 + lpart) * KT + lkey,
-                    (lpart ? vs : ks) + row, in);
+      if constexpr (P::SCALED)
+        if (lpart < 2)
+          tc::cp_async4(sc + (stage * 2 + lpart) * KT + lkey,
+                        (lpart ? vs : ks) + row, in);
     };
 
     // q rows by 16-byte copies, all in flight at once: bf16 straight into
@@ -209,10 +253,11 @@ __global__ void __launch_bounds__(NT)
         __syncthreads();
       }
     }
-    if (ntiles > 0) load(0, lo);
-    tc::cp_async_commit();
-    if (ntiles > 1) load(1, lo + KT);
-    tc::cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < NST - 1; ++i) {  // the first NST - 1 tiles
+      if (i < ntiles) load(i, lo + i * KT);
+      tc::cp_async_commit();
+    }
 
     const int mw = m0 + wt * 16;           // this warp's first row
     bool on[2];
@@ -232,25 +277,33 @@ __global__ void __launch_bounds__(NT)
 
     for (int it = 0; it < ntiles; ++it) {
       const int t0 = lo + it * KT, stg = it % NST;
-      if (it + 2 < ntiles) load((it + 2) % NST, t0 + 2 * KT);
+      if (it + NST - 1 < ntiles)           // the slot tile it - 1 freed
+        load((it + NST - 1) % NST, t0 + (NST - 1) * KT);
       tc::cp_async_commit();
-      tc::cp_async_wait<2>();              // tile it has landed
+      tc::cp_async_wait<NST - 1>();        // tile it has landed
       __syncthreads();
-      // The tile's K and V codes as bf16 (exact), once for all warps.
-      for (int x = tid; x < 2 * KT * CH; x += NT) {
-        const int row = x / CH, ch = x % CH;   // row: K rows, then V rows
-        const uint4 w = *reinterpret_cast<const uint4*>(
-            raw + (stg * 2 * KT + row) * L::RS + ch * 16);
-        const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
-        uint32_t o8[8];
+      // The tile's K rows, then its V rows, as bf16 [2·KT][QS]: a bf16
+      // pool's ring stage as it landed; codes converted (exactly) once for
+      // all warps.
+      const bf16* kv =
+          reinterpret_cast<const bf16*>(raw + stg * 2 * KT * L::RS);
+      if constexpr (P::SCALED) {
+        for (int x = tid; x < 2 * KT * CH; x += NT) {
+          const int row = x / CH, ch = x % CH;   // row: K rows, then V rows
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              raw + (stg * 2 * KT + row) * L::RS + ch * 16);
+          const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+          uint32_t o8[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          Codec::quad_bf16(wv[i], o8[2 * i], o8[2 * i + 1]);
-        uint4* dst = reinterpret_cast<uint4*>(cv + row * L::QS + ch * 16);
-        dst[0] = make_uint4(o8[0], o8[1], o8[2], o8[3]);
-        dst[1] = make_uint4(o8[4], o8[5], o8[6], o8[7]);
+          for (int i = 0; i < 4; ++i)
+            P::Codec::quad_bf16(wv[i], o8[2 * i], o8[2 * i + 1]);
+          uint4* dst = reinterpret_cast<uint4*>(cv + row * L::QS + ch * 16);
+          dst[0] = make_uint4(o8[0], o8[1], o8[2], o8[3]);
+          dst[1] = make_uint4(o8[4], o8[5], o8[6], o8[7]);
+        }
+        __syncthreads();
+        kv = cv;
       }
-      __syncthreads();
       if (active) {
         const float* skt = sc + stg * 2 * KT;
         const float* svt = skt + KT;
@@ -272,7 +325,7 @@ __global__ void __launch_bounds__(NT)
           for (int n2 = 0; n2 < NK / 2; ++n2) {
             if (2 * n2 < nlo || 2 * n2 >= nhi) continue;
             uint32_t kb[4];
-            tc::ldmatrix_x4(kb, cv + (n2 * 16 + (lane & 7) +
+            tc::ldmatrix_x4(kb, kv + (n2 * 16 + (lane & 7) +
                                       ((lane >> 4) << 3)) * L::QS +
                                     k * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
@@ -291,7 +344,11 @@ __global__ void __launch_bounds__(NT)
           for (int e = 0; e < 4; ++e) {
             const int kk = n * 8 + 2 * j4 + (e & 1), t = t0 + kk;
             const int rr = e >> 1;
-            float x = s[n][e] * (skt[kk] * scale_log2);
+            float x;
+            if constexpr (P::SCALED)
+              x = s[n][e] * (skt[kk] * scale_log2);
+            else
+              x = s[n][e] * scale_log2;
             if (!on[rr] || n < nlo || n >= nhi || t >= hi || t > pos[rr] ||
                 (window > 0 && t <= pos[rr] - window))
               x = -INFINITY;
@@ -322,11 +379,15 @@ __global__ void __launch_bounds__(NT)
           for (int e = 0; e < 4; ++e) {
             const float p = exp2f(s[n][e] - mu[e >> 1]);
             lrow[e >> 1] += p;
-            s[n][e] = p * svt[n * 8 + 2 * j4 + (e & 1)];   // p · s_v,t
+            if constexpr (P::SCALED)
+              s[n][e] = p * svt[n * 8 + 2 * j4 + (e & 1)];   // p · s_v,t
+            else
+              s[n][e] = p;
           }
         }
 
-        // O += (P · s_v) V over this warp's keys, V by ldmatrix.trans.
+        // O += P V (codes: P · s_v) over this warp's keys, V by
+        // ldmatrix.trans.
 #pragma unroll
         for (int kk = 0; kk < KT / 16; ++kk) {
           if (2 * kk < nlo || 2 * kk >= nhi) continue;
@@ -346,7 +407,7 @@ __global__ void __launch_bounds__(NT)
           for (int n2 = 0; n2 < ND / 2; ++n2) {
             uint32_t vb[4];
             tc::ldmatrix_x4_trans(
-                vb, cv + (KT + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                vb, kv + (KT + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                              L::QS + n2 * 16 + (lane >> 4) * 8);
 #pragma unroll
             for (int i = 0; i < NP; ++i) {
@@ -497,19 +558,20 @@ __global__ void __launch_bounds__(NT)
     if (lane + 32 * k < d) dst[lane + 32 * k] = rt::from_f<T>(acc[k] * inv);
 }
 
-// The walk (and, with several splits, the combine) over pools of codec
-// Codec for query dtype T; returns the CUDA status.  part: float32 scratch
-// of B·Hkv·nsplit·C·group·(D + 2) when nsplit > 1 (O partials, then (m, l)
-// pairs); the split (nsplit ranges of split_len keys) is
-// paged_chunk_attention_quant.py · split_plan's.
-template <typename T, class Codec>
+// The walk (and, with several splits, the combine) over pools of policy P
+// for query dtype T; returns the CUDA status.  ks / vs: the row scales of a
+// CodePool (a Bf16Pool takes none).  part: float32 scratch of
+// B·Hkv·nsplit·C·group·(D + 2) when nsplit > 1 (O partials, then (m, l)
+// pairs); the split (nsplit ranges of split_len keys) is the caller's
+// split_plan's.
+template <typename T, class P>
 int attend(const void* q, void* out, const void* kp, const void* vp,
            const float* ks, const float* vs, const int* bt, const int* start,
            const int* span, float* part, int b, int hq, int hkv, int c, int d,
            int ps, int maxp, float scale, int window, int nsplit,
            int split_len, cudaStream_t stream) {
   if (nsplit < 1 || nsplit > 32 || (nsplit > 1 && part == nullptr) ||
-      split_len % KT)
+      split_len % P::KT)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t nrows = static_cast<size_t>(c) * (hq / hkv);
   float* part_o = part;
@@ -519,12 +581,12 @@ int attend(const void* q, void* out, const void* kp, const void* vp,
   switch (d) {
 #define AM_CASE(HD)                                                         \
   case HD: {                                                                \
-    constexpr int bytes = Smem<HD, Terms<T>::Q>::bytes;                     \
+    constexpr int bytes = Smem<HD, Terms<T>::Q, P>::bytes;                  \
     const cudaError_t err = cudaFuncSetAttribute(                           \
-        chunk_mma<T, Codec, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,\
+        chunk_mma<T, P, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
         bytes);                                                             \
     if (err != cudaSuccess) return static_cast<int>(err);                   \
-    chunk_mma<T, Codec, HD><<<dim3(b, hkv, nsplit), NT, bytes, stream>>>(   \
+    chunk_mma<T, P, HD><<<dim3(b, hkv, nsplit), NT, bytes, stream>>>(       \
         static_cast<const T*>(q), static_cast<T*>(out),                     \
         static_cast<const uint8_t*>(kp), static_cast<const uint8_t*>(vp),   \
         ks, vs, bt, start, span, hq, hkv, c, ps, maxp, scale * LOG2E,       \

@@ -295,11 +295,13 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
                   key_cap, scale, window);
 }
 
-// The fused write of the paged kernels, as its own launch: grid (B, Hkv);
-// token j < span[b] of row b (span == nullptr: one token) lands in page
-// bt[b, (start+j)/ps] slot (start+j)%ps.  Writes to -1 pages and past the
-// table drop.  A bitwise 16-byte copy: the wrapper casts k/v_new to the
-// pool dtype first.
+// The fused write of the paged kernels, as its own launch: grid (B, Hkv,
+// Z), the span's token rows spread over the Z blocks of a (row, head)
+// (the decode kernel launches Z = 1), one warp a token, its lanes over the
+// K and V row's 16-byte chunks; token j < span[b] of row b (span ==
+// nullptr: one token) lands in page bt[b, (start+j)/ps] slot (start+j)%ps.
+// Writes to -1 pages and past the table drop.  A bitwise copy: the
+// wrapper casts k/v_new to the pool dtype first.
 template <typename T>
 __global__ void __launch_bounds__(NT)
     write_tokens(T* __restrict__ kp, T* __restrict__ vp,
@@ -308,23 +310,24 @@ __global__ void __launch_bounds__(NT)
                  const int* __restrict__ span, int c, int d, int hkv, int ps,
                  int maxp) {
   const int b = blockIdx.x, h = blockIdx.y;
-  const int vec = 16 / sizeof(T);
-  const int chunks = d / vec;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = d * static_cast<int>(sizeof(T)) / 16;
   const int st = start[b];
   const int sp = span == nullptr ? 1 : span[b];
-  for (int i = threadIdx.x; i < sp * chunks; i += NT) {
-    const int j = i / chunks, part = i % chunks, t = st + j;
-    if (t >= maxp * ps) continue;
+  for (int j = blockIdx.z * (NT / 32) + warp; j < sp;
+       j += gridDim.z * (NT / 32)) {
+    const int t = st + j;
+    if (t >= maxp * ps) continue;           // warp-uniform
     const int page = bt[b * maxp + t / ps];
     if (page < 0) continue;
     const size_t dst =
-        ((static_cast<size_t>(page) * hkv + h) * ps + t % ps) * d + part * vec;
-    const size_t src =
-        ((static_cast<size_t>(b) * hkv + h) * c + j) * d + part * vec;
-    *reinterpret_cast<uint4*>(kp + dst) =
-        *reinterpret_cast<const uint4*>(kn + src);
-    *reinterpret_cast<uint4*>(vp + dst) =
-        *reinterpret_cast<const uint4*>(vn + src);
+        ((static_cast<size_t>(page) * hkv + h) * ps + t % ps) * d;
+    const size_t src = ((static_cast<size_t>(b) * hkv + h) * c + j) * d;
+    for (int i = lane; i < 2 * chunks; i += 32) {
+      const int part = i >> 1;
+      uint4* to = reinterpret_cast<uint4*>((i & 1 ? vp : kp) + dst) + part;
+      *to = reinterpret_cast<const uint4*>((i & 1 ? vn : kn) + src)[part];
+    }
   }
 }
 

@@ -273,12 +273,14 @@ __global__ void __launch_bounds__(NT)
                    h, c, r, L, ps, maxp, scale);
 }
 
-// The fused write of the float kernels, as its own launch: grid (B);
-// token j < span[b] of row b (span == nullptr: one token at start[b])
-// lands in page bt[b, (start+j)/ps] slot (start+j)%ps, the whole Dp row
-// (pad columns included) copied 16 bytes at a time; -1 pages and
-// positions past the table drop.  latent_new is [B, c, Dp] in the pool's
-// dtype (the wrapper casts), so the copy is bitwise.
+// The fused write of the float kernels, as its own launch: grid (B, Z),
+// the span's rows spread over the Z blocks of a batch row (the decode
+// kernel launches Z = 1), one warp per row; token j < span[b] of row b
+// (span == nullptr: one token at start[b]) lands in page bt[b,
+// (start+j)/ps] slot (start+j)%ps, the whole Dp row (pad columns included)
+// copied 16 bytes a lane; -1 pages and positions past the table drop.
+// latent_new is [B, c, Dp] in the pool's dtype (the wrapper casts), so the
+// copy is bitwise.
 template <typename T>
 __global__ void __launch_bounds__(NT)
     write_latent(T* __restrict__ pool, const T* __restrict__ lnew,
@@ -286,21 +288,31 @@ __global__ void __launch_bounds__(NT)
                  const int* __restrict__ span, int c, int dp, int ps,
                  int maxp) {
   const int b = blockIdx.x;
-  const int vec = 16 / sizeof(T);
-  const int chunks = dp / vec;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = dp * static_cast<int>(sizeof(T)) / 16;
   const int st = start[b];
   const int sp = span == nullptr ? 1 : span[b];
-  for (int i = threadIdx.x; i < sp * chunks; i += NT) {
-    const int j = i / chunks, part = i % chunks, t = st + j;
-    if (t >= maxp * ps) continue;
+  for (int j = blockIdx.y * WARPS + warp; j < sp; j += gridDim.y * WARPS) {
+    const int t = st + j;
+    if (t >= maxp * ps) continue;           // warp-uniform
     const int page = bt[b * maxp + t / ps];
     if (page < 0) continue;
-    const size_t dst =
-        (static_cast<size_t>(page) * ps + t % ps) * dp + part * vec;
-    const size_t src = (static_cast<size_t>(b) * c + j) * dp + part * vec;
-    *reinterpret_cast<uint4*>(pool + dst) =
-        *reinterpret_cast<const uint4*>(lnew + src);
+    uint4* dst = reinterpret_cast<uint4*>(
+        pool + (static_cast<size_t>(page) * ps + t % ps) * dp);
+    const uint4* src = reinterpret_cast<const uint4*>(
+        lnew + (static_cast<size_t>(b) * c + j) * dp);
+    for (int i = lane; i < chunks; i += 32) dst[i] = src[i];
   }
+}
+
+// Launch write_latent over (B, ceil(c / WARPS)) blocks; the CUDA status.
+template <typename T>
+int launch_write_latent(T* pool, const void* lnew, const int* bt,
+                        const int* start, const int* span, int b, int c,
+                        int dp, int ps, int maxp, cudaStream_t stream) {
+  write_latent<T><<<dim3(b, (c + WARPS - 1) / WARPS), NT, 0, stream>>>(
+      pool, static_cast<const T*>(lnew), bt, start, span, c, dp, ps, maxp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The quantizing write of the _quant kernels, as its own launch: grid (B,
@@ -359,10 +371,9 @@ int run_float(const float* q, float* ctx, void* pool, const void* lnew,
               cudaStream_t stream) {
   if (b == 0 || c == 0 || h == 0) return 0;
   T* p = static_cast<T*>(pool);
-  write_latent<T><<<b, NT, 0, stream>>>(p, static_cast<const T*>(lnew), bt,
-                                        start, span, c, dp, ps, maxp);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = launch_write_latent(p, lnew, bt, start, span, b, c, dp, ps,
+                                      maxp, stream);
+  if (err) return err;
   const int L = r + rd;
 #define MLA_FLOAT(RV)                                                       \
   return launch_attend(attend_float<T, RV>, b, h, c, L, stream, q, ctx,     \

@@ -1,6 +1,8 @@
-// The tensor-core walk of chunked mixed-step MLA over a quantized latent
-// page pool (sm_90a): paged_mla_chunk_quant's attend.  mla::attend
-// (mla_common.cuh) stays the walk of the float-pool and decode kernels.
+// The tensor-core walk of chunked mixed-step MLA over a paged latent pool
+// (sm_90a): the attend of paged_mla_chunk (bf16 pool) and of
+// paged_mla_chunk_quant (int8 / e4m3 pool).  The pool is a policy of the
+// walk (CodePool, Bf16Pool below); mla::attend (mla_common.cuh) stays the
+// walk of the float32-pool and decode kernels.
 //
 // MLA is multi-query attention: every head of every span position scores
 // the same latent rows concat([ckv; krope]) (L = r + rd live features),
@@ -9,29 +11,37 @@
 // m16 tile of them: at H 16 a span-1 decode row is one full tile, and
 // every latent row a block gathers serves all of its 16 rows.
 //
-// walk, grid (B, ymax = max(2·tiles, nsplit)), 4 warps, 2 blocks an SM:
+// walk, grid (B, ymax = max(2·tiles, nsplit)), 4 warps:
 //   - Rows m < span·H are live; tiles past them are zeroed by the block
 //     of their index.  A row of T live tiles and keys [0, hi) gives each
 //     tile ns = min(ymax / T, nsplit, ceil(hi / min_len)) blocks (at least
 //     1), read from start and span on the card: decode rows spread over up
 //     to nsplit blocks, prompt chunks over their tiles and the grid's
 //     spare blocks; block i walks tile i / ns over the (i % ns)-th run of
-//     ceil(hi / ns) keys (whole key tiles).  nsplit and min_len come from
+//     ceil(hi / ns) keys (whole 32-key runs).  nsplit and min_len come from
 //     shapes alone (paged_mla_chunk_quant.py · split_plan).
 //   - q (float32) enters as three bf16 terms hi + mid + lo (each remainder
 //     exact in float32, the sum within 2^-24 of q), built once a block into
 //     shared memory ([3][16][L16 + 8] bf16, 56 KB at L 576; ldmatrix reads
 //     the A fragments) from 16-byte loads, six in flight a thread.  That
 //     keeps the scores float32 in effect.
-//   - Latent rows are gathered through the block table by cp.async as raw
-//     bytes (L rounded up to 16 bytes a row, 576 at DeepSeek-V2-Lite, not
-//     2,304 as float) with their f32 scales, in a two-stage ring of 32
-//     keys: the next tile's gather overlaps this tile's MMAs.  int8 and
-//     e4m3 codes are exact in bf16: B fragments are built from the bytes
-//     (Codec::quad_bf16) as the MMAs need them, no converted tile: each
-//     byte is read by one warp (S splits L, P·V splits the columns).  An S
-//     step permutes its k order so a fragment is one 4-byte load.
-//     Columns at or past L (the pool's pad) are zeroed in the fragment:
+//   - Latent rows are gathered through the block table by cp.async (the
+//     row's live columns rounded up to 16 bytes, rows padded to an odd
+//     count of 16 B so the 8 rows of a fragment fall in 8 bank groups) in
+//     a two-stage ring of KT keys: the next tile's gather overlaps this
+//     tile's MMAs.
+//       CodePool (int8 / e4m3, one f32 scale a row; KT 32, 576 B a row at
+//       DeepSeek-V2-Lite, not 2,304 as float): the codes are exact in
+//       bf16, and B fragments are built from the bytes (Codec::quad_bf16)
+//       as the MMAs need them, no converted tile: each byte is read by one
+//       warp (S splits L, P·V splits the columns).  An S step permutes its
+//       k order so a fragment is one 4-byte load; V fragments are one
+//       ldmatrix.trans of the bytes (a b16 unit = two columns) and byte
+//       permutes.
+//       Bf16Pool (1,152 B a row): a bf16 row is a B fragment as it lands:
+//       S fragments by ldmatrix in natural k order, V fragments by
+//       ldmatrix.trans, as flash_fwd_mma reads its tiles; no scale.
+//     Columns at or past L (the pool's pad) are zeroed in the S fragment:
 //     never scored.
 //   - S = Q·K^T on mma.sync.m16n8k16 (bf16 in, float32 accumulators): the
 //     warps split the k16 steps over L (warp w takes w, w+4, ...), three
@@ -39,27 +49,26 @@
 //     scores meet in shared memory and every warp sums the four in the
 //     same order, so all hold the same S and the same softmax state.  (8
 //     warps, splitting the keys too, measured slower: PERF.md.)
-//   - The row's scale and the softmax scale multiply the score column
-//     after the MMA (s · s_t · scale · log2 e); online softmax with exp2f
-//     in float32, guarded as flash_fwd_mma's.  l sums the float32 p.
-//   - O += (p · s_t) · V: the V scale folds into P (V is the row's first r
-//     columns, so s_t is the same scale), which enters as three bf16 terms
-//     by truncation (tc::split_trunc: logic ops, no conversion
+//   - The softmax scale (CodePool: times the row's scale) multiplies the
+//     score column after the MMA (s · scale · log2 e); online softmax with
+//     exp2f in float32, guarded as flash_fwd_mma's.  l sums the float32 p.
+//   - O += P · V (CodePool: (p · s_t) · V, the V scale folded into P: V is
+//     the row's first r columns, so s_t is the same scale), P as three
+//     bf16 terms by truncation (tc::split_trunc: logic ops, no conversion
 //     instructions; two terms left the float32 rule under a 2x margin in
 //     the CPU emulation of tests/test_torch_quant_mma.py, three keep it at
-//     about 0.2 of it);
-//     V fragments come from the same raw tile (4 bytes a fragment from 4
-//     rows by one ldmatrix.trans and byte permutes).  Warp w owns value
-//     columns 32·(w + 4k): 64 accumulators a thread at r = 512.
+//     about 0.2 of it).  Warp w owns value columns 32·(w + 4k): 64
+//     accumulators a thread at r = 512.
 //   - One split: the block writes ctx = O / l (0 where l = 0 or the row is
 //     past the span).  Several: it writes the float32 partial (O, m, l) of
 //     each row into scratch, and combine (a second launch, grid (B,
 //     ymax / 2, 16)) forms ctx = sum 2^(m_i - M)·O_i / sum 2^(m_i -
 //     M)·l_i over the splits with a live key, M = max m_i.
-// Shared memory at L 576: q terms 56,064 B + raw ring 37,888 + scales 256
-// + score exchange 10,240 = 104,448 B (dynamic); ptxas -v (sm_90a): 220
-// (int8) / 231 (fp8) registers, no spill: two blocks an SM (PERF.md,
-// kernel table row 7).
+// Shared memory at L 576 (PERF.md, kernel table rows 6 and 7): q terms
+// 56,064 B; CodePool: raw ring 37,888 + scales 256 + score exchange 10,240
+// = 104,448 B, ptxas -v (sm_90a) 220 (int8) / 231 (fp8) registers, no
+// spill: two blocks an SM.  Bf16Pool: a ring of 16 keys 37,376 + exchange
+// 6,144 = 99,584 B, two blocks an SM (32 keys: 141,056 B, one).
 #pragma once
 
 #include "mma_common.cuh"
@@ -72,15 +81,27 @@ using bf16 = __nv_bfloat16;
 constexpr int NT = 128;            // threads a block
 constexpr int NW = NT / 32;        // warps
 constexpr int ROWS = 16;           // (position, head) rows a block
-constexpr int KT = 32;             // keys a tile
-constexpr int NK = KT / 8;         // n8 key tiles a tile (S)
+constexpr int SPLIT_KT = 32;       // a split's keys: whole runs of 32
 constexpr int NQ = 3;              // bf16 terms of q
-constexpr int NP = 3;              // bf16 terms of p · s_t
+constexpr int NP = 3;              // bf16 terms of p (· s_t)
 constexpr int MAX_R = 512;         // value columns
 constexpr int NV4 = MAX_R / 32 / NW;   // 32-column value groups a warp
-constexpr int XS = KT + 8;         // row stride of the score exchange
 constexpr int MAX_SPLITS = 32;     // the combine's weights: one a lane
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Pool policies of the walk (see the note above).  KT: keys a tile (it
+// divides SPLIT_KT); BLOCKS: the blocks an SM its shared memory allows at
+// L 576.
+template <class Codec_>
+struct CodePool {                  // int8 / e4m3 codes, f32 row scales
+  using Codec = Codec_;
+  static constexpr bool CODES = true;
+  static constexpr int ELEM = 1, KT = 32, BLOCKS = 2;
+};
+struct Bf16Pool {                  // bf16 rows
+  static constexpr bool CODES = false;
+  static constexpr int ELEM = 2, KT = 16, BLOCKS = 2;
+};
 
 // Byte offsets of the dynamic shared memory of a walk over L features.
 struct Layout {
@@ -91,16 +112,23 @@ struct Layout {
   int raw_off, sc_off, xs_off, bytes;
 };
 
+template <class P>
 __host__ __device__ inline Layout layout(int L) {
   Layout y;
   y.lq = (L + 15) / 16 * 16;
   y.qs = y.lq + 8;
-  y.rs = 16 * ((y.lq / 16) | 1);
+  y.rs = 16 * ((y.lq * P::ELEM / 16) | 1);
   y.raw_off = NQ * ROWS * y.qs * 2;
-  y.sc_off = y.raw_off + 2 * KT * y.rs;
-  y.xs_off = y.sc_off + 2 * KT * 4;
-  y.bytes = y.xs_off + NW * ROWS * XS * 4;
+  y.sc_off = y.raw_off + 2 * P::KT * y.rs;
+  y.xs_off = y.sc_off + (P::CODES ? 2 * P::KT * 4 : 0);
+  y.bytes = y.xs_off + NW * ROWS * (P::KT + 8) * 4;
   return y;
+}
+
+// A bf16 pair's mask: both kept where keep >= 2 columns are live, the low
+// (lower-column) half where 1, none where 0.
+__device__ __forceinline__ uint32_t pair_mask(int keep) {
+  return keep >= 2 ? 0xffffffffu : keep == 1 ? 0x0000ffffu : 0u;
 }
 
 constexpr int ROW_BLOCKS = 2;      // grid rows a batch row: 2 a tile
@@ -119,26 +147,30 @@ __host__ __device__ __forceinline__ int row_splits(int tlive, int hi,
   return ns > 1 ? ns : 1;
 }
 
-// Keys a split of a row's [0, hi) takes: a whole number of key tiles.
+// Keys a split of a row's [0, hi) takes: a whole number of 32-key runs.
 __host__ __device__ __forceinline__ int split_keys(int hi, int ns) {
-  return ((hi + ns - 1) / ns + KT - 1) / KT * KT;
+  return ((hi + ns - 1) / ns + SPLIT_KT - 1) / SPLIT_KT * SPLIT_KT;
 }
 
-// The k order of an S step: the MMA's k slots 2j, 2j+1, 2j+8, 2j+9 (a
-// thread's B elements) take latent columns 4j..4j+3 of the 16, so a B
+// The k order of a CodePool S step: the MMA's k slots 2j, 2j+1, 2j+8, 2j+9
+// (a thread's B elements) take latent columns 4j..4j+3 of the 16, so a B
 // fragment is one 4-byte load of the raw row; q's terms are stored in the
 // same order (column 4j + e of a 16 in slot 2j + (e & 1) + 8·(e >> 1)).
+// A Bf16Pool step keeps the natural order.
 
-template <class Codec>
-__global__ void __launch_bounds__(NT, 2)
+template <class P>
+__global__ void __launch_bounds__(NT, P::BLOCKS)
     walk(const float* __restrict__ q, float* __restrict__ ctx,
          const uint8_t* __restrict__ pool, const float* __restrict__ scales,
          const int* __restrict__ bt, const int* __restrict__ start,
          const int* __restrict__ span, float* __restrict__ part_o,
          float* __restrict__ part_ml, int h, int c, int r, int L, int dp,
          int ps, int maxp, int nsplit, int min_len, float scale_log2) {
+  constexpr int KT = P::KT;        // keys a tile
+  constexpr int NK = KT / 8;       // n8 key tiles a tile (S)
+  constexpr int XS = KT + 8;       // row stride of the score exchange
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout y = layout(L);
+  const Layout y = layout<P>(L);
   bf16* qs = reinterpret_cast<bf16*>(smem);             // [NQ][ROWS][qs]
   uint8_t* raw = smem + y.raw_off;                      // [2][KT][rs]
   float* sc = reinterpret_cast<float*>(smem + y.sc_off);   // [2][KT]
@@ -179,11 +211,13 @@ __global__ void __launch_bounds__(NT, 2)
   const int k_lo = split * per;
   const int k_hi = min(hi, k_lo + per);
   const int ntiles = k_hi > k_lo ? (k_hi - k_lo + KT - 1) / KT : 0;
-  const int chunks = y.lq / 16;            // 16-byte copies a latent row
+  // 16-byte copies a latent row: its L live columns rounded up, which a
+  // pool row of Dp >= L (whole 16-byte loads) always holds.
+  const int chunks = (L * P::ELEM + 15) / 16;
   const int* bt_row = bt + static_cast<size_t>(b) * maxp;
 
-  // Four threads a key: one table lookup a tile, then every fourth
-  // 16-byte chunk of the row (a warp's copies cover 8 rows' 64 B runs).
+  // NT / KT threads a key: one table lookup a tile, then every (NT /
+  // KT)-th 16-byte chunk of the row.
   constexpr int TPK = NT / KT;
   const int lkey = tid / TPK, lpart = tid % TPK;
   auto load = [&](int stage, int t0) {
@@ -193,17 +227,19 @@ __global__ void __launch_bounds__(NT, 2)
     if (page < 0) page = 0;                // -1 entries read page 0
     const size_t row = static_cast<size_t>(page) * ps + (in ? t % ps : 0);
     uint8_t* dst = raw + (stage * KT + lkey) * y.rs;
-    const uint8_t* src = pool + row * dp;
+    const uint8_t* src = pool + row * dp * P::ELEM;
     for (int ch = lpart; ch < chunks; ch += TPK)
       tc::cp_async16(dst + ch * 16, src + ch * 16, in);
-    if (lpart == 0) tc::cp_async4(sc + stage * KT + lkey, scales + row, in);
+    if constexpr (P::CODES)
+      if (lpart == 0) tc::cp_async4(sc + stage * KT + lkey, scales + row, in);
   };
 
   if (ntiles > 0) {
     // q rows from global memory four floats a load (16 bytes where L is a
     // multiple of 4), QB loads in flight a thread, split into the bf16
-    // terms in registers: columns 4j..4j+3 of a 16 land in k slots 2j,
-    // 2j+1 and 2j+8, 2j+9, two 4-byte stores a term.
+    // terms in registers, two 4-byte stores a term: CodePool's columns
+    // 4j..4j+3 of a 16 land in k slots 2j, 2j+1 and 2j+8, 2j+9, Bf16Pool's
+    // in their own.
     constexpr int QB = 6;
     const int q4 = y.lq / 4;
     const bool vec = (L & 3) == 0;
@@ -236,13 +272,16 @@ __global__ void __launch_bounds__(NT, 2)
         bf16 t[4][NQ];
 #pragma unroll
         for (int e = 0; e < 4; ++e) tc::split_bf16<NQ>(v[u][e], t[e]);
-        const int at = rr * y.qs + (col & ~15) + 2 * ((col >> 2) & 3);
+        const int at = rr * y.qs + (P::CODES ? (col & ~15) +
+                                               2 * ((col >> 2) & 3)
+                                             : col);
+        constexpr int HI = P::CODES ? 8 : 2;   // slot of columns 4j + 2, 3
 #pragma unroll
         for (int i = 0; i < NQ; ++i) {
           bf16* dst = qs + i * ROWS * y.qs + at;
           *reinterpret_cast<__nv_bfloat162*>(dst) =
               __halves2bfloat162(t[0][i], t[1][i]);
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8) =
+          *reinterpret_cast<__nv_bfloat162*>(dst + HI) =
               __halves2bfloat162(t[2][i], t[3][i]);
         }
       }
@@ -296,21 +335,41 @@ __global__ void __launch_bounds__(NT, 2)
       for (int i = 0; i < NQ; ++i)
         tc::ldmatrix_x4(af[i], qs + (i * ROWS + (lane & 15)) * y.qs +
                                    ks * 16 + (lane >> 4) * 8);
-      // Columns 4j..4j+3 of this step; those at or past L (the pool's
-      // pad, only in the last step) are zeroed: never scored.
-      const int col = ks * 16 + 4 * j4;
-      const int keep = L - col;
-      const uint32_t mask = keep >= 4   ? 0xffffffffu
-                            : keep <= 0 ? 0u
-                                        : (1u << (8 * keep)) - 1u;
+      if constexpr (P::CODES) {
+        // Columns 4j..4j+3 of this step; those at or past L (the pool's
+        // pad, only in the last step) are zeroed: never scored.
+        const int col = ks * 16 + 4 * j4;
+        const int keep = L - col;
+        const uint32_t mask = keep >= 4   ? 0xffffffffu
+                              : keep <= 0 ? 0u
+                                          : (1u << (8 * keep)) - 1u;
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const uint32_t w = mask & *reinterpret_cast<const uint32_t*>(
-                                      kt + (n * 8 + g) * y.rs + col);
-        uint32_t b0, b1;
-        Codec::quad_bf16(w, b0, b1);
+        for (int n = 0; n < NK; ++n) {
+          const uint32_t w = mask & *reinterpret_cast<const uint32_t*>(
+                                        kt + (n * 8 + g) * y.rs + col);
+          uint32_t b0, b1;
+          P::Codec::quad_bf16(w, b0, b1);
 #pragma unroll
-        for (int i = 0; i < NQ; ++i) tc::mma_bf16(sa[i][n], af[i], b0, b1);
+          for (int i = 0; i < NQ; ++i) tc::mma_bf16(sa[i][n], af[i], b0, b1);
+        }
+      } else {
+        // A thread's columns 2j, 2j+1 (b0) and 2j+8, 2j+9 (b1) of this
+        // step; those at or past L (the row's pad, or what the ring held
+        // before) are zeroed: never scored.
+        const int col = ks * 16 + 2 * j4;
+        const uint32_t m0 = pair_mask(L - col), m1 = pair_mask(L - col - 8);
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 2; ++n2) {
+          uint32_t kb[4];
+          tc::ldmatrix_x4(
+              kb, kt + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * y.rs +
+                      (ks * 16 + ((lane >> 3) & 1) * 8) * 2);
+#pragma unroll
+          for (int i = 0; i < NQ; ++i) {
+            tc::mma_bf16(sa[i][2 * n2], af[i], kb[0] & m0, kb[1] & m1);
+            tc::mma_bf16(sa[i][2 * n2 + 1], af[i], kb[2] & m0, kb[3] & m1);
+          }
+        }
       }
     }
     float* xw = xs + warp * ROWS * XS;
@@ -325,8 +384,9 @@ __global__ void __launch_bounds__(NT, 2)
                             sa[2][n][2 * hf + 1]);
     __syncthreads();
 
-    // S (every warp sums the four shares in the same order), scaled by
-    // each key's scale, masked, then the online softmax of rows g, g + 8.
+    // S (every warp sums the four shares in the same order), scaled
+    // (CodePool: also by each key's scale), masked, then the online softmax
+    // of rows g, g + 8.
     float s[NK][4];
     float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
@@ -337,7 +397,10 @@ __global__ void __launch_bounds__(NT, 2)
         const int at = (g + 8 * rr) * XS + kk;
         float x = ((xs[at] + xs[ROWS * XS + at]) + xs[2 * ROWS * XS + at]) +
                   xs[3 * ROWS * XS + at];
-        x *= sct[kk] * scale_log2;
+        if constexpr (P::CODES)
+          x *= sct[kk] * scale_log2;
+        else
+          x *= scale_log2;
         if (!on[rr] || t >= k_hi || t > pos[rr]) x = -INFINITY;
         s[n][e] = x;
         mx[rr] = fmaxf(mx[rr], x);
@@ -365,16 +428,20 @@ __global__ void __launch_bounds__(NT, 2)
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(s[n][e] - mu[e >> 1]);
         lrow[e >> 1] += p;
-        s[n][e] = p * sct[n * 8 + 2 * j4 + (e & 1)];   // p · s_t
+        if constexpr (P::CODES)
+          s[n][e] = p * sct[n * 8 + 2 * j4 + (e & 1)];   // p · s_t
+        else
+          s[n][e] = p;
       }
     }
 
-    // O += (P · s_t) V over this warp's 32-column groups, P in three bf16
-    // terms.  One ldmatrix.trans of the raw bytes (a b16 unit = two
-    // columns) gives a thread keys 2j, 2j+1 (and 2j+8, 2j+9) at columns
-    // 2g, 2g+1 of 16; byte permutes part them into the even-column and the
-    // odd-column n8 tiles.  A group past r reads clamped columns and is
-    // never stored: no branch in the loop.
+    // O += P V (CodePool: P · s_t) over this warp's 32-column groups, P in
+    // three bf16 terms.  CodePool: one ldmatrix.trans of the raw bytes (a
+    // b16 unit = two columns) gives a thread keys 2j, 2j+1 (and 2j+8,
+    // 2j+9) at columns 2g, 2g+1 of 16; byte permutes part them into the
+    // even-column and the odd-column n8 tiles.  Bf16Pool: ldmatrix.trans
+    // of the rows gives the n8 tiles of 16 columns.  A group past r reads
+    // clamped columns and is never stored: no branch in the loop.
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
       uint32_t p0[NP], p1[NP], p2[NP], p3[NP];
@@ -384,24 +451,44 @@ __global__ void __launch_bounds__(NT, 2)
       tc::split_trunc<NP>(s[2 * kk + 1][2], s[2 * kk + 1][3], p3);
       const uint8_t* v0 =
           kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * y.rs;
+      if constexpr (!P::CODES) {
 #pragma unroll
-      for (int k4 = 0; k4 < NV4; ++k4) {
-        const int grp = warp + NW * k4;
-        uint32_t r4[4];
-        tc::ldmatrix_x4_trans(
-            r4, v0 + min(grp * 32 + (lane >> 4) * 16, y.lq - 16));
+        for (int k4 = 0; k4 < NV4; ++k4) {
+          const int grp = warp + NW * k4;
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-#pragma unroll
-          for (int odd = 0; odd < 2; ++odd) {
-            uint32_t b0, b1;
-            Codec::quad_bf16(__byte_perm(r4[2 * hf], r4[2 * hf + 1],
-                                         odd ? 0x7531 : 0x6420),
-                             b0, b1);
+          for (int hf = 0; hf < 2; ++hf) {
+            uint32_t vb[4];
+            tc::ldmatrix_x4_trans(
+                vb, v0 + 2 * min(grp * 32 + hf * 16 + (lane >> 4) * 8,
+                                 y.lq - 8));
 #pragma unroll
             for (int i = 0; i < NP; ++i) {
               const uint32_t pa[4] = {p0[i], p1[i], p2[i], p3[i]};
-              tc::mma_bf16(o[4 * k4 + 2 * hf + odd], pa, b0, b1);
+              tc::mma_bf16(o[4 * k4 + 2 * hf], pa, vb[0], vb[1]);
+              tc::mma_bf16(o[4 * k4 + 2 * hf + 1], pa, vb[2], vb[3]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k4 = 0; k4 < NV4; ++k4) {
+          const int grp = warp + NW * k4;
+          uint32_t r4[4];
+          tc::ldmatrix_x4_trans(
+              r4, v0 + min(grp * 32 + (lane >> 4) * 16, y.lq - 16));
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+            for (int odd = 0; odd < 2; ++odd) {
+              uint32_t b0, b1;
+              P::Codec::quad_bf16(__byte_perm(r4[2 * hf], r4[2 * hf + 1],
+                                              odd ? 0x7531 : 0x6420),
+                                  b0, b1);
+#pragma unroll
+              for (int i = 0; i < NP; ++i) {
+                const uint32_t pa[4] = {p0[i], p1[i], p2[i], p3[i]};
+                tc::mma_bf16(o[4 * k4 + 2 * hf + odd], pa, b0, b1);
+              }
             }
           }
         }
@@ -431,25 +518,44 @@ __global__ void __launch_bounds__(NT, 2)
         part_ml[2 * prow + 1] = lsum[e];
       }
     }
-    // Group grp's half hf: this thread's columns base .. base + 3 are the
-    // even tile's 2j, the odd tile's 2j, the even's 2j+1, the odd's 2j+1.
+    if constexpr (!P::CODES) {
+      // Group grp's n8 tile n: this thread's columns grp·32 + 8n + 2j, +1.
 #pragma unroll
-    for (int k4 = 0; k4 < NV4; ++k4) {
-      const int grp = warp + NW * k4;
+      for (int k4 = 0; k4 < NV4; ++k4) {
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int base = grp * 32 + hf * 16 + 4 * j4;
-        const float* ev = o[4 * k4 + 2 * hf];
-        const float* od = o[4 * k4 + 2 * hf + 1];
-        const float v4[4] = {ev[2 * e] * mul, od[2 * e] * mul,
-                             ev[2 * e + 1] * mul, od[2 * e + 1] * mul};
-        if (base + 4 <= r && (r & 3) == 0) {
-          *reinterpret_cast<float4*>(dst + base) =
-              make_float4(v4[0], v4[1], v4[2], v4[3]);
-        } else {
+        for (int n = 0; n < 4; ++n) {
+          const int col = (warp + NW * k4) * 32 + 8 * n + 2 * j4;
+          const float v0 = o[4 * k4 + n][2 * e] * mul;
+          const float v1 = o[4 * k4 + n][2 * e + 1] * mul;
+          if (col + 2 <= r && (r & 1) == 0) {
+            *reinterpret_cast<float2*>(dst + col) = make_float2(v0, v1);
+          } else {
+            if (col < r) dst[col] = v0;
+            if (col + 1 < r) dst[col + 1] = v1;
+          }
+        }
+      }
+    } else {
+      // Group grp's half hf: this thread's columns base .. base + 3 are the
+      // even tile's 2j, the odd tile's 2j, the even's 2j+1, the odd's 2j+1.
 #pragma unroll
-          for (int x = 0; x < 4; ++x)
-            if (base + x < r) dst[base + x] = v4[x];
+      for (int k4 = 0; k4 < NV4; ++k4) {
+        const int grp = warp + NW * k4;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int base = grp * 32 + hf * 16 + 4 * j4;
+          const float* ev = o[4 * k4 + 2 * hf];
+          const float* od = o[4 * k4 + 2 * hf + 1];
+          const float v4[4] = {ev[2 * e] * mul, od[2 * e] * mul,
+                               ev[2 * e + 1] * mul, od[2 * e + 1] * mul};
+          if (base + 4 <= r && (r & 3) == 0) {
+            *reinterpret_cast<float4*>(dst + base) =
+                make_float4(v4[0], v4[1], v4[2], v4[3]);
+          } else {
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              if (base + x < r) dst[base + x] = v4[x];
+          }
         }
       }
     }
@@ -523,11 +629,12 @@ __global__ void __launch_bounds__(NT)
     if (threadIdx.x + NT * k < r) dst[threadIdx.x + NT * k] = acc[k] * inv;
 }
 
-// The walk (and, with several splits, the combine) over a pool of codec
-// Codec; returns the CUDA status.  part: B·ymax·ROWS·(r + 2) floats of
-// scratch, ymax = max(ROW_BLOCKS·tiles, nsplit), when nsplit > 1 (O
-// partials, then (m, l) pairs).
-template <class Codec>
+// The walk (and, with several splits, the combine) over a pool of policy
+// P; returns the CUDA status.  scales: a CodePool's row scales (a Bf16Pool
+// takes none).  part: B·ymax·ROWS·(r + 2) floats of scratch, ymax =
+// max(ROW_BLOCKS·tiles, nsplit), when nsplit > 1 (O partials, then (m, l)
+// pairs).
+template <class P>
 int attend(const float* q, float* ctx, const void* pool, const float* scales,
            const int* bt, const int* start, const int* span, float* part,
            int b, int h, int c, int r, int L, int dp, int ps, int maxp,
@@ -535,9 +642,9 @@ int attend(const float* q, float* ctx, const void* pool, const float* scales,
   if (r > MAX_R || nsplit < 1 || nsplit > MAX_SPLITS || min_len < 1 ||
       (nsplit > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout y = layout(L);
+  const Layout y = layout<P>(L);
   cudaError_t err = cudaFuncSetAttribute(
-      walk<Codec>, cudaFuncAttributeMaxDynamicSharedMemorySize, y.bytes);
+      walk<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, y.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (c * h + ROWS - 1) / ROWS;
   const int ymax = max(ROW_BLOCKS * tiles, nsplit);
@@ -545,7 +652,7 @@ int attend(const float* q, float* ctx, const void* pool, const float* scales,
   float* part_ml = part == nullptr
                        ? nullptr
                        : part + static_cast<size_t>(b) * ymax * ROWS * r;
-  walk<Codec><<<dim3(b, ymax), NT, y.bytes, stream>>>(
+  walk<P><<<dim3(b, ymax), NT, y.bytes, stream>>>(
       q, ctx, static_cast<const uint8_t*>(pool), scales, bt, start, span,
       part_o, part_ml, h, c, r, L, dp, ps, maxp, nsplit, min_len,
       scale * LOG2E);

@@ -46,9 +46,10 @@ extern "C" int paged_chunk_attention_quant(
                                   maxp, s);
   if (err) return err;
 #define RT_CALL(T, C)                                                       \
-  attend_mma::attend<T, C>(q, out, k_pages, v_pages, k_scales, v_scales,   \
-                           block_tables, start, span, part, b, hq, hkv, c,  \
-                           d, ps, maxp, scale, window, nsplit, split_len, s)
+  attend_mma::attend<T, attend_mma::CodePool<C>>(                          \
+      q, out, k_pages, v_pages, k_scales, v_scales, block_tables, start,    \
+      span, part, b, hq, hkv, c, d, ps, maxp, scale, window, nsplit,        \
+      split_len, s)
   RT_DISPATCH_QUANT(dtype, qdtype, RT_CALL);
 #undef RT_CALL
 }

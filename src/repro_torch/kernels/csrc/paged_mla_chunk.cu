@@ -11,31 +11,55 @@
 // every latent row read serves 16·span query rows at 2·(L + r) FLOPs
 // each, so prompt chunks sit near or above the card's ridge and decode
 // rows below it; chip_smoke.py computes which from the run's own spans.
-// The scores here are float32 FMAs from shared memory (no tensor cores):
-// a kernel that keeps q in float32 reaches at most TF32's share of the
-// bf16 peak.
+// The FMA walk this replaces on bf16 pools took 0.973 ms against a byte
+// bound of 0.00615 ms on the H100 (PERF.md).
 //
 // Design: write_latent copies the span's Dp-wide rows first (its own
-// launch, so every row a query may read is resident before any block
-// reads it, and a -1 entry reads page 0 as the plain version does).  Then
-// one block per (batch row, tile of 16 of the H·C query rows) walks the
-// row's latent rows 32 at a time: each row is loaded once into shared
-// memory and serves as the key (L features) and the value (its first r)
-// of all 16 query rows.  Blocks whose rows all lie past the span write
-// zeros and read no rows.  Dynamic shared memory (113 KB at L = 576).
+// launch over (B, ceil(C / 4)) blocks, one warp a row, so every row a
+// query may read is resident before any block reads it, and a -1 entry
+// reads page 0 as the plain version does; pool bytes bitwise).  Then:
+//   - bf16 pool: the tensor-core walk mla_mma::walk with the Bf16Pool
+//     policy (mla_mma.cuh: heads inner, one m16 tile a block, bf16 rows by
+//     cp.async in natural k order, q in three bf16 terms and P in three,
+//     the keys split over blocks by paged_mla_chunk_quant.py · split_plan,
+//     a float32 combine) — the walk of paged_mla_chunk_quant, without the
+//     scales.  No atomics.
+//   - float32 pool (the CPU-shaped tests' route): the FMA walk mla::attend
+//     (mla_common.cuh), one block per (batch row, tile of 16 of the H·C
+//     query rows), 32 latent rows a tile in dynamic shared memory.
+//
+// ptxas -v (sm_90a, -O3; build.FLAGS passes it): see PERF.md's kernel
+// table, row 6.
 #include "mla_common.cuh"
+#include "mla_mma.cuh"
 
 // dtype: pool and latent_new 0 = float32, 1 = bfloat16.  q is float32
-// [B, H, C, r+rd], ctx float32 [B, H, C, r], latent_new [B, C, dp].
-// Returns cudaGetLastError() after the launches (0 on success),
-// cudaErrorInvalidValue for an unsupported dtype or r > 512.
+// [B, H, C, r+rd], ctx float32 [B, H, C, r], latent_new [B, C, dp].  part:
+// float32 scratch of B·max(2·ceil(C·H / 16), nsplit)·16·(r + 2) when a
+// bf16 call's nsplit > 1 (else null); a row splits its keys into at most
+// nsplit runs of at least min_len keys (paged_mla_chunk_quant.py ·
+// split_plan; float32 calls pass 1).  Returns cudaGetLastError() after the
+// launches (0 on success), cudaErrorInvalidValue for an unsupported dtype
+// or r > 512.
 extern "C" int paged_mla_chunk(int dtype, const float* q, float* ctx,
                                void* latent_pages, const void* latent_new,
                                const int* block_tables, const int* start,
-                               const int* span, int b, int h, int c, int r,
-                               int rd, int dp, int ps, int maxp, float scale,
+                               const int* span, float* part, int b, int h,
+                               int c, int r, int rd, int dp, int ps, int maxp,
+                               int nsplit, int min_len, float scale,
                                void* stream) {
-  return mla::run_float(dtype, q, ctx, latent_pages, latent_new,
-                        block_tables, start, span, b, h, c, r, rd, dp, ps,
-                        maxp, scale, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return mla::run_float<float>(q, ctx, latent_pages, latent_new,
+                                 block_tables, start, span, b, h, c, r, rd,
+                                 dp, ps, maxp, scale, s);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || c == 0 || h == 0) return 0;
+  const int err = mla::launch_write_latent(
+      static_cast<__nv_bfloat16*>(latent_pages), latent_new, block_tables,
+      start, span, b, c, dp, ps, maxp, s);
+  if (err) return err;
+  return mla_mma::attend<mla_mma::Bf16Pool>(
+      q, ctx, latent_pages, nullptr, block_tables, start, span, part, b, h, c,
+      r, r + rd, dp, ps, maxp, nsplit, min_len, scale, s);
 }

@@ -43,9 +43,9 @@ int run(const float* q, float* ctx, void* pool, float* scales,
       maxp);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return mla_mma::attend<Codec>(q, ctx, p, scales, bt, start, span, part, b,
-                                h, c, r, r + rd, dp, ps, maxp, nsplit,
-                                min_len, scale, stream);
+  return mla_mma::attend<mla_mma::CodePool<Codec>>(
+      q, ctx, p, scales, bt, start, span, part, b, h, c, r, r + rd, dp, ps,
+      maxp, nsplit, min_len, scale, stream);
 }
 
 }  // namespace

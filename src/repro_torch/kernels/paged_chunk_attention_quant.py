@@ -45,16 +45,21 @@ class SplitPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
     """The split of the keys [0, cap) (cap = the table's maxp·ps) over
-    blocks, from shapes alone.
+    blocks, from shapes alone: ``plan_splits`` at this walk's
+    ``BLOCKS_PER_SM`` (two of its blocks fit an SM)."""
+    return plan_splits(b, hkv, cap, sms, BLOCKS_PER_SM)
 
-    The walk takes one block a (row, KV head); the plan aims at
-    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs (two fit an SM), or
-    more (the range length rounds down to a multiple of ``KEY_TILE``),
-    with ranges of at least ``MIN_SPLIT_LEN`` keys, at most ``MAX_SPLITS``
-    of them.  They cover [0, cap) with no gap and
-    no overlap, the last one cut at cap.  The grid is (b, hkv, nsplit)."""
+
+def plan_splits(b: int, hkv: int, cap: int, sms: int,
+                blocks_per_sm: int) -> SplitPlan:
+    """The walk takes one block a (row, KV head); the plan aims at
+    ``blocks_per_sm`` blocks on each of ``sms`` SMs, or more (the range
+    length rounds down to a multiple of ``KEY_TILE``), with ranges of at
+    least ``MIN_SPLIT_LEN`` keys, at most ``MAX_SPLITS`` of them.  They
+    cover [0, cap) with no gap and no overlap, the last one cut at cap.
+    The grid is (b, hkv, nsplit)."""
     heads = b * hkv
-    want = max(1, -(-BLOCKS_PER_SM * sms // max(heads, 1)))
+    want = max(1, -(-blocks_per_sm * sms // max(heads, 1)))
     split_len = cap // min(want, MAX_SPLITS) // KEY_TILE * KEY_TILE
     split_len = max(MIN_SPLIT_LEN, split_len, -(-cap // MAX_SPLITS))
     split_len = -(-split_len // KEY_TILE) * KEY_TILE

@@ -1,0 +1,443 @@
+"""The numerics of the two tensor-core walks over bf16 page pools
+(``csrc/mla_mma.cuh`` with the ``Bf16Pool`` policy: ``paged_mla_chunk``;
+``csrc/attend_mma.cuh`` with its ``Bf16Pool``: ``paged_chunk_attention``),
+on the CPU, where the CUDA kernels cannot run.  The emulations walk the
+keys in the kernels' order: each block's split of the keys, key tile by key
+tile (16 keys for MLA, 32 for MHA), an online softmax in float32 with exp2,
+bf16 rounding exactly where the kernel rounds, and the combine formulas.
+
+(a) The MLA walk: q (float32) as three bf16 terms in natural k order, each
+    scored against the bf16 rows (the four warps' k16 shares summed as the
+    kernel sums them), only the softmax scale on the score column, P as
+    three bf16 terms by truncation, the keys cut by ``split_plan`` and
+    ``row_splits``.  Held to ``ref.paged_mla_chunk`` at full width (16
+    heads, r 512, rd 64, max_len 1024) on the kernel phase's mixed step,
+    an agent-trial step and a scheduler decode step, within the float32
+    rule (1e-5 abs + 1e-5 rel) with a margin of at least 2x under it.
+(b) The MHA walk: bf16 q as one term, P rounded to bf16 once (relative to
+    the running max of its warp's key part), the in-block key parts of a
+    pass with fewer than 4 row tiles and the split-KV combine.  Held to
+    ``ref.paged_chunk_attention`` within the card's bf16 rule (4e-3 +
+    2^-7·|x|), with GQA groups and windows.
+(c) The bf16 MHA walk's split plan (``paged_chunk_attention.split_plan``,
+    aiming at the 3 blocks an SM that walk holds): shapes only, its ranges
+    cover [0, maxp·ps) in whole key tiles; the quantized walk's plan stays
+    what its tests pin.  The MLA walk takes ``paged_mla_chunk_quant``'s.
+(d) Both plain versions against JAX's oracles on bf16 pools.
+"""
+from __future__ import annotations
+
+import inspect
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_chunk_attention as kmha  # noqa: E402
+from repro_torch.kernels import paged_chunk_attention_quant as kmhq  # noqa: E402,E501
+from repro_torch.kernels import paged_mla_chunk as kmla_bf16  # noqa: E402
+from repro_torch.kernels import paged_mla_chunk_quant as kmla  # noqa: E402
+
+LOG2E = 1.4426950408889634
+H100_SMS = 132
+PS, MAX_LEN = 16, 1024
+MLA_KT = 16              # keys a tile of the MLA walk's Bf16Pool
+MHA_KT, MHA_BR = 32, 64  # keys a tile, query rows a pass of the MHA walk
+NW = 4                   # warps a block
+# chip_smoke.py's kernel phase, a decode-heavy agent-trial step and a
+# scheduler decode step (8 rows of span 1 in a 64-wide chunk).
+STEPS = {
+    "phase": dict(start=[0, 100, 300, 447, 700, 900, 959, 64],
+                  span=[64, 64, 1, 1, 0, 30, 64, 17], c=64),
+    "trial": dict(start=[412, 590, 733, 96], span=[1, 1, 1, 32], c=32),
+    "decode": dict(start=[412, 590, 733, 96, 1000, 17, 300, 640],
+                   span=[1] * 8, c=64),
+}
+
+
+def _terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """x (float32) as n bf16 terms, each rounded to nearest (tc::split_bf16)."""
+    out = []
+    for _ in range(n):
+        t = x.bfloat16().float()
+        out.append(t)
+        x = x - t
+    return out
+
+
+def _trunc_terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """x (float32) as n bf16 terms by truncation (tc::split_trunc)."""
+    out = []
+    for _ in range(n):
+        t = (x.view(torch.int32) & -65536).view(torch.float32)
+        out.append(t)
+        x = x - t
+    return out
+
+
+def _margin(got, want, atol, rtol) -> float:
+    """The largest error as a share of the rule atol + rtol·|want|."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _online(state, x, pterms, v):
+    """One key tile of the online softmax: x the tile's scores (base-2
+    logits, -inf where masked), ``pterms`` P's bf16 terms, v the tile's
+    value rows.  state = (m, l, o) of the rows; returns the new state."""
+    m, l, o = state
+    mn = torch.maximum(m, x.max(-1).values)
+    mu = torch.where(mn == -math.inf, 0.0, mn)
+    alpha = torch.exp2(m - mu)
+    p = torch.exp2(x - mu[..., None])
+    l = l * alpha + p.sum(-1)
+    o = o * alpha[..., None]
+    for t in pterms(p):
+        o = o + t @ v
+    return mn, l, o
+
+
+def _merge(parts):
+    """(m, l, o) of several key ranges merged by the split-KV formula:
+    weights 2^(m_i - M), M = max m_i, ranges with no live key left out."""
+    big = torch.stack([m for m, _, _ in parts]).max(0).values
+    w = [torch.where(m == -math.inf, 0.0, torch.exp2(m - big))
+         for m, _, _ in parts]
+    den = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+    num = sum(wi[..., None] * oi for wi, (_, _, oi) in zip(w, parts))
+    return big, den, num
+
+
+# -- the MLA walk -----------------------------------------------------------
+
+def _mla_inputs(seed, b, c, h, r, rd, dp, start, span, maxp):
+    """numpy inputs: q_abs / q_rope, a pool of random rows (pad columns
+    random too: never scored), a block table on a seeded permutation (row
+    1's tail at -1), new rows."""
+    rng = np.random.default_rng(seed)
+    pages = b * maxp + 1
+    q_abs = rng.normal(size=(b, h, c, r)).astype(np.float32)
+    q_rope = rng.normal(size=(b, h, c, rd)).astype(np.float32)
+    rows = rng.normal(size=(pages, PS, dp)).astype(np.float32)
+    perm = rng.permutation(b * maxp)
+    bt = np.full((b, maxp), b * maxp, np.int32)
+    used = 0
+    for i, n in enumerate(np.add(start, span)):
+        k = -(-int(n) // PS)
+        bt[i, :k] = perm[used:used + k]
+        used += k
+    bt[1, -(-int(start[1] + span[1]) // PS):] = -1
+    new = rng.normal(size=(b, c, dp)).astype(np.float32)
+    return q_abs, q_rope, rows, bt, new
+
+
+def _mla_emulation(q_abs, q_rope, pool, bt, start, span, r, scale, plan):
+    """ctx [B, H, C, r] by the walk's arithmetic (see the module note);
+    rows past the span are 0."""
+    b, h, c, _ = q_abs.shape
+    q = torch.cat([q_abs, q_rope], -1)
+    L = q.shape[-1]
+    cap = bt.shape[1] * PS
+    lat = pool.float()[bt.clamp(min=0).long()].reshape(b, cap, -1)[..., :L]
+    ymax = kmla.grid_rows(c, h, plan.nsplit)
+    # The columns of warp w's k16 steps: w, w + 4, ... (16 columns each).
+    shares = [torch.tensor([i for c0 in range(w * 16, L, NW * 16)
+                            for i in range(c0, min(c0 + 16, L))],
+                           dtype=torch.long) for w in range(NW)]
+    shares = [idx for idx in shares if len(idx)]
+    ctx = torch.zeros(b, h, c, r)
+    for bi in range(b):
+        sp, st = int(span[bi]), int(start[bi])
+        if sp == 0:
+            continue
+        live = sp * h
+        tlive = -(-live // kmla.ROWS)
+        row_hi = min(st + sp, cap)
+        ns = kmla.row_splits(tlive, row_hi, plan.nsplit, ymax,
+                             plan.split_len)
+        per = kmla.split_keys(row_hi, ns)
+        # The live rows m = j·H + h in m16 tiles: [T, 16, L] (zero rows past
+        # the span score nothing).
+        qm = torch.zeros(tlive * kmla.ROWS, L)
+        qm[:live] = q[bi, :, :sp].transpose(0, 1).reshape(live, L)
+        qt = [t.reshape(tlive, kmla.ROWS, L) for t in _terms(qm, 3)]
+        pos = st + torch.arange(tlive * kmla.ROWS) // h
+        pos = torch.where(torch.arange(tlive * kmla.ROWS) < live, pos, -1)
+        pos = pos.reshape(tlive, kmla.ROWS)
+        parts = []
+        for s in range(ns):
+            k_lo, k_hi = s * per, min(row_hi, (s + 1) * per)
+            state = (torch.full((tlive, kmla.ROWS), -math.inf),
+                     torch.zeros(tlive, kmla.ROWS),
+                     torch.zeros(tlive, kmla.ROWS, r))
+            for t0 in range(k_lo, k_hi, MLA_KT):
+                k = lat[bi, t0:min(t0 + MLA_KT, k_hi)]
+                # Each warp's k16 steps, three MMAs (one a q term) into
+                # three accumulators, summed (t0 + t1) + t2, then the four
+                # warps' shares in warp order.
+                x = 0
+                for idx in shares:
+                    d = [t[..., idx] @ k[:, idx].T for t in qt]
+                    x = x + ((d[0] + d[1]) + d[2])
+                x = x * (scale * LOG2E)
+                keys = torch.arange(t0, t0 + k.shape[0])
+                x = x.masked_fill(keys[None, None, :] > pos[..., None],
+                                  -math.inf)
+                state = _online(state, x, lambda p: _trunc_terms(p, 3),
+                                k[:, :r])
+            parts.append(state)
+        if ns == 1:
+            _, den, num = parts[0]
+        else:
+            _, den, num = _merge(parts)
+        out = torch.where(den[..., None] > 0,
+                          num * (1.0 / den.clamp(min=1e-30))[..., None], 0.0)
+        out = out.reshape(-1, r)[:live].reshape(sp, h, r)
+        ctx[bi, :, :sp] = out.transpose(0, 1)
+    return ctx
+
+
+@pytest.mark.parametrize("step", list(STEPS))
+def test_mla_bf16_walk_keeps_the_float32_rule(step):
+    r, rd, dp, h = 512, 64, 640, 16
+    start, span, c = (STEPS[step][k] for k in ("start", "span", "c"))
+    b, maxp = len(start), MAX_LEN // PS
+    q_abs, q_rope, rows, bt, new = _mla_inputs(
+        3, b, c, h, r, rd, dp, start, span, maxp)
+    pool = torch.from_numpy(rows).bfloat16()
+    st, sp, btt = torch.tensor(start), torch.tensor(span), torch.from_numpy(bt)
+    scale = (128 + rd) ** -0.5
+    want, pool = ops.paged_mla_chunk(
+        torch.from_numpy(q_abs), torch.from_numpy(q_rope), pool, btt, st, sp,
+        torch.from_numpy(new).bfloat16(), scale=scale)
+    plan = kmla_bf16.split_plan(b, c, h, maxp * PS, H100_SMS)
+    if step != "phase":
+        assert plan.nsplit > 1               # the decode rows are split
+    got = _mla_emulation(torch.from_numpy(q_abs), torch.from_numpy(q_rope),
+                         pool, btt, st, sp, r, scale, plan)
+    live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
+    got, want = torch.where(live, got, 0), torch.where(live, want, 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert _margin(got, want, 1e-5, 1e-5) <= 0.5
+
+
+# -- the MHA walk -----------------------------------------------------------
+
+def _mha_emulation(q, kp, vp, bt, start, span, scale, window, plan):
+    """out [B, Hq, C, D] bf16 by the walk's arithmetic (see the module
+    note); rows past the span are 0."""
+    b, hq, c, d = q.shape
+    hkv = kp.shape[1]
+    group = hq // hkv
+    cap = bt.shape[1] * PS
+    pages = bt.clamp(min=0).long()
+
+    def gather(x):                       # [P, Hkv, ps, D] -> [B, Hkv, cap, D]
+        return x.float()[pages].transpose(1, 2).reshape(b, hkv, cap, d)
+    kc, vc = gather(kp), gather(vp)
+    out = torch.zeros(b, hq, c, d)
+    for bi in range(b):
+        st, live = int(start[bi]), int(span[bi]) * group
+        if live == 0:
+            continue
+        ns = plan.nsplit if live <= MHA_BR else 1
+        per = -(-plan.nsplit // ns) * plan.split_len
+        # Rows m = j·group + g of each KV head: [Hkv, live, D].
+        qm = (q[bi, :, :int(span[bi])].float()
+              .reshape(hkv, group, -1, d).transpose(1, 2)
+              .reshape(hkv, live, d))
+        pos = st + torch.arange(live) // group
+        res = torch.zeros(hkv, live, d)
+        for m0 in range(0, live, MHA_BR):
+            nlive = min(MHA_BR, live - m0)
+            rows = slice(m0, m0 + nlive)
+            nrt = -(-nlive // 16)
+            ksplit = min(NW // nrt, MHA_KT // 16)
+            splits = []
+            for s in range(ns):
+                hi = min(st + (m0 + nlive - 1) // group + 1, cap,
+                         (s + 1) * per)
+                lo = max(st + m0 // group - window + 1 if window else 0,
+                         s * per)
+                # Each warp key part keeps its own state over its 16 / 32
+                # keys of every tile; the parts merge in part order.
+                kparts = []
+                for kg in range(ksplit):
+                    state = (torch.full((hkv, nlive), -math.inf),
+                             torch.zeros(hkv, nlive),
+                             torch.zeros(hkv, nlive, d))
+                    width = MHA_KT // ksplit
+                    for t0 in range(lo, hi, MHA_KT):
+                        a = t0 + kg * width
+                        keys = torch.arange(a, a + width)
+                        kk = keys.clamp(max=cap - 1)
+                        x = (qm[:, rows] @ kc[bi][:, kk].transpose(-1, -2)
+                             ) * (scale * LOG2E)
+                        p_ = pos[rows][None, :, None]
+                        dead = (keys[None, None, :] >= hi) | (
+                            keys[None, None, :] > p_)
+                        if window:
+                            dead |= keys[None, None, :] <= p_ - window
+                        x = x.masked_fill(dead, -math.inf)
+                        state = _online(state, x,
+                                        lambda p: [p.bfloat16().float()],
+                                        vc[bi][:, kk])
+                    kparts.append(state)
+                splits.append(kparts[0] if ksplit == 1 else _merge(kparts))
+            _, den, num = splits[0] if ns == 1 else _merge(splits)
+            res[:, rows] = torch.where(
+                den[..., None] > 0,
+                num * (1.0 / den.clamp(min=1e-30))[..., None], 0.0)
+        out[bi, :, :int(span[bi])] = (res.reshape(hkv, -1, group, d)
+                                      .transpose(1, 2).reshape(hq, -1, d))
+    return out.bfloat16()
+
+
+MHA_CASES = {
+    # (B, Hq, Hkv, C, D, window, start, span)
+    "olmo_phase": (8, 16, 16, 64, 128, None, STEPS["phase"]["start"],
+                   STEPS["phase"]["span"]),
+    "olmo_decode": (8, 16, 16, 64, 128, None, STEPS["decode"]["start"],
+                    STEPS["decode"]["span"]),
+    "gqa4_window16": (3, 8, 2, 16, 64, 16, [37, 5, 200], [16, 1, 9]),
+    "gqa2_window200": (3, 4, 2, 40, 128, 200, [301, 0, 650], [40, 17, 1]),
+    "gqa8_d32": (2, 16, 2, 5, 32, 1, [90, 12], [5, 3]),
+}
+
+
+def _mha_inputs(seed, case):
+    b, hq, hkv, c, d, window, start, span = case
+    rng = np.random.default_rng(seed)
+    maxp = MAX_LEN // PS
+    pages = b * maxp + 1
+    q = rng.normal(size=(b, hq, c, d)).astype(np.float32)
+    kn, vn = (rng.normal(size=(b, hkv, c, d)).astype(np.float32)
+              for _ in range(2))
+    kp, vp = (rng.normal(size=(pages, hkv, PS, d)).astype(np.float32)
+              for _ in range(2))
+    bt = rng.permutation(b * maxp).reshape(b, maxp).astype(np.int32)
+    bt[0, -1] = -1
+    return q, kn, vn, kp, vp, bt
+
+
+@pytest.mark.parametrize("name", list(MHA_CASES))
+def test_mha_bf16_walk_keeps_the_bf16_rule(name):
+    case = MHA_CASES[name]
+    b, hq, hkv, c, d, window, start, span = case
+    q, kn, vn, kp, vp, bt = _mha_inputs(4, case)
+    qt = torch.from_numpy(q).bfloat16()
+    kpt, vpt = (torch.from_numpy(x).bfloat16() for x in (kp, vp))
+    st, sp = torch.tensor(start), torch.tensor(span)
+    want, kpt, vpt = ops.paged_chunk_attention(
+        qt, kpt, vpt, torch.from_numpy(bt), st, sp,
+        torch.from_numpy(kn).bfloat16(), torch.from_numpy(vn).bfloat16(),
+        window=window)
+    plan = kmha.split_plan(b, hkv, MAX_LEN, H100_SMS)
+    got = _mha_emulation(qt, kpt, vpt, torch.from_numpy(bt), st, sp,
+                         d ** -0.5, window, plan)
+    live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
+    got = torch.where(live, got.float(), 0)
+    want = torch.where(live, want.float(), 0)
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=4e-3)
+
+
+# -- the split plans --------------------------------------------------------
+
+# (B, Hkv, cap): the agent trial, the schedulers' steps, card-test and edge
+# shapes.
+MHA_PLAN_SHAPES = [(4, 16, 1024), (8, 16, 1024), (8, 2, 1024), (2, 2, 32),
+                   (1, 1, 100_000), (64, 8, 4096), (3, 2, 48)]
+
+
+def test_bf16_mha_split_plan_reads_shapes_only():
+    assert list(inspect.signature(kmha.split_plan).parameters) == [
+        "b", "hkv", "cap", "sms"]
+
+
+@pytest.mark.parametrize("shape", MHA_PLAN_SHAPES)
+def test_bf16_mha_split_plan_covers_the_keys(shape):
+    """The bf16 walk's ranges cover [0, cap) once, in whole key tiles, and
+    the plan meets its target of ``BLOCKS_PER_SM`` blocks an SM where the
+    keys allow; the quantized walk's plan is ``plan_splits`` at its own 2
+    blocks an SM, as before."""
+    b, hkv, cap = shape
+    plan = kmha.split_plan(b, hkv, cap, H100_SMS)
+    assert 1 <= plan.nsplit <= kmhq.MAX_SPLITS
+    assert plan.split_len % kmha.KEY_TILE == 0
+    covered = np.zeros(cap, np.int64)
+    for s in range(plan.nsplit):
+        covered[s * plan.split_len:min(cap, (s + 1) * plan.split_len)] += 1
+    assert (covered == 1).all()
+    assert plan.blocks == b * hkv * plan.nsplit >= plan.target
+    assert kmhq.split_plan(b, hkv, cap, H100_SMS) == kmhq.plan_splits(
+        b, hkv, cap, H100_SMS, kmhq.BLOCKS_PER_SM)
+
+
+def test_bf16_mha_split_plan_feeds_the_card_at_the_scheduler_shape():
+    """A decode step of the OLMo-1B scheduler (8 rows, 16 KV heads): the
+    plan gives at least ``BLOCKS_PER_SM`` (3) blocks an SM, balanced
+    ranges of 256 keys."""
+    plan = kmha.split_plan(8, 16, MAX_LEN, H100_SMS)
+    assert kmha.BLOCKS_PER_SM == 3
+    assert plan.blocks >= plan.target >= kmha.BLOCKS_PER_SM * H100_SMS
+    assert (plan.nsplit, plan.split_len) == (4, 256)
+
+
+def test_bf16_mla_walk_takes_the_quantized_plan():
+    """The bf16 MLA walk runs the same grid and splits as its int8 twin:
+    its runs of ``KEY_TILE`` keys are whole 16-key tiles."""
+    assert kmla_bf16.split_plan is kmla.split_plan
+    assert kmla.KEY_TILE % MLA_KT == 0
+
+
+# -- the plain versions against JAX ----------------------------------------
+
+def test_plain_versions_match_jax_on_bf16_pools():
+    case = MHA_CASES["gqa4_window16"]
+    b, hq, hkv, c, d, window, start, span = case
+    q, kn, vn, kp, vp, bt = _mha_inputs(6, case)
+    bf = [torch.from_numpy(x).bfloat16() for x in (q, kp, vp, kn, vn)]
+    args = (np.asarray(start, np.int32), np.asarray(span, np.int32))
+    got, gk, gv = ops.paged_chunk_attention(
+        bf[0], bf[1], bf[2], torch.from_numpy(bt),
+        *map(torch.from_numpy, args), bf[3], bf[4], window=window)
+    jbf = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in bf]
+    want, jk, jv = jref.paged_chunk_attention(
+        jbf[0], jbf[1], jbf[2], jnp.asarray(bt), *map(jnp.asarray, args),
+        jbf[3], jbf[4], window=window)
+    live = np.broadcast_to((np.arange(c)[None, :] < np.asarray(span)[
+        :, None])[:, None, :, None], got.shape)
+    np.testing.assert_allclose(got.float().numpy()[live],
+                               np.asarray(want, np.float32)[live],
+                               rtol=1e-2, atol=1e-2)
+    trash = b * (MAX_LEN // PS)
+    assert np.array_equal(gk.float().numpy()[:trash],
+                          np.asarray(jk, np.float32)[:trash])
+
+    r, rd, dp, h, c = 32, 8, 128, 4, 5
+    start, span = [3, 20, 0], [5, 1, 0]
+    b, maxp = 3, 4
+    q_abs, q_rope, rows, bt, new = _mla_inputs(5, b, c, h, r, rd, dp, start,
+                                               span, maxp)
+    args = (np.asarray(start, np.int32), np.asarray(span, np.int32))
+    pool, newb = (torch.from_numpy(x).bfloat16() for x in (rows, new))
+    got, gpool = ops.paged_mla_chunk(
+        torch.from_numpy(q_abs), torch.from_numpy(q_rope), pool,
+        torch.from_numpy(bt), *map(torch.from_numpy, args), newb, scale=0.1)
+    want, jpool = jref.paged_mla_chunk(
+        jnp.asarray(q_abs), jnp.asarray(q_rope),
+        jnp.asarray(rows).astype(jnp.bfloat16), jnp.asarray(bt),
+        *map(jnp.asarray, args), jnp.asarray(newb.float().numpy()).astype(
+            jnp.bfloat16), r=r, scale=0.1)
+    live = np.broadcast_to((np.arange(c)[None, :] < np.asarray(span)[
+        :, None])[:, None, :, None], got.shape)
+    np.testing.assert_allclose(got.numpy()[live],
+                               np.asarray(want, np.float32)[live],
+                               rtol=1e-5, atol=1e-5)
+    trash = b * maxp
+    assert np.array_equal(gpool.float().numpy()[:trash],
+                          np.asarray(jpool, np.float32)[:trash])

@@ -4,9 +4,9 @@ fp8-e4m3 pools included, the four paged-MLA kernels at the full (512, 64)
 and the test (32, 8) latent widths, ``decode_attention`` up to head_dim 256,
 the RG-LRU's ``linear_scan``, the cross-pool ``page_transfer``,
 ``flash_attention`` on JAX's cases and whisper's encoder shape, the
-register-bank kernels ``lww_merge`` and ``delta_apply``, and the two
-quantized chunk kernels' tensor-core walks on spans 1..64 at page and tile
-edges, GQA groups, windows and key splits).
+register-bank kernels ``lww_merge`` and ``delta_apply``, and the four
+chunk kernels' tensor-core walks, bf16 and quantized pools, on spans 1..64
+at page and tile edges, GQA groups, windows and key splits).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -265,6 +265,39 @@ def test_flash_attention_routes_by_dtype(card):
         names = [n for n in seen if "flash_fwd" in n]
         assert names and all(want in n for n in names), seen
         assert other is None or not any(other in n for n in names), seen
+
+
+def test_chunk_walks_route_by_pool_dtype(card):
+    """bf16 pools run the tensor-core walks (``chunk_mma``,
+    ``mla_mma::walk``), float32 pools the FMA walks (``chunk_attend``,
+    ``mla::attend_float``): the profiler's kernel names tell them apart."""
+    from repro_torch.models.cache import pad128
+    r = np.random.default_rng(8)
+    b, hq, hkv, ps, maxp, d, c = 2, 8, 2, 16, 4, 64, 8
+    h, lr, rd = 16, 512, 64
+    start = _t([3, 20], torch.int32, card)
+    span = _t([c, 1], torch.int32, card)
+    for dtype, mha, mla in ((torch.bfloat16, "chunk_mma", "mla_mma::walk"),
+                            (torch.float32, "chunk_attend",
+                             "mla::attend_float")):
+        q = _t(r.normal(size=(b, hq, c, d)), dtype, card)
+        kp, vp, bt = _paged_inputs(r, b, hkv, ps, maxp, d, dtype, card)
+        kn, vn = (_t(r.normal(size=(b, hkv, c, d)), dtype, card)
+                  for _ in range(2))
+        seen = _device_kernels(lambda: ops.paged_chunk_attention(
+            q, kp, vp, bt, start, span, kn, vn))
+        walks = [n for n in seen if "chunk" in n and "combine" not in n]
+        assert walks and all(mha in n for n in walks), seen
+        q_abs = _t(r.normal(size=(b, h, c, lr)), torch.float32, card)
+        q_rope = _t(r.normal(size=(b, h, c, rd)), torch.float32, card)
+        pool = _t(r.normal(size=(b * maxp + 2, ps, pad128(lr + rd))), dtype,
+                  card)
+        new = _t(r.normal(size=(b, c, pad128(lr + rd))), dtype, card)
+        seen = _device_kernels(lambda: ops.paged_mla_chunk(
+            q_abs, q_rope, pool, bt, start, span, new, scale=0.07))
+        walks = [n for n in seen if "mla" in n and "write" not in n
+                 and "combine" not in n]
+        assert walks and all(mla in n for n in walks), seen
 
 
 MLA_CASES = [
@@ -638,6 +671,98 @@ def test_paged_mla_chunk_quant_walk_edges(card, step, shape, new_dtype,
     torch.cuda.synchronize()
     trash = pool - 1
     assert all(_same_bits(x[:trash], y[:trash]) for x, y in zip(p1, p2))
+    live = (torch.arange(c, device=card)[None, :]
+            < sp[:, None])[:, None, :, None]
+    assert bool((c1[~live.expand_as(c1)] == 0).all())
+    torch.testing.assert_close(torch.where(live, c1, 0),
+                               torch.where(live, c2, 0), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 1, 16, 200])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 2), (16, 2)])
+def test_paged_chunk_bf16_walk_edges(card, hq, hkv, window):
+    """The MHA walk on bf16 pools (the Bf16Pool policy) against its plain
+    version, as ``test_paged_chunk_quant_walk_edges``: GQA groups 2 / 4 /
+    8, windows, spans 1..64 at page and tile edges, the trash page and -1
+    entries, and a key split (cap 1024) for the one-pass rows.  Outputs
+    within the bf16 rule, zero past the span; pools bitwise."""
+    from repro_torch.kernels import paged_chunk_attention as kc
+    b, ps, maxp, d, c = 8, 16, 64, 128, 64
+    plan = kc.split_plan(b, hkv, maxp * ps, torch.cuda.get_device_properties(
+        card).multi_processor_count)
+    assert plan.nsplit > 1
+    r = np.random.default_rng(23)
+    pool = b * maxp + 2
+    kp, vp = (_t(r.normal(size=(pool, hkv, ps, d)), torch.bfloat16, card)
+              for _ in range(2))
+    bt = _t(_walk_tables(r, b, maxp, ps, WALK_STARTS, WALK_SPANS, pool),
+            torch.int32, card)
+    start = _t(WALK_STARTS, torch.int32, card)
+    span = _t(WALK_SPANS, torch.int32, card)
+    q = _t(r.normal(size=(b, hq, c, d)), torch.bfloat16, card)
+    kn, vn = (_t(r.normal(size=(b, hkv, c, d)), torch.bfloat16, card)
+              for _ in range(2))
+    kp2, vp2 = kp.clone(), vp.clone()
+    o1, kp1, vp1 = ops.paged_chunk_attention(q, kp, vp, bt, start, span, kn,
+                                             vn, window=window)
+    o2, kp2, vp2 = ops.paged_chunk_attention(q, kp2, vp2, bt, start, span,
+                                             kn, vn, window=window,
+                                             impl="ref")
+    torch.cuda.synchronize()
+    trash = pool - 1
+    assert torch.equal(kp1[:trash], kp2[:trash])
+    assert torch.equal(vp1[:trash], vp2[:trash])
+    live = (torch.arange(c, device=card)[None, :]
+            < span[:, None])[:, None, :, None]
+    assert bool((o1.float()[~live.expand_as(o1)] == 0).all())
+    torch.testing.assert_close(torch.where(live, o1, 0).float(),
+                               torch.where(live, o2, 0).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", ["full", "narrow"])
+@pytest.mark.parametrize("step", ["decode", "mixed"])
+def test_paged_mla_chunk_bf16_walk_edges(card, step, shape):
+    """The MLA walk on a bf16 latent pool (the Bf16Pool policy) against its
+    plain version, as ``test_paged_mla_chunk_quant_walk_edges``: decode
+    batches whose split plan cuts the key range and mixed spans 1..64; full
+    width (16 heads over 512 + 64) and a narrow one (20 heads over 200 +
+    24: tiles that straddle positions, partial value tiles, pad columns
+    holding random values that must never be scored); the trash page and
+    -1 entries.  Contexts within 1e-5, zero past the span; pool bitwise."""
+    from repro_torch.kernels import paged_mla_chunk as km
+    from repro_torch.models.cache import pad128
+    h, lr, rd = (16, 512, 64) if shape == "full" else (20, 200, 24)
+    ps, maxp = 16, 64
+    if step == "decode":
+        b, c = 4, 32
+        start, span = [63, 64, 320, 959], [1, 1, 1, 1]
+    else:
+        b, c = 8, 64
+        start, span = WALK_STARTS, WALK_SPANS
+    plan = km.split_plan(b, c, h, maxp * ps,
+                         torch.cuda.get_device_properties(
+                             card).multi_processor_count)
+    assert plan.nsplit > 1
+    dp = pad128(lr + rd)
+    rng = np.random.default_rng(24)
+    pool = b * maxp + 2
+    lat = _t(rng.normal(size=(pool, ps, dp)), torch.bfloat16, card)
+    bt = _t(_walk_tables(rng, b, maxp, ps, start, span, pool), torch.int32,
+            card)
+    q_abs = _t(rng.normal(size=(b, h, c, lr)), torch.float32, card)
+    q_rope = _t(rng.normal(size=(b, h, c, rd)), torch.float32, card)
+    new = _t(rng.normal(size=(b, c, dp)), torch.bfloat16, card)
+    st, sp = _t(start, torch.int32, card), _t(span, torch.int32, card)
+    lat2 = lat.clone()
+    c1, lat1 = ops.paged_mla_chunk(q_abs, q_rope, lat, bt, st, sp, new,
+                                   scale=(128 + rd) ** -0.5)
+    c2, lat2 = ops.paged_mla_chunk(q_abs, q_rope, lat2, bt, st, sp, new,
+                                   scale=(128 + rd) ** -0.5, impl="ref")
+    torch.cuda.synchronize()
+    trash = pool - 1
+    assert torch.equal(lat1[:trash], lat2[:trash])
     live = (torch.arange(c, device=card)[None, :]
             < sp[:, None])[:, None, :, None]
     assert bool((c1[~live.expand_as(c1)] == 0).all())
