@@ -30,11 +30,11 @@
    JAX's sweep shapes and ``bench_merge``'s bank (K 4096, D 128, Dc 256;
    int32 / float32 / bf16 payloads; equal and INT32_MIN keys; duplicate
    targets with equal maximal keys, -1, < -1 and >= K lanes, Dc 0 and 1);
-   the four chunk kernels (bf16 and quantized pools) also carry their
-   tensor-core walk's profile: the profiler's device time of the write,
-   walk and combine, the key-split plan (nsplit, split_len, blocks), and a
-   trace that must show ``chunk_mma`` / ``mla_mma::walk`` and none of the
-   old walks;
+   the four chunk kernels (bf16 and quantized pools) and the two MLA
+   decode kernels (bf16; int8 and fp8) also carry their tensor-core walk's
+   profile: the profiler's device time of the write, walk and combine, the
+   key-split plan (nsplit, split_len, blocks), and a trace that must show
+   ``chunk_mma`` / ``mla_mma::walk`` and none of the old walks;
    then runs the port's ``bench_merge --quick`` (the replica-sync sweep:
    every delta sync exact, delta < pmax < allgather bytes at rate 0.05;
    its kernel rows launch ``delta_apply``);
@@ -158,45 +158,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_kernel_us(fn, iters: int = 20) -> dict[str, float]:
     """Mean device time in µs a call of ``fn``, by CUDA kernel name (and
-    memory operation), read from one torch.profiler trace of ``iters``
-    calls after one untraced call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / iters
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    memory operation), over ``iters`` calls after a lead-in call in one
+    torch.profiler trace, whose counted launches all have their kernel
+    records (``device_trace.kernel_trace``: else taken again)."""
+    from repro_torch.launch.device_trace import kernel_trace
+    return kernel_trace(fn, iters)
 
 
 def kernel_device_ms(fn, match: str, iters: int = 20) -> float:
     """Mean device time in ms of the kernels whose name holds ``match``
     (``""``: every kernel of the call) over ``iters`` calls of ``fn``, read
     from torch.profiler: for a kernel shorter than its wrapper's host work,
-    events around the calls time the host instead.  A trace that came back
-    with no such kernel is taken again, up to three times: once in a full
-    run the profiler returned an empty trace of a kernel it timed in every
-    other run."""
-    for _ in range(3):
-        total_us = sum(us for name, us in device_kernel_us(fn, iters).items()
-                       if match in name)
-        if total_us > 0:
-            return total_us / 1e3
-    fail(f"the profiler saw no kernel named like {match!r} in 3 traces")
+    events around the calls time the host instead."""
+    total_us = sum(us for name, us in device_kernel_us(fn, iters).items()
+                   if match in name)
+    if total_us <= 0:
+        fail(f"the profiler saw no kernel named like {match!r}")
+    return total_us / 1e3
 
 
 def device_kernel_names(fn) -> list[str]:
-    """The CUDA kernels one call of ``fn`` ran, by name (a trace that came
-    back empty is taken again, up to three times)."""
-    for _ in range(3):
-        names = sorted(device_kernel_us(fn, iters=1))
-        if names:
-            return names
-    fail("the profiler saw no kernel in 3 traces")
+    """The CUDA kernels one call of ``fn`` ran, by name."""
+    names = sorted(device_kernel_us(fn, iters=1))
+    if not names:
+        fail("the profiler saw no kernel")
+    return names
 
 
 def bound(nbytes: float, flops: float,
@@ -262,7 +248,7 @@ def _quant_case(rng, lens, qdtype):
 
 
 def walk_fields(fn, plan, want: str, forbid: tuple, prefix: str = "") -> dict:
-    """A tensor-core walk's profile (the four chunk kernels):
+    """A tensor-core walk's profile (the chunk and MLA decode kernels):
     ``device_ms`` the profiler's device time of every kernel one call of
     ``fn`` (the kernel module's wrapper) runs, its write, walk and
     combine; the key-split plan; the kernel names.  The trace must show a
@@ -400,14 +386,17 @@ def mla_kernel_rows(rng):
     """The four paged-MLA kernels against their plain versions at the
     workload's shapes: bf16 pools for the float pair, int8 (and fp8, an
     extra error and time) for the ``_quant`` pair; ragged rows, -1 and
-    trash-page table entries.  Timed through ``ops``, as the model calls
-    them (the wrapper's concat of q_abs and q_rope into one float32 q
-    included).  The two chunk rows add their walk's profile
-    (``walk_fields``: the tensor-core ``mla_mma::walk``, never an
-    ``mla::attend`` instantiation)."""
+    trash-page table entries.  q_rope is bf16, as the model passes it (the
+    walk reads it in place); a float32 q_rope, the walk's other
+    instantiation, is checked too.  Timed through ``ops``, as the model
+    calls them.  Every row adds its walk's profile (``walk_fields``: the
+    tensor-core ``mla_mma::walk``, never an ``mla::attend``
+    instantiation)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_mla_chunk as kmc
     from repro_torch.kernels import paged_mla_chunk_quant as kmq
+    from repro_torch.kernels import paged_mla_decode as kmd
+    from repro_torch.kernels import paged_mla_decode_quant as kmdq
     from repro_torch.kernels.decode_attention import sm_count
     scale = (128 + MLA_RD) ** -0.5
     lw = MLA_R + MLA_RD
@@ -432,7 +421,7 @@ def mla_kernel_rows(rng):
         quant = name.endswith("_quant")
         op = getattr(ops, name)
         q_abs = torch.randn(qs + (MLA_R,), device="cuda")
-        q_rope = torch.randn(qs + (MLA_RD,), device="cuda")
+        q_rope = torch.randn(qs + (MLA_RD,), device="cuda").bfloat16()
         new_shape = (B, CHUNK, MLA_DP) if len(qs) == 3 else (B, MLA_DP)
         new = torch.randn(new_shape, device="cuda").bfloat16()
         new[..., lw:] = 0                       # the model's pad columns
@@ -448,46 +437,60 @@ def mla_kernel_rows(rng):
             pools = (list(ref.quantize_rows(pool, qdtype)) if quant
                      else [pool.bfloat16()])
             twin = [t.clone() for t in pools]
-            c1 = op(q_abs, q_rope, *pools, bt, *idx, new, scale=scale)[0]
-            c2 = op(q_abs, q_rope, *twin, bt, *idx, new, scale=scale,
-                    impl="ref")[0]
-            if len(idx) == 2:               # chunk: defined at j < span
-                live = (torch.arange(CHUNK, device="cuda")[None, :]
-                        < idx[1][:, None])[:, None, :, None]
-                c1, c2 = torch.where(live, c1, 0), torch.where(live, c2, 0)
-            err, ok = mla_close(c1, c2)
-            bitwise = all(_pools_equal(a, b, trash)
-                          for a, b in zip(pools, twin))
-            if not (ok and bitwise):
-                fail(f"{name} ({qname}) disagrees: max_abs_err {err}, pools "
-                     f"and scales bitwise {bitwise}")
+            errs = {}
+            # The second pass writes the same rows again: the pools stay
+            # the first pass's.
+            for qr in (q_rope, q_rope.float()):
+                c1 = op(q_abs, qr, *pools, bt, *idx, new, scale=scale)[0]
+                c2 = op(q_abs, qr, *twin, bt, *idx, new, scale=scale,
+                        impl="ref")[0]
+                if len(idx) == 2:               # chunk: defined at j < span
+                    live = (torch.arange(CHUNK, device="cuda")[None, :]
+                            < idx[1][:, None])[:, None, :, None]
+                    c1 = torch.where(live, c1, 0)
+                    c2 = torch.where(live, c2, 0)
+                err, ok = mla_close(c1, c2)
+                bitwise = all(_pools_equal(a, b, trash)
+                              for a, b in zip(pools, twin))
+                if not (ok and bitwise):
+                    fail(f"{name} ({qname}, q_rope {qr.dtype}) disagrees: "
+                         f"max_abs_err {err}, pools and scales bitwise "
+                         f"{bitwise}")
+                errs[qr.dtype] = err
+            err, f32_err = errs[torch.bfloat16], errs[torch.float32]
             ms = cuda_ms(lambda: op(q_abs, q_rope, *pools, bt, *idx, new,
                                     scale=scale))
             plain_ms = cuda_ms(lambda: op(q_abs, q_rope, *twin, bt, *idx,
                                           new, scale=scale, impl="ref"))
-            if len(idx) == 2:               # the chunk walks
-                q_cat = torch.cat([q_abs, q_rope], -1).contiguous()
-                wrapper = getattr(kmq if quant else kmc, name)
-                row.update(walk_fields(
-                    lambda: wrapper(q_cat, *pools, bt, *idx, new, r=MLA_R,
-                                    scale=scale),
-                    kmq.split_plan(B, CHUNK, H, MAX_LEN, sm_count(0)),
-                    "mla_mma::walk", ("mla::attend",),
-                    "fp8_" if qname == "fp8" else ""))
+            wrapper = getattr({"paged_mla_chunk": kmc,
+                               "paged_mla_chunk_quant": kmq,
+                               "paged_mla_decode": kmd,
+                               "paged_mla_decode_quant": kmdq}[name], name)
+            row.update(walk_fields(
+                lambda: wrapper(q_abs, q_rope, *pools, bt, *idx, new,
+                                scale=scale),
+                (kmq.split_plan(B, CHUNK, H, MAX_LEN, sm_count(0))
+                 if len(qs) == 3 else
+                 kmq.decode_split_plan(B, H, MAX_LEN, sm_count(0))),
+                "mla_mma::walk", ("mla::attend",),
+                "fp8_" if qname == "fp8" else ""))
             if qname == "fp8":
                 row.update(fp8_max_abs_err=err, fp8_pools_bitwise=bitwise,
-                           fp8_ms=ms, fp8_plain_ms=plain_ms)
+                           fp8_ms=ms, fp8_plain_ms=plain_ms,
+                           fp8_f32_q_rope_max_abs_err=f32_err)
             else:
-                row.update(shapes=f"q_abs{list(q_abs.shape)} + q_rope f32, "
-                                  f"{qname} pool [{trash + 1},{PS},{MLA_DP}]"
+                row.update(shapes=f"q_abs{list(q_abs.shape)} f32 + q_rope "
+                                  f"{list(q_rope.shape)} bf16, {qname} pool "
+                                  f"[{trash + 1},{PS},{MLA_DP}]"
                                   + (" + f32 scales" if quant else ""),
                            max_abs_err=err, pools_bitwise=bitwise, ms=ms,
-                           plain_ms=plain_ms)
+                           plain_ms=plain_ms, f32_q_rope_max_abs_err=f32_err)
         # Bytes the function must move: the live r + rd columns of the
         # cached rows that queries attend (one byte plus 4 B of scale per
         # row for a quantized pool), the new Dp-wide rows read at their
-        # dtype (bf16) and written once, q read and ctx written in float32
-        # at the defined queries, and the live table entries.  Operations:
+        # dtype (bf16) and written once, q read (q_abs float32, q_rope
+        # bf16) and ctx written in float32 at the defined queries, and the
+        # live table entries.  Operations:
         # 2·(L + r) per (query head, attended row).
         if len(idx) == 2:
             run = span > 0
@@ -504,7 +507,8 @@ def mla_kernel_rows(rng):
         cached = lw + 4 if quant else lw * 2
         written = MLA_DP + 4 if quant else MLA_DP * 2
         nbytes = (old * cached + nnew * (MLA_DP * 2 + written)
-                  + nnew * H * (lw + MLA_R) * 4 + pages * 4 + nidx)
+                  + nnew * H * (2 * MLA_R * 4 + MLA_RD * 2) + pages * 4
+                  + nidx)
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, 2 * pairs * H * (lw + MLA_R))
         rows.append(row)

@@ -1,8 +1,9 @@
 """Times ``flash_attention`` and ``decode_attention`` at the shapes of the
-port's main paths, on one CUDA card, against SDPA, and the four chunk
-walks (``paged_chunk_attention`` and ``paged_mla_chunk`` on bf16 pools,
-their ``_quant`` twins on int8 / fp8 pools) through ``ops``, as the models
-call them.
+port's main paths, on one CUDA card, against SDPA, and the tensor-core
+walks of the paged kernels (``paged_chunk_attention`` and
+``paged_mla_chunk`` on bf16 pools, their ``_quant`` twins on int8 / fp8
+pools, and the MLA decode kernels ``paged_mla_decode`` and ``_quant``)
+through ``ops``, as the models call them.
 
   python src/repro_torch/benchmarks/bench_attention.py [--src DIR]
 
@@ -31,13 +32,20 @@ chunk 32: ``decode`` all span 1, ``mixed`` three span-1 rows and a 32-token
 prompt chunk).  The bf16 walks at the kernel phase and at a decode step
 of the OLMo-1B / MLA schedulers (``sched_decode``: 8 rows of span 1 in a
 64-wide chunk at ragged starts), bf16 pools (the MLA one [P, 16, 640]).
-Their ``device_ms`` sums every kernel of the call (the write, the walk, a
-combine), there is no library call, and ``max_abs_err`` is against the
-plain version at the defined positions.
+The MLA decode kernels (bf16 pool; int8 and fp8 pools with f32 row
+scales) at the kernel phase's 8 positions, at the paged MLA ``Engine``'s
+decode step (8 rows at pos 136: 128 prompt tokens, mid-run) and at the
+agent trial's 4-row decode step.  Their ``device_ms`` sums every kernel
+of the call (the write, the walk, a combine), there is no library call,
+and ``max_abs_err`` is against the plain version at the defined
+positions.  The decode rows pass the model's bf16 q_rope, which the
+kernels read in place.
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib.util
 import json
 import subprocess
 import sys
@@ -69,25 +77,25 @@ def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+@functools.lru_cache(maxsize=1)
+def _kernel_trace():
+    """``launch/device_trace.kernel_trace`` of this file's tree, loaded by
+    path: the tree ``--src`` names may predate it."""
+    path = Path(__file__).resolve().parents[1] / "launch" / "device_trace.py"
+    spec = importlib.util.spec_from_file_location("_bench_device_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.kernel_trace
+
+
 def device_us(fn, iters: int = 20) -> dict[str, float]:
-    """Mean device time in µs a call of ``fn`` by CUDA kernel name, from
-    torch.profiler (a trace that comes back empty is taken again, up to
-    three times)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        got = {e.key: e.self_device_time_total / iters
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
-        if got:
-            return got
-    raise RuntimeError("the profiler saw no kernel in 3 traces")
+    """Mean device time in µs a call of ``fn`` by CUDA kernel name, from a
+    torch.profiler trace whose counted launches all have their kernel
+    records (``device_trace.kernel_trace``: else taken again)."""
+    got = _kernel_trace()(fn, iters)
+    if not got:
+        raise RuntimeError("the profiler saw no kernel")
+    return got
 
 
 def _short(name: str) -> str:
@@ -167,8 +175,8 @@ def _quant_rows(tree, gen, dev):
                     impl=impl)[0]
             yield _walk_row("paged_chunk_attention_quant", shape, qname,
                             f"q[{b},16,{c},128] bf16, pools[{pages},16,"
-                            f"{PS},128]", tree, mha,
-                            lambda: mha("ref", twin), live)
+                            f"{PS},128], start/span {start} {span}", tree,
+                            mha, lambda: mha("ref", twin), live)
             # DeepSeek-V2-Lite's MLA walk, float32 q, bf16 new rows.
             q_abs, q_rope = rand(b, 16, c, MLA_R), rand(b, 16, c, MLA_RD)
             new = rand(b, c, MLA_DP).bfloat16()
@@ -181,7 +189,8 @@ def _quant_rows(tree, gen, dev):
                     scale=(128 + MLA_RD) ** -0.5, impl=impl)[0]
             yield _walk_row("paged_mla_chunk_quant", shape, qname,
                             f"q_abs[{b},16,{c},{MLA_R}] + q_rope f32, pool"
-                            f"[{pages},{PS},{MLA_DP}]", tree, mla,
+                            f"[{pages},{PS},{MLA_DP}], start/span {start} "
+                            f"{span}", tree, mla,
                             lambda: mla("ref", ltwin), live)
 
 
@@ -209,8 +218,9 @@ def _bf16_rows(tree, gen, dev):
                 q, *pools, bt, st, sp, kn, vn, scale=128 ** -0.5,
                 impl=impl)[0]
         yield _walk_row("paged_chunk_attention", shape, "bf16",
-                        f"q[{b},16,{c},128] bf16, pools[{pages},16,{PS},128]",
-                        tree, mha, lambda: mha("ref", twin), live)
+                        f"q[{b},16,{c},128] bf16, pools[{pages},16,{PS},128]"
+                        f", start/span {start} {span}", tree, mha,
+                        lambda: mha("ref", twin), live)
         q_abs, q_rope = rand(b, 16, c, MLA_R), rand(b, 16, c, MLA_RD)
         new = rand(b, c, MLA_DP).bfloat16()
         new[..., MLA_R + MLA_RD:] = 0
@@ -223,17 +233,63 @@ def _bf16_rows(tree, gen, dev):
                 scale=(128 + MLA_RD) ** -0.5, impl=impl)[0]
         yield _walk_row("paged_mla_chunk", shape, "bf16",
                         f"q_abs[{b},16,{c},{MLA_R}] + q_rope f32, pool"
-                        f"[{pages},{PS},{MLA_DP}]", tree, mla,
-                        lambda: mla("ref", ltwin), live)
+                        f"[{pages},{PS},{MLA_DP}], start/span {start} "
+                        f"{span}", tree, mla, lambda: mla("ref", ltwin),
+                        live)
+
+
+# The MLA decode kernels: (rows, pos) of each shape.
+DECODE_SHAPES = {
+    "kernel_phase": (8, [1023, 17, 300, 511, 640, 5, 999, 128]),
+    "engine_decode": (8, [136] * 8),
+    "trial_decode": (4, [412, 590, 733, 96]),
+}
+
+
+def _mla_decode_rows(tree, gen, dev):
+    """JSON rows of paged_mla_decode (bf16 pool) and paged_mla_decode_quant
+    (int8, fp8) at DECODE_SHAPES, q_rope bf16 (the model's)."""
+    from repro_torch.kernels import ops, ref
+    for shape, (b, pos) in DECODE_SHAPES.items():
+        pt = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+        bt = _table(b, pos, [1] * b, dev)
+        pages = b * (MAX_LEN // PS) + 1
+        live = torch.ones((), dtype=torch.bool, device=dev)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        q_abs = rand(b, 16, MLA_R)
+        q_rope = rand(b, 16, MLA_RD).bfloat16()
+        new = rand(b, MLA_DP).bfloat16()
+        new[..., MLA_R + MLA_RD:] = 0
+        detail = (f"q_abs[{b},16,{MLA_R}] f32 + q_rope bf16, pool[{pages},"
+                  f"{PS},{MLA_DP}], pos {pos}")
+        scale = (128 + MLA_RD) ** -0.5
+        for qname, qdtype in (("bf16", torch.bfloat16),
+                              ("int8", torch.int8),
+                              ("fp8", torch.float8_e4m3fn)):
+            rows = rand(pages, PS, MLA_DP)
+            lat = ([rows.bfloat16()] if qname == "bf16"
+                   else list(ref.quantize_rows(rows, qdtype)))
+            twin = [t.clone() for t in lat]
+            name = ("paged_mla_decode" if qname == "bf16"
+                    else "paged_mla_decode_quant")
+            op = getattr(ops, name)
+
+            def mla(impl="kernel", lat=lat, op=op):
+                return op(q_abs, q_rope, *lat, bt, pt, new, scale=scale,
+                          impl=impl)[0]
+            yield _walk_row(name, shape, qname, detail, tree, mla,
+                            lambda: mla("ref", twin), live)
 
 
 def _walk_row(name, shape, qname, shapes, tree, fn, plain, live) -> dict:
+    """The JSON row of one walk call."""
     got, want = fn(), plain()
     err = float(torch.where(live, got.float() - want.float(), 0)
                 .abs().max())
     kern = device_us(fn)
-    return dict(kernel=name, shape=shape, pool=qname,
-                shapes=f"{shapes}, start/span {WALK_SHAPES[shape][2:]}",
+    return dict(kernel=name, shape=shape, pool=qname, shapes=shapes,
                 tree=tree, max_abs_err=err, ms=events_ms(fn),
                 device_ms=sum(kern.values()) / 1e3,
                 device_us_by_kernel={_short(k): us for k, us in kern.items()},
@@ -281,7 +337,7 @@ def main(argv=None) -> int:
             lambda: ref.decode_attention(q, k, v, kl, scale=scale),
             lambda: sdpa(q[:, :, None], kx, vx, attn_mask=mask,
                          scale=scale)[:, :, 0], "dense_attend")), flush=True)
-    for rows in (_quant_rows, _bf16_rows):
+    for rows in (_quant_rows, _bf16_rows, _mla_decode_rows):
         for row in rows(args.src, gen, dev):
             print(json.dumps(row), flush=True)
     card = subprocess.run(

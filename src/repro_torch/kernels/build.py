@@ -162,17 +162,22 @@ MLA_MAX_R = 512        # value columns: at most 4 per thread of 128
 MLA_MAX_L = 1024       # live latent width: q and key tiles in shared memory
 
 
-def check_mla(kernel: str, q: torch.Tensor, latent_pages: torch.Tensor,
-              r: int) -> tuple[int, int, int]:
-    """(r, rd, Dp) of an MLA call; raises on what the kernels cannot take:
-    q not float32, widths past the kernels' limits, or a pool row that is
-    not whole 16-byte loads."""
-    if q.dtype != torch.float32:
-        raise ValueError(f"{kernel}: q is {q.dtype}, expected float32 "
-                         f"(concat(q_abs, q_rope))")
-    rd = q.shape[-1] - r
+def check_mla(kernel: str, q_abs: torch.Tensor, q_rope: torch.Tensor,
+              latent_pages: torch.Tensor) -> tuple[int, int, int, int]:
+    """(r, rd, Dp, q_rope's dtype code) of an MLA call; raises on what the
+    kernels cannot take: q_abs not float32, q_rope neither float32 nor
+    bf16 or not of q_abs's leading shape, widths past the kernels' limits,
+    or a pool row that is not whole 16-byte loads."""
+    if q_abs.dtype != torch.float32:
+        raise ValueError(f"{kernel}: q_abs is {q_abs.dtype}, expected "
+                         f"float32")
+    if q_rope.shape[:-1] != q_abs.shape[:-1]:
+        raise ValueError(f"{kernel}: q_rope {tuple(q_rope.shape)} does not "
+                         f"match q_abs {tuple(q_abs.shape)}")
+    qr_code = dtype_code(kernel, q_rope.dtype)
+    r, rd = q_abs.shape[-1], q_rope.shape[-1]
     dp = latent_pages.shape[-1]
-    if not 0 < r <= MLA_MAX_R or rd < 0 or r + rd > MLA_MAX_L:
+    if not 0 < r <= MLA_MAX_R or r + rd > MLA_MAX_L:
         raise ValueError(f"{kernel}: kv_lora_rank {r} / rope_dim {rd} not "
                          f"supported (r <= {MLA_MAX_R}, r + rd <= "
                          f"{MLA_MAX_L})")
@@ -180,7 +185,7 @@ def check_mla(kernel: str, q: torch.Tensor, latent_pages: torch.Tensor,
         raise ValueError(f"{kernel}: latent pool width {dp} must hold "
                          f"r + rd = {r + rd} features in whole 16-byte "
                          f"loads")
-    return r, rd, dp
+    return r, rd, dp, qr_code
 
 
 def check_quant(kernel: str, dtype: torch.dtype) -> int:

@@ -1,4 +1,6 @@
-// Shared pieces of the four paged-MLA Hopper kernels (sm_90a).
+// Shared pieces of the four paged-MLA Hopper kernels (sm_90a): the fused
+// latent-row writes of every pool and the FMA walk of float32 pools.  The
+// bf16 and int8 / e4m3 pools walk on tensor cores (mla_mma.cuh).
 //
 // A latent page pool [P, ps, Dp] holds one row concat([ckv; krope]) per
 // token in its first L = r + rd features (Dp is padded to a multiple of
@@ -7,19 +9,20 @@
 // scores the same rows, so MLA is multi-query attention with H·C query
 // rows per latent row.
 //
-// attend(): one block walks the rows of one batch row for up to QR query
-// rows (a tile of the H·C (head, span query) pairs), tile by tile:
+// attend(), the float32-pool walk: one block walks the rows of one batch
+// row for up to QR query rows (a tile of the H·C (head, span query)
+// pairs), tile by tile:
 //   1. gather KT latent rows token by token through the block table into
-//      shared memory as float, 16 bytes a thread per load (the loader
-//      dequantizes a quantized pool there); a load may cover pad columns
-//      of the row, which are not stored and never scored;
+//      shared memory, 16 bytes a thread per load; a load may cover pad
+//      columns of the row, which are not stored and never scored;
 //   2. each warp scores RPW query rows against the tile, one lane per key,
 //      over the L live features, and updates those rows' online softmax;
 //   3. each thread accumulates P·V for RV value columns of all QR rows in
 //      registers, reading the same tile (V is a prefix of K).
-// q and ctx are float32.  Shared memory is dynamic: a q tile of QR·L
-// floats and a key tile of KT·LS floats (LS odd, for conflict-free column
-// reads) — 113 KB at L = 576, past the 48 KB of static shared memory.
+// q arrives in its two float32 parts, q_abs [..., r] and q_rope [..., rd];
+// ctx is float32.  Shared memory is dynamic: a q tile of QR·L floats and a
+// key tile of KT·LS floats (LS odd, for conflict-free column reads) — 113
+// KB at L = 576, past the 48 KB of static shared memory.
 // The span / token writes are their own launch, ordered before the walk on
 // the stream (write_latent, write_latent_quant): every row a query may
 // read is resident before any block reads it, as in the plain version.
@@ -35,12 +38,11 @@ using rt::QR;
 constexpr int WARPS = NT / 32;
 constexpr int RPW = QR / WARPS;  // query rows each warp scores
 
-// Query rows of one block: element offsets in q ([..., L]) and ctx
-// ([..., r]), absolute positions (rows <= pos attend), and whether the
-// row's output is defined (j < span).
+// Query rows of one block: the row's index in [B, H, C] (its q_abs,
+// q_rope and ctx rows), absolute positions (rows <= pos attend), and
+// whether the row's output is defined (j < span).
 struct Rows {
-  long long q[QR];
-  long long o[QR];
+  long long row[QR];
   int pos[QR];
   int on[QR];
 };
@@ -56,7 +58,7 @@ inline size_t smem_bytes(int L) {
           tile_stride(L) + QR * KT + 3 * QR);
 }
 
-// Loader of a float (f32 or bf16) latent pool: chunk ``part`` of row t.
+// Loader of a float latent pool: chunk ``part`` of row t.
 template <typename T>
 struct RawRow {
   static constexpr int VEC = 16 / sizeof(T);
@@ -71,28 +73,9 @@ struct RawRow {
   }
 };
 
-// Loader of an int8 / fp8 latent pool with f32 row scales [P, ps]: each
-// value times its row's scale, the product dequantize_rows forms.
-template <class Codec>
-struct QuantRow {
-  using S = typename Codec::S;
-  static constexpr int VEC = 16;
-  const S* __restrict__ pool;
-  const float* __restrict__ scales;
-  rt::PagedKeys keys;
-  __device__ __forceinline__ void load(int t, int part, float* dst) const {
-    const size_t row = keys.row(t);
-    const float s = scales[row];
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        pool + row * keys.d + part * VEC);
-    const S* e = reinterpret_cast<const S*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[i] = Codec::dequant(e[i]) * s;
-  }
-};
-
 template <int RV, class Loader>
-__device__ __forceinline__ void attend(const float* __restrict__ q,
+__device__ __forceinline__ void attend(const float* __restrict__ q_abs,
+                                       const float* __restrict__ q_rope,
                                        float* __restrict__ ctx,
                                        const Loader ld, const Rows& rows,
                                        const int nrows, const int key_cap,
@@ -116,8 +99,10 @@ __device__ __forceinline__ void attend(const float* __restrict__ q,
   hi = min(hi, key_cap);
 
   for (int i = tid; i < QR * L; i += NT) {
-    const int rr = i / L;
-    q_s[i] = rr < nrows ? q[rows.q[rr] + i % L] : 0.f;
+    const int rr = i / L, col = i % L;
+    q_s[i] = rr >= nrows ? 0.f
+             : col < r   ? q_abs[rows.row[rr] * r + col]
+                         : q_rope[rows.row[rr] * (L - r) + col - r];
   }
   for (int i = tid; i < QR; i += NT) {
     m_s[i] = -INFINITY;
@@ -215,7 +200,8 @@ __device__ __forceinline__ void attend(const float* __restrict__ q,
 #pragma unroll
       for (int k = 0; k < RV; ++k) {
         const int d = tid + k * NT;
-        if (d < r) ctx[rows.o[i] + d] = l > 0.f ? acc[i][k] / l : 0.f;
+        if (d < r)
+          ctx[rows.row[i] * r + d] = l > 0.f ? acc[i][k] / l : 0.f;
       }
     }
   }
@@ -226,7 +212,8 @@ __device__ __forceinline__ void attend(const float* __restrict__ q,
 // query per head at start[b] (decode).
 template <int RV, class Loader>
 __device__ __forceinline__ void attend_block(
-    const float* __restrict__ q, float* __restrict__ ctx, const Loader ld,
+    const float* __restrict__ q_abs, const float* __restrict__ q_rope,
+    float* __restrict__ ctx, const Loader ld,
     const int* __restrict__ start, const int* __restrict__ span, int h,
     int c, int r, int L, int ps, int maxp, float scale) {
   const int b = blockIdx.x;
@@ -236,40 +223,25 @@ __device__ __forceinline__ void attend_block(
   if (threadIdx.x < nrows) {
     const int rr = r0 + threadIdx.x;
     const int hh = rr / c, j = rr % c;
-    const long long base = (static_cast<long long>(b) * h + hh) * c + j;
-    rows.q[threadIdx.x] = base * L;
-    rows.o[threadIdx.x] = base * r;
+    rows.row[threadIdx.x] = (static_cast<long long>(b) * h + hh) * c + j;
     rows.pos[threadIdx.x] = start[b] + j;
     rows.on[threadIdx.x] = j < (span == nullptr ? 1 : span[b]);
   }
   __syncthreads();
-  attend<RV>(q, ctx, ld, rows, nrows, maxp * ps, r, L, scale);
+  attend<RV>(q_abs, q_rope, ctx, ld, rows, nrows, maxp * ps, r, L, scale);
 }
 
 template <typename T, int RV>
 __global__ void __launch_bounds__(NT)
-    attend_float(const float* __restrict__ q, float* __restrict__ ctx,
+    attend_float(const float* __restrict__ q_abs,
+                 const float* __restrict__ q_rope, float* __restrict__ ctx,
                  const T* __restrict__ pool, const int* __restrict__ bt,
                  const int* __restrict__ start, const int* __restrict__ span,
                  int h, int c, int r, int L, int dp, int ps, int maxp,
                  float scale) {
   const rt::PagedKeys keys{bt + static_cast<size_t>(blockIdx.x) * maxp, 1, 0,
                            ps, dp};
-  attend_block<RV>(q, ctx, RawRow<T>{pool, keys}, start, span, h, c, r, L,
-                   ps, maxp, scale);
-}
-
-template <class Codec, int RV>
-__global__ void __launch_bounds__(NT)
-    attend_quant(const float* __restrict__ q, float* __restrict__ ctx,
-                 const typename Codec::S* __restrict__ pool,
-                 const float* __restrict__ scales,
-                 const int* __restrict__ bt, const int* __restrict__ start,
-                 const int* __restrict__ span, int h, int c, int r, int L,
-                 int dp, int ps, int maxp, float scale) {
-  const rt::PagedKeys keys{bt + static_cast<size_t>(blockIdx.x) * maxp, 1, 0,
-                           ps, dp};
-  attend_block<RV>(q, ctx, QuantRow<Codec>{pool, scales, keys}, start, span,
+  attend_block<RV>(q_abs, q_rope, ctx, RawRow<T>{pool, keys}, start, span,
                    h, c, r, L, ps, maxp, scale);
 }
 
@@ -317,10 +289,10 @@ int launch_write_latent(T* pool, const void* lnew, const int* bt,
 
 // The quantizing write of the _quant kernels, as its own launch: grid (B,
 // Z), the span's rows spread over the Z blocks of a batch row (the decode
-// kernel launches Z = 1), one warp per Dp-wide row (rt::quantize_row: abs-max over the whole row,
-// pad columns included, as the plain version's quantize_rows), one f32
-// scale per row into scales [P, ps].  latent_new is IT (float32 or bf16)
-// [B, c, Dp].
+// kernel launches Z = 1), one warp per Dp-wide row (rt::quantize_row:
+// abs-max over the whole row, pad columns included, as the plain version's
+// quantize_rows), one f32 scale per row into scales [P, ps].  latent_new is
+// IT (float32 or bf16) [B, c, Dp].
 template <typename IT, class Codec>
 __global__ void __launch_bounds__(NT)
     write_latent_quant(typename Codec::S* __restrict__ pool,
@@ -362,23 +334,23 @@ int launch_attend(Kernel kernel, int b, int h, int c, int L,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Float pool (dtype 0 = float32, 1 = bfloat16): the write, then the walk.
-// span == nullptr is the decode form (c == 1, start = pos).
+// Float32 pool: the write, then the FMA walk.  span == nullptr is the
+// decode form (c == 1, start = pos).
 template <typename T>
-int run_float(const float* q, float* ctx, void* pool, const void* lnew,
-              const int* bt, const int* start, const int* span, int b, int h,
-              int c, int r, int rd, int dp, int ps, int maxp, float scale,
-              cudaStream_t stream) {
+int run_float(const float* q_abs, const float* q_rope, float* ctx,
+              void* pool, const void* lnew, const int* bt, const int* start,
+              const int* span, int b, int h, int c, int r, int rd, int dp,
+              int ps, int maxp, float scale, cudaStream_t stream) {
   if (b == 0 || c == 0 || h == 0) return 0;
   T* p = static_cast<T*>(pool);
   const int err = launch_write_latent(p, lnew, bt, start, span, b, c, dp, ps,
                                       maxp, stream);
   if (err) return err;
   const int L = r + rd;
-#define MLA_FLOAT(RV)                                                       \
-  return launch_attend(attend_float<T, RV>, b, h, c, L, stream, q, ctx,     \
-                       static_cast<const T*>(p), bt, start, span, h, c, r, \
-                       L, dp, ps, maxp, scale)
+#define MLA_FLOAT(RV)                                                      \
+  return launch_attend(attend_float<T, RV>, b, h, c, L, stream, q_abs,     \
+                       q_rope, ctx, static_cast<const T*>(p), bt, start,   \
+                       span, h, c, r, L, dp, ps, maxp, scale)
   switch ((r + NT - 1) / NT) {
     case 1: MLA_FLOAT(1);
     case 2: MLA_FLOAT(2);
@@ -387,65 +359,6 @@ int run_float(const float* q, float* ctx, void* pool, const void* lnew,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MLA_FLOAT
-}
-
-inline int run_float(int dtype, const float* q, float* ctx, void* pool,
-                     const void* lnew, const int* bt, const int* start,
-                     const int* span, int b, int h, int c, int r, int rd,
-                     int dp, int ps, int maxp, float scale,
-                     cudaStream_t stream) {
-  if (dtype == 0)
-    return run_float<float>(q, ctx, pool, lnew, bt, start, span, b, h, c, r,
-                            rd, dp, ps, maxp, scale, stream);
-  if (dtype == 1)
-    return run_float<__nv_bfloat16>(q, ctx, pool, lnew, bt, start, span, b,
-                                    h, c, r, rd, dp, ps, maxp, scale,
-                                    stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Quantized pool: the quantizing write of latent_new (IT), then the walk.
-template <typename IT, class Codec>
-int run_quant(const float* q, float* ctx, void* pool, float* scales,
-              const void* lnew, const int* bt, const int* start,
-              const int* span, int b, int h, int c, int r, int rd, int dp,
-              int ps, int maxp, float scale, cudaStream_t stream) {
-  using S = typename Codec::S;
-  if (b == 0 || c == 0 || h == 0) return 0;
-  S* p = static_cast<S*>(pool);
-  write_latent_quant<IT, Codec><<<b, NT, 0, stream>>>(
-      p, scales, static_cast<const IT*>(lnew), bt, start, span, c, dp, ps,
-      maxp);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int L = r + rd;
-#define MLA_QUANT(RV)                                                       \
-  return launch_attend(attend_quant<Codec, RV>, b, h, c, L, stream, q, ctx, \
-                       static_cast<const S*>(p),                            \
-                       static_cast<const float*>(scales), bt, start, span,  \
-                       h, c, r, L, dp, ps, maxp, scale)
-  switch ((r + NT - 1) / NT) {
-    case 1: MLA_QUANT(1);
-    case 2: MLA_QUANT(2);
-    case 3: MLA_QUANT(3);
-    case 4: MLA_QUANT(4);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef MLA_QUANT
-}
-
-// kvdtype: latent_new 0 = float32, 1 = bfloat16; qdtype: pool 0 = int8,
-// 1 = fp8-e4m3.
-inline int run_quant(int kvdtype, int qdtype, const float* q, float* ctx,
-                     void* pool, float* scales, const void* lnew,
-                     const int* bt, const int* start, const int* span, int b,
-                     int h, int c, int r, int rd, int dp, int ps, int maxp,
-                     float scale, cudaStream_t stream) {
-#define MLA_RUN(IT, C)                                                       \
-  run_quant<IT, C>(q, ctx, pool, scales, lnew, bt, start, span, b, h, c, r, \
-                   rd, dp, ps, maxp, scale, stream)
-  RT_DISPATCH_QUANT(kvdtype, qdtype, MLA_RUN);
-#undef MLA_RUN
 }
 
 }  // namespace mla

@@ -1,30 +1,36 @@
-// The tensor-core walk of chunked mixed-step MLA over a paged latent pool
-// (sm_90a): the attend of paged_mla_chunk (bf16 pool) and of
-// paged_mla_chunk_quant (int8 / e4m3 pool).  The pool is a policy of the
-// walk (CodePool, Bf16Pool below); mla::attend (mla_common.cuh) stays the
-// walk of the float32-pool and decode kernels.
+// The tensor-core walk of paged MLA over a latent pool (sm_90a): the
+// attend of all four paged-MLA kernels on bf16 and int8 / e4m3 pools —
+// paged_mla_chunk and paged_mla_decode (Bf16Pool), paged_mla_chunk_quant
+// and paged_mla_decode_quant (CodePool).  A decode call is a chunk of span
+// 1 at pos (span == nullptr).  The pool is a policy of the walk (CodePool,
+// Bf16Pool below); mla::attend_float (mla_common.cuh) stays the walk of
+// float32 pools.
 //
 // MLA is multi-query attention: every head of every span position scores
 // the same latent rows concat([ckv; krope]) (L = r + rd live features),
 // and the value is the row's first r.  So the MMA rows are (position,
 // head) pairs with the heads inner, m = j·H + h, and one block owns one
-// m16 tile of them: at H 16 a span-1 decode row is one full tile, and
-// every latent row a block gathers serves all of its 16 rows.
+// m16 tile of them: at H 16 a decode row is one full tile, and every
+// latent row a block gathers serves all of its 16 rows.
 //
 // walk, grid (B, ymax = max(2·tiles, nsplit)), 4 warps:
-//   - Rows m < span·H are live; tiles past them are zeroed by the block
-//     of their index.  A row of T live tiles and keys [0, hi) gives each
-//     tile ns = min(ymax / T, nsplit, ceil(hi / min_len)) blocks (at least
-//     1), read from start and span on the card: decode rows spread over up
-//     to nsplit blocks, prompt chunks over their tiles and the grid's
-//     spare blocks; block i walks tile i / ns over the (i % ns)-th run of
-//     ceil(hi / ns) keys (whole 32-key runs).  nsplit and min_len come from
-//     shapes alone (paged_mla_chunk_quant.py · split_plan).
-//   - q (float32) enters as three bf16 terms hi + mid + lo (each remainder
-//     exact in float32, the sum within 2^-24 of q), built once a block into
-//     shared memory ([3][16][L16 + 8] bf16, 56 KB at L 576; ldmatrix reads
-//     the A fragments) from 16-byte loads, six in flight a thread.  That
-//     keeps the scores float32 in effect.
+//   - Rows m < span·H are live (span == nullptr: span 1, the decode
+//     form); tiles past them are zeroed by the block of their index.  A
+//     row of T live tiles and keys [0, hi) gives each tile ns = min(ymax /
+//     T, nsplit, ceil(hi / min_len)) blocks (at least 1), read from start
+//     and span on the card: decode rows spread over up to nsplit blocks,
+//     prompt chunks over their tiles and the grid's spare blocks; block i
+//     walks tile i / ns over the (i % ns)-th run of ceil(hi / ns) keys
+//     (whole 32-key runs).  nsplit and min_len come from shapes alone
+//     (paged_mla_chunk_quant.py · split_plan for chunks, decode_split_plan
+//     for decode: runs of 32 keys, up to 32 splits).
+//   - q is read in place from its two parts, q_abs (float32, r wide) and
+//     q_rope (QR: float32 or bf16, rd wide), and enters as three bf16
+//     terms hi + mid + lo (each remainder exact in float32, the sum within
+//     2^-24 of q), built once a block into shared memory ([3][16][L16 + 8]
+//     bf16, 56 KB at L 576; ldmatrix reads the A fragments) from 16-byte
+//     (bf16 q_rope: 8-byte) loads, six in flight a thread.  That keeps the
+//     scores float32 in effect.
 //   - Latent rows are gathered through the block table by cp.async (the
 //     row's live columns rounded up to 16 bytes, rows padded to an odd
 //     count of 16 B so the 8 rows of a fragment fall in 8 bank groups) in
@@ -62,15 +68,17 @@
 //   - One split: the block writes ctx = O / l (0 where l = 0 or the row is
 //     past the span).  Several: it writes the float32 partial (O, m, l) of
 //     each row into scratch, and combine (a second launch, grid (B,
-//     ymax / 2, 16)) forms ctx = sum 2^(m_i - M)·O_i / sum 2^(m_i -
-//     M)·l_i over the splits with a live key, M = max m_i.
-// Shared memory at L 576 (PERF.md, kernel table rows 6 and 7): q terms
+//     tiles, 16): a decode call's is (B, 1, 16)) forms ctx = sum 2^(m_i -
+//     M)·O_i / sum 2^(m_i - M)·l_i over the splits with a live key, M =
+//     max m_i.
+// Shared memory at L 576 (PERF.md, kernel table rows 6-9): q terms
 // 56,064 B; CodePool: raw ring 37,888 + scales 256 + score exchange 10,240
 // = 104,448 B, ptxas -v (sm_90a) 220 (int8) / 231 (fp8) registers, no
 // spill: two blocks an SM.  Bf16Pool: a ring of 16 keys 37,376 + exchange
 // 6,144 = 99,584 B, two blocks an SM (32 keys: 141,056 B, one).
 #pragma once
 
+#include "mla_common.cuh"
 #include "mma_common.cuh"
 #include "quant_common.cuh"
 
@@ -125,6 +133,27 @@ __host__ __device__ inline Layout layout(int L) {
   return y;
 }
 
+// Four consecutive q_rope values as float: one 16-byte (float) or 8-byte
+// (bf16) load.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
 // A bf16 pair's mask: both kept where keep >= 2 columns are live, the low
 // (lower-column) half where 1, none where 0.
 __device__ __forceinline__ uint32_t pair_mask(int keep) {
@@ -158,9 +187,10 @@ __host__ __device__ __forceinline__ int split_keys(int hi, int ns) {
 // same order (column 4j + e of a 16 in slot 2j + (e & 1) + 8·(e >> 1)).
 // A Bf16Pool step keeps the natural order.
 
-template <class P>
+template <class P, typename QR>
 __global__ void __launch_bounds__(NT, P::BLOCKS)
-    walk(const float* __restrict__ q, float* __restrict__ ctx,
+    walk(const float* __restrict__ q_abs, const QR* __restrict__ q_rope,
+         float* __restrict__ ctx,
          const uint8_t* __restrict__ pool, const float* __restrict__ scales,
          const int* __restrict__ bt, const int* __restrict__ start,
          const int* __restrict__ span, float* __restrict__ part_o,
@@ -181,13 +211,15 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
   const int g = lane >> 2, j4 = lane & 3;
   const int nrows = c * h;
   const int tiles = (nrows + ROWS - 1) / ROWS;
-  const int live = span[b] * h;            // rows m < live are defined
+  const int sp = span == nullptr ? 1 : span[b];   // nullptr: decode
+  const int live = sp * h;                 // rows m < live are defined
   const int tlive = (live + ROWS - 1) / ROWS;
   const int cap = maxp * ps;
-  const int row_hi = min(start[b] + span[b], cap);   // the row's keys
+  const int row_hi = min(start[b] + sp, cap);   // the row's keys
   const int ymax = gridDim.y;
   const int ns = row_splits(tlive, row_hi, nsplit, ymax, min_len);
-  // ctx element offset of row m ([B, H, C, r]; q the same with L).
+  // Element offset of row m in a [B, H, C, width] tensor: ctx (r), q_abs
+  // (r), q_rope (rd).
   auto row_off = [&](int m, int width) {
     return ((static_cast<size_t>(b) * h + m % h) * c + m / h) *
            static_cast<size_t>(width);
@@ -235,14 +267,16 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
   };
 
   if (ntiles > 0) {
-    // q rows from global memory four floats a load (16 bytes where L is a
-    // multiple of 4), QB loads in flight a thread, split into the bf16
-    // terms in registers, two 4-byte stores a term: CodePool's columns
-    // 4j..4j+3 of a 16 land in k slots 2j, 2j+1 and 2j+8, 2j+9, Bf16Pool's
-    // in their own.
+    // q rows from global memory four values a load (q_abs 16 bytes where
+    // r is a multiple of 4, q_rope 16 or 8 where rd is too; the wrapper
+    // aligns both bases to 16 bytes), QB loads in flight a thread, split
+    // into the bf16 terms in registers, two 4-byte stores a term:
+    // CodePool's columns 4j..4j+3 of a 16 land in k slots 2j, 2j+1 and
+    // 2j+8, 2j+9, Bf16Pool's in their own.
     constexpr int QB = 6;
     const int q4 = y.lq / 4;
-    const bool vec = (L & 3) == 0;
+    const int rd = L - r;
+    const bool vec = (r & 3) == 0 && (rd & 3) == 0;
     for (int x0 = tid; x0 < ROWS * q4; x0 += QB * NT) {
       float v[QB][4];
 #pragma unroll
@@ -251,17 +285,23 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[u][e] = 0.f;
         if (x < ROWS * q4 && m0 + rr < live) {
-          const float* src = q + row_off(m0 + rr, L) + col;
-          if (vec && col + 4 <= L) {
-            const float4 f = *reinterpret_cast<const float4*>(src);
+          const float* qa = q_abs + row_off(m0 + rr, r);
+          const QR* qr = q_rope + row_off(m0 + rr, rd);
+          if (vec && col + 4 <= r) {
+            const float4 f = *reinterpret_cast<const float4*>(qa + col);
             v[u][0] = f.x;
             v[u][1] = f.y;
             v[u][2] = f.z;
             v[u][3] = f.w;
+          } else if (vec && col >= r && col + 4 <= L) {
+            load4(qr + col - r, v[u]);
           } else {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              if (col + e < L) v[u][e] = src[e];
+              if (col + e < r)
+                v[u][e] = qa[col + e];
+              else if (col + e < L)
+                v[u][e] = rt::to_f(qr[col + e - r]);
           }
         }
       }
@@ -562,8 +602,8 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
   }
 }
 
-// ctx of the rows whose keys were split: grid (B, ymax / 2, ROWS), one
-// block a row of a live tile (a split row has at most ymax / 2 tiles).
+// ctx of the rows whose keys were split: grid (B, tiles, ROWS), one block
+// a row of a live tile (span == nullptr: the decode form, span 1).
 // The split weights 2^(m_i - M) go to shared memory first; each thread
 // then sums its columns over the splits with the loads of eight splits in
 // flight at a time.
@@ -575,10 +615,11 @@ __global__ void __launch_bounds__(NT)
   __shared__ float w_s[MAX_SPLITS];
   __shared__ float inv_s;
   const int b = blockIdx.x, tile = blockIdx.y, rr = blockIdx.z;
-  const int live = span[b] * h;
+  const int sp = span == nullptr ? 1 : span[b];
+  const int live = sp * h;
   const int tlive = (live + ROWS - 1) / ROWS;
-  const int ns = row_splits(tlive, min(start[b] + span[b], cap), nsplit,
-                            ymax, min_len);
+  const int ns = row_splits(tlive, min(start[b] + sp, cap), nsplit, ymax,
+                            min_len);
   const int m = tile * ROWS + rr;
   if (ns == 1 || tile >= tlive || m >= c * h) return;
   float* dst = ctx + ((static_cast<size_t>(b) * h + m % h) * c + m / h) * r;
@@ -630,21 +671,16 @@ __global__ void __launch_bounds__(NT)
 }
 
 // The walk (and, with several splits, the combine) over a pool of policy
-// P; returns the CUDA status.  scales: a CodePool's row scales (a Bf16Pool
-// takes none).  part: B·ymax·ROWS·(r + 2) floats of scratch, ymax =
-// max(ROW_BLOCKS·tiles, nsplit), when nsplit > 1 (O partials, then (m, l)
-// pairs).
-template <class P>
-int attend(const float* q, float* ctx, const void* pool, const float* scales,
-           const int* bt, const int* start, const int* span, float* part,
-           int b, int h, int c, int r, int L, int dp, int ps, int maxp,
-           int nsplit, int min_len, float scale, cudaStream_t stream) {
-  if (r > MAX_R || nsplit < 1 || nsplit > MAX_SPLITS || min_len < 1 ||
-      (nsplit > 1 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+// P, with q_rope of type QR; returns the CUDA status.
+template <class P, typename QR>
+int launch(const float* q_abs, const QR* q_rope, float* ctx,
+           const void* pool, const float* scales, const int* bt,
+           const int* start, const int* span, float* part, int b, int h,
+           int c, int r, int L, int dp, int ps, int maxp, int nsplit,
+           int min_len, float scale, cudaStream_t stream) {
   const Layout y = layout<P>(L);
   cudaError_t err = cudaFuncSetAttribute(
-      walk<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, y.bytes);
+      walk<P, QR>, cudaFuncAttributeMaxDynamicSharedMemorySize, y.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (c * h + ROWS - 1) / ROWS;
   const int ymax = max(ROW_BLOCKS * tiles, nsplit);
@@ -652,16 +688,59 @@ int attend(const float* q, float* ctx, const void* pool, const float* scales,
   float* part_ml = part == nullptr
                        ? nullptr
                        : part + static_cast<size_t>(b) * ymax * ROWS * r;
-  walk<P><<<dim3(b, ymax), NT, y.bytes, stream>>>(
-      q, ctx, static_cast<const uint8_t*>(pool), scales, bt, start, span,
-      part_o, part_ml, h, c, r, L, dp, ps, maxp, nsplit, min_len,
-      scale * LOG2E);
+  walk<P, QR><<<dim3(b, ymax), NT, y.bytes, stream>>>(
+      q_abs, q_rope, ctx, static_cast<const uint8_t*>(pool), scales, bt,
+      start, span, part_o, part_ml, h, c, r, L, dp, ps, maxp, nsplit,
+      min_len, scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
-  combine<<<dim3(b, ymax / 2, ROWS), NT, 0, stream>>>(
+  combine<<<dim3(b, tiles, ROWS), NT, 0, stream>>>(
       ctx, part_o, part_ml, span, start, h, c, r, maxp * ps, nsplit, ymax,
       min_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The four paged-MLA kernels on a pool of policy P: the fused write
+// (mla_common.cuh; its own launch, so every row a query may read is
+// resident before any block reads it), then the walk.  q_abs: float32
+// [B, H, C, r]; q_rope: [B, H, C, rd] of qr_dtype (0 float32, 1 bf16);
+// ctx: float32 [B, H, C, r]; lnew: IT [B, C, Dp] (a Bf16Pool's is bf16,
+// a CodePool's float32 or bf16, quantized in the write).  start / span:
+// i32[B]; span == nullptr is the decode form (c == 1, start = pos).
+// scales: a CodePool's row scales (a Bf16Pool takes none).  part:
+// B·ymax·ROWS·(r + 2) floats of scratch, ymax = max(ROW_BLOCKS·tiles,
+// nsplit), when nsplit > 1 (O partials, then (m, l) pairs).  Returns the
+// CUDA status.
+template <class P, typename IT>
+int run(const float* q_abs, const void* q_rope, int qr_dtype, float* ctx,
+        void* pool, float* scales, const void* lnew, const int* bt,
+        const int* start, const int* span, float* part, int b, int h, int c,
+        int r, int rd, int dp, int ps, int maxp, int nsplit, int min_len,
+        float scale, cudaStream_t stream) {
+  if (r > MAX_R || nsplit < 1 || nsplit > MAX_SPLITS || min_len < 1 ||
+      (nsplit > 1 && part == nullptr) || (span == nullptr && c != 1) ||
+      (qr_dtype != 0 && qr_dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || c == 0 || h == 0) return 0;
+  int err;
+  if constexpr (P::CODES) {
+    mla::write_latent_quant<IT, typename P::Codec>
+        <<<dim3(b, (c + mla::WARPS - 1) / mla::WARPS), mla::NT, 0, stream>>>(
+            static_cast<typename P::Codec::S*>(pool), scales,
+            static_cast<const IT*>(lnew), bt, start, span, c, dp, ps, maxp);
+    err = static_cast<int>(cudaGetLastError());
+  } else {
+    err = mla::launch_write_latent(static_cast<IT*>(pool), lnew, bt, start,
+                                   span, b, c, dp, ps, maxp, stream);
+  }
+  if (err) return err;
+  if (qr_dtype == 0)
+    return launch<P>(q_abs, static_cast<const float*>(q_rope), ctx, pool,
+                     scales, bt, start, span, part, b, h, c, r, r + rd, dp,
+                     ps, maxp, nsplit, min_len, scale, stream);
+  return launch<P>(q_abs, static_cast<const bf16*>(q_rope), ctx, pool,
+                   scales, bt, start, span, part, b, h, c, r, r + rd, dp, ps,
+                   maxp, nsplit, min_len, scale, stream);
 }
 
 }  // namespace mla_mma

@@ -17,48 +17,26 @@
 // float32 reciprocal, IEEE division, rint/clamp or the SATFINITE e4m3
 // conversion (quant_common.cuh) — so pool bytes and scales are bitwise the
 // plain version's.  Then the tensor-core walk mla_mma::walk (mla_mma.cuh:
-// heads inner, raw int8/e4m3 tiles by cp.async, q in three bf16 terms and
-// P·s in two, the keys split over blocks by a plan from shapes, a float32
-// combine).  No atomics.
+// heads inner, raw int8/e4m3 tiles by cp.async, q read in place as three
+// bf16 terms and P·s in three, the keys split over blocks by a plan from
+// shapes, a float32 combine).  No atomics.
 //
 // ptxas -v (sm_90a, -O3; build.FLAGS passes it): see PERF.md's kernel
 // table, row 7.
 #include "mla_common.cuh"
 #include "mla_mma.cuh"
 
-namespace {
-
-template <typename IT, class Codec>
-int run(const float* q, float* ctx, void* pool, float* scales,
-        const void* lnew, const int* bt, const int* start, const int* span,
-        float* part, int b, int h, int c, int r, int rd, int dp, int ps,
-        int maxp, int nsplit, int min_len, float scale,
-        cudaStream_t stream) {
-  using S = typename Codec::S;
-  if (b == 0 || c == 0 || h == 0) return 0;
-  S* p = static_cast<S*>(pool);
-  mla::write_latent_quant<IT, Codec>
-      <<<dim3(b, (c + mla::WARPS - 1) / mla::WARPS), mla::NT, 0, stream>>>(
-      p, scales, static_cast<const IT*>(lnew), bt, start, span, c, dp, ps,
-      maxp);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return mla_mma::attend<mla_mma::CodePool<Codec>>(
-      q, ctx, p, scales, bt, start, span, part, b, h, c, r, r + rd, dp, ps,
-      maxp, nsplit, min_len, scale, stream);
-}
-
-}  // namespace
-
 // kvdtype: latent_new 0 = float32, 1 = bfloat16; qdtype: pool 0 = int8,
-// 1 = fp8-e4m3.  q float32 [B, H, C, r+rd], ctx float32 [B, H, C, r],
-// latent_new [B, C, dp], scales float32 [P, ps]; part: float32 scratch of
-// B·max(2·ceil(C·H / 16), nsplit)·16·(r + 2) (null when nsplit is 1); a row
-// splits its keys into at most nsplit runs of at least min_len keys
-// (paged_mla_chunk_quant.py · split_plan).
+// 1 = fp8-e4m3; qrdtype: q_rope 0 = float32, 1 = bfloat16.  q_abs float32
+// [B, H, C, r], q_rope [B, H, C, rd], both 16-byte aligned; ctx float32
+// [B, H, C, r], latent_new [B, C, dp], scales float32 [P, ps]; part:
+// float32 scratch of B·max(2·ceil(C·H / 16), nsplit)·16·(r + 2) (null when
+// nsplit is 1); a row splits its keys into at most nsplit runs of at least
+// min_len keys (paged_mla_chunk_quant.py · split_plan).
 // Returns cudaGetLastError() after the launches (0 on success),
 // cudaErrorInvalidValue for an unsupported dtype or r > 512.
-extern "C" int paged_mla_chunk_quant(int kvdtype, int qdtype, const float* q,
+extern "C" int paged_mla_chunk_quant(int kvdtype, int qdtype, int qrdtype,
+                                     const float* q_abs, const void* q_rope,
                                      float* ctx, void* latent_pages,
                                      float* latent_scales,
                                      const void* latent_new,
@@ -68,10 +46,11 @@ extern "C" int paged_mla_chunk_quant(int kvdtype, int qdtype, const float* q,
                                      int rd, int dp, int ps, int maxp,
                                      int nsplit, int min_len, float scale,
                                      void* stream) {
-#define MLA_RUN(IT, C)                                                      \
-  run<IT, C>(q, ctx, latent_pages, latent_scales, latent_new, block_tables, \
-             start, span, part, b, h, c, r, rd, dp, ps, maxp, nsplit,       \
-             min_len, scale, static_cast<cudaStream_t>(stream))
+#define MLA_RUN(IT, C)                                                     \
+  mla_mma::run<mla_mma::CodePool<C>, IT>(                                  \
+      q_abs, q_rope, qrdtype, ctx, latent_pages, latent_scales, latent_new, \
+      block_tables, start, span, part, b, h, c, r, rd, dp, ps, maxp,        \
+      nsplit, min_len, scale, static_cast<cudaStream_t>(stream))
   RT_DISPATCH_QUANT(kvdtype, qdtype, MLA_RUN);
 #undef MLA_RUN
 }

@@ -245,10 +245,18 @@ def _mla_widths(q_abs, q_rope, latent_pages) -> tuple[int, int]:
     return r, rd
 
 
-def _mla_q(q_abs, q_rope) -> torch.Tensor:
-    """The kernels' query: concat(q_abs, q_rope) in float32, one
-    contraction over the latent row's r + rd live features."""
-    return torch.cat([q_abs.float(), q_rope.float()], dim=-1).contiguous()
+def _mla_q_parts(q_abs, q_rope, latent_pages) -> tuple[torch.Tensor, ...]:
+    """The kernels' query, read in place in its two parts: q_abs float32,
+    q_rope in its own dtype where a tensor-core walk takes it (float32 or
+    bf16; the float32 pool's FMA walk takes float32), each contiguous and
+    16-byte aligned.  No concat: one contraction over the latent row's
+    r + rd live features happens in the kernel."""
+    def aligned(t):
+        t = t.contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+    keep = (q_rope.dtype in (torch.float32, torch.bfloat16)
+            and latent_pages.dtype != torch.float32)
+    return aligned(q_abs.float()), aligned(q_rope if keep else q_rope.float())
 
 
 def paged_mla_decode(q_abs, q_rope, latent_pages, block_tables, pos,
@@ -270,9 +278,9 @@ def paged_mla_decode(q_abs, q_rope, latent_pages, block_tables, pos,
                                     block_tables, pos, latent_new, r=r,
                                     scale=scale)
     return _mdec.paged_mla_decode(
-        _mla_q(q_abs, q_rope), latent_pages,
+        *_mla_q_parts(q_abs, q_rope, latent_pages), latent_pages,
         block_tables.to(torch.int32).contiguous(),
-        pos.to(torch.int32).contiguous(), latent_new.contiguous(), r=r,
+        pos.to(torch.int32).contiguous(), latent_new.contiguous(),
         scale=scale)
 
 
@@ -296,10 +304,10 @@ def paged_mla_chunk(q_abs, q_rope, latent_pages, block_tables, start, span,
                                    block_tables, start, span, latent_new,
                                    r=r, scale=scale)
     return _mchunk.paged_mla_chunk(
-        _mla_q(q_abs, q_rope), latent_pages,
+        *_mla_q_parts(q_abs, q_rope, latent_pages), latent_pages,
         block_tables.to(torch.int32).contiguous(),
         start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
-        latent_new.contiguous(), r=r, scale=scale)
+        latent_new.contiguous(), scale=scale)
 
 
 def paged_mla_decode_quant(q_abs, q_rope, latent_pages, latent_scales,
@@ -321,9 +329,10 @@ def paged_mla_decode_quant(q_abs, q_rope, latent_pages, latent_scales,
             q_abs, q_rope, latent_pages, latent_scales, block_tables, pos,
             latent_new, r=r, scale=scale)
     return _mdec_q.paged_mla_decode_quant(
-        _mla_q(q_abs, q_rope), latent_pages, latent_scales,
+        *_mla_q_parts(q_abs, q_rope, latent_pages), latent_pages,
+        latent_scales,
         block_tables.to(torch.int32).contiguous(),
-        pos.to(torch.int32).contiguous(), latent_new.contiguous(), r=r,
+        pos.to(torch.int32).contiguous(), latent_new.contiguous(),
         scale=scale)
 
 
@@ -346,10 +355,11 @@ def paged_mla_chunk_quant(q_abs, q_rope, latent_pages, latent_scales,
             q_abs, q_rope, latent_pages, latent_scales, block_tables, start,
             span, latent_new, r=r, scale=scale)
     return _mchunk_q.paged_mla_chunk_quant(
-        _mla_q(q_abs, q_rope), latent_pages, latent_scales,
+        *_mla_q_parts(q_abs, q_rope, latent_pages), latent_pages,
+        latent_scales,
         block_tables.to(torch.int32).contiguous(),
         start.to(torch.int32).contiguous(), span.to(torch.int32).contiguous(),
-        latent_new.contiguous(), r=r, scale=scale)
+        latent_new.contiguous(), scale=scale)
 
 
 def linear_scan(a, b, h0, *, impl: str = "kernel"):

@@ -28,7 +28,7 @@ from repro_torch.kernels import build as _b
 from repro_torch.kernels.decode_attention import sm_count
 
 NAME = "paged_mla_chunk_quant"
-_ARGTYPES = ([_b.INT] * 2 + [_b.PTR] * 9 + [_b.INT] * 10
+_ARGTYPES = ([_b.INT] * 3 + [_b.PTR] * 10 + [_b.INT] * 10
              + [_b.FLOAT, _b.PTR])
 
 ROWS = 16                # (position, head) rows a block: one m16 tile
@@ -37,6 +37,10 @@ ROW_BLOCKS = 2           # the walk's grid holds 2 blocks a tile of a row
 MIN_SPLIT_LEN = 64       # keys a split takes at least: two tiles
 MAX_SPLITS = 16          # and at most this many splits a tile
 BLOCKS_TARGET = 1        # decode-only steps aim at this many blocks an SM
+# The decode kernels' plan (``decode_split_plan``): runs of one key tile, up
+# to the combine's 32 splits (one a lane).
+DECODE_MIN_SPLIT_LEN = 32
+DECODE_MAX_SPLITS = 32
 
 launches = 0            # kernel launches through this wrapper
 
@@ -60,9 +64,26 @@ def split_plan(b: int, c: int, h: int, cap: int, sms: int) -> SplitPlan:
     ymax = max(ROW_BLOCKS · tiles, nsplit), tiles = ceil(c·h / 16); on the
     card a row of T live tiles and keys [0, hi) takes ``row_splits`` of
     them a tile, each a run of ``split_keys`` keys."""
+    return _plan(b, c, h, cap, sms, MIN_SPLIT_LEN, MAX_SPLITS)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_split_plan(b: int, h: int, cap: int, sms: int) -> SplitPlan:
+    """The key split of the two MLA decode kernels (the walk at C 1,
+    start = pos), from shapes alone: ``split_plan``'s at C 1 but with
+    runs of ``DECODE_MIN_SPLIT_LEN`` keys, up to ``DECODE_MAX_SPLITS`` a
+    row.  A decode row is one live tile, so its blocks come from splits
+    alone, and a block's fixed cost (its q terms, its partial) outweighs
+    a 32-key run: 136 blocks at 8 rows, 128 at 4 (PERF.md: 10-14 %
+    off the Engine's and the trial's decode steps against 64-key runs, the
+    same at the kernel phase).  The chunk kernels keep ``split_plan``."""
+    return _plan(b, 1, h, cap, sms, DECODE_MIN_SPLIT_LEN, DECODE_MAX_SPLITS)
+
+
+def _plan(b, c, h, cap, sms, min_len, max_splits) -> SplitPlan:
     want = max(1, -(-BLOCKS_TARGET * sms // max(b, 1)))
-    nsplit = max(1, min(want, MAX_SPLITS, -(-cap // MIN_SPLIT_LEN)))
-    return SplitPlan(nsplit, MIN_SPLIT_LEN, b * grid_rows(c, h, nsplit),
+    nsplit = max(1, min(want, max_splits, -(-cap // min_len)))
+    return SplitPlan(nsplit, min_len, b * grid_rows(c, h, nsplit),
                      b * nsplit)
 
 
@@ -86,47 +107,76 @@ def split_keys(hi: int, ns: int) -> int:
     return -(-(-(-hi // ns)) // KEY_TILE) * KEY_TILE
 
 
-def paged_mla_chunk_quant(q: torch.Tensor, latent_pages: torch.Tensor,
+def launch(name: str, argtypes: list, codes: tuple, q_abs: torch.Tensor,
+           q_rope: torch.Tensor, pools: list, block_tables: torch.Tensor,
+           idx: tuple, latent_new: torch.Tensor, plan: SplitPlan | None, *,
+           scale: float, new_dtype=None) -> torch.Tensor:
+    """One call of a paged-MLA kernel (``name``, C interface
+    ``argtypes``): the argument checks and packing, the key-split scratch
+    and the launch the four wrappers share.  ``codes``: the kernel's dtype
+    codes before q_rope's; ``pools``: the latent pool (a quantized one's
+    scales after it); ``idx``: (start, span) of a chunk call, (pos,) of a
+    decode call; ``plan``: the key split (None: a float32 pool's FMA
+    walk); ``new_dtype``: latent_new's required dtype, if any.  Returns
+    ctx float32 [B, H, C, r] (decode: [B, H, r])."""
+    b, h = q_abs.shape[:2]
+    lead = q_abs.shape[:1] + q_abs.shape[2:-1]      # (B, C) or (B,)
+    _, ps, _ = pools[0].shape
+    maxp = block_tables.shape[1]
+    dev = q_abs.device
+    r, rd, dp, qr_code = _b.check_mla(name, q_abs, q_rope, pools[0])
+    ctx = torch.empty(q_abs.shape[:-1] + (r,), dtype=torch.float32,
+                      device=dev)
+    part = (torch.empty(plan.blocks * ROWS * (r + 2), dtype=torch.float32,
+                        device=dev)
+            if plan is not None and plan.nsplit > 1 else None)
+    args = [_b.ptr(name, "q_abs", q_abs, dev),
+            _b.ptr(name, "q_rope", q_rope, dev),
+            _b.ptr(name, "ctx", ctx, dev),
+            _b.ptr(name, "latent_pages", pools[0], dev)]
+    if len(pools) == 2:
+        args.append(_b.ptr(name, "latent_scales", pools[1], dev,
+                           dtype=torch.float32, shape=pools[0].shape[:2]))
+    args += [_b.ptr(name, "latent_new", latent_new, dev, dtype=new_dtype,
+                    shape=lead + (dp,)),
+             _b.ptr(name, "block_tables", block_tables, dev,
+                    dtype=torch.int32, shape=(b, maxp))]
+    args += [_b.ptr(name, n, t, dev, dtype=torch.int32, shape=(b,))
+             for n, t in zip(("start", "span") if len(idx) == 2 else ("pos",),
+                             idx)]
+    args.append(_b.PTR(None if part is None else part.data_ptr()))
+    nsplit, min_len = (1, 1) if plan is None else (plan.nsplit,
+                                                   plan.split_len)
+    lib = _b.load(name, argtypes)
+    with torch.cuda.device(dev):
+        status = getattr(lib, name)(*codes, qr_code, *args, b, h,
+                                    *lead[1:], r, rd, dp, ps, maxp, nsplit,
+                                    min_len, scale, _b.stream(dev))
+    _b.raise_on_error(name, lib, status)
+    return ctx
+
+
+def paged_mla_chunk_quant(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                          latent_pages: torch.Tensor,
                           latent_scales: torch.Tensor,
                           block_tables: torch.Tensor, start: torch.Tensor,
                           span: torch.Tensor, latent_new: torch.Tensor, *,
-                          r: int, scale: float):
-    """q: float32 [B, H, C, r + rd]; latent_pages: [P, ps, Dp] int8 or
+                          scale: float):
+    """q_abs: float32 [B, H, C, r]; q_rope: float32 or bf16 [B, H, C, rd],
+    both contiguous and 16-byte aligned; latent_pages: [P, ps, Dp] int8 or
     float8_e4m3fn; latent_scales: f32 [P, ps]; block_tables: i32[B, maxp];
     start/span: i32[B] (span in [0, C]); latent_new: f32 or bf16
     [B, C, Dp].  Returns (ctx float32 [B, H, C, r], latent_pages,
     latent_scales) with the span written in place; ``ctx`` is zero at
     j >= span."""
     global launches
-    b, h, c, _ = q.shape
-    _, ps, _ = latent_pages.shape
-    maxp = block_tables.shape[1]
-    dev = q.device
-    r, rd, dp = _b.check_mla(NAME, q, latent_pages, r)
-    kvcode = _b.dtype_code(NAME, latent_new.dtype)
-    qcode = _b.check_quant(NAME, latent_pages.dtype)
-    ctx = torch.empty((b, h, c, r), dtype=torch.float32, device=dev)
-    plan = split_plan(b, c, h, maxp * ps, sm_count(dev.index or 0))
-    part = (torch.empty(plan.blocks * ROWS * (r + 2), dtype=torch.float32,
-                        device=dev)
-            if plan.nsplit > 1 else None)
-    args = [_b.ptr(NAME, "q", q, dev),
-            _b.ptr(NAME, "ctx", ctx, dev),
-            _b.ptr(NAME, "latent_pages", latent_pages, dev),
-            _b.ptr(NAME, "latent_scales", latent_scales, dev,
-                   dtype=torch.float32, shape=latent_pages.shape[:2]),
-            _b.ptr(NAME, "latent_new", latent_new, dev, shape=(b, c, dp)),
-            _b.ptr(NAME, "block_tables", block_tables, dev,
-                   dtype=torch.int32, shape=(b, maxp)),
-            _b.ptr(NAME, "start", start, dev, dtype=torch.int32, shape=(b,)),
-            _b.ptr(NAME, "span", span, dev, dtype=torch.int32, shape=(b,)),
-            _b.PTR(None if part is None else part.data_ptr())]
-    lib = _b.load(NAME, _ARGTYPES)
-    with torch.cuda.device(dev):
-        status = lib.paged_mla_chunk_quant(kvcode, qcode, *args, b, h, c, r,
-                                           rd, dp, ps, maxp, plan.nsplit,
-                                           plan.split_len, scale,
-                                           _b.stream(dev))
+    b, h, c, _ = q_abs.shape
+    codes = (_b.dtype_code(NAME, latent_new.dtype),
+             _b.check_quant(NAME, latent_pages.dtype))
+    plan = split_plan(b, c, h, block_tables.shape[1] * latent_pages.shape[1],
+                      sm_count(q_abs.device.index or 0))
+    ctx = launch(NAME, _ARGTYPES, codes, q_abs, q_rope,
+                 [latent_pages, latent_scales], block_tables, (start, span),
+                 latent_new, plan, scale=scale)
     launches += 1
-    _b.raise_on_error(NAME, lib, status)
     return ctx, latent_pages, latent_scales

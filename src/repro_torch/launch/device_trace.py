@@ -1,0 +1,80 @@
+"""Kernel times and names from torch.profiler traces, read only from calls
+whose every launch has its kernel record.
+
+On the H100 machine a trace can lack kernel records: the runtime record of
+a launch is in it (``cudaLaunchKernel`` with its correlation id), the
+kernel record is not.  Measured (PERF.md): in some processes most
+traces of 20 calls lost the records of their first 1-4 launches, now and
+then a stretch of 40; one-launch traces came back empty a few times in
+2,000, three in a row.  A route check then reads an empty trace, and a
+device time summed over such a trace undercounts without notice.
+
+``kernel_trace`` runs ``fn`` once as a lead-in inside the trace and
+synchronizes, then runs the ``iters`` calls it reads: the lead-in takes
+the losses at the start of a trace.  It matches the counted launches to
+kernel records by correlation id and takes a trace that lost any again,
+after a pause.  When every attempt lost some, it raises: a time or a
+kernel list read from such a trace would be short without notice.
+
+    us = kernel_trace(lambda: ops.paged_mla_decode(...), iters=20)
+    # {kernel name: mean device µs a call}
+"""
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+
+import torch
+
+# Pauses before each attempt: a stretch of lost records lasted ~0.35 s.
+PAUSES_S = (0.0, 0.25, 0.5, 1.0, 2.0)
+
+
+def read(events, iters: int) -> tuple[dict[str, float], int]:
+    """({device kernel or memory operation name: mean µs a call}, launches
+    without a kernel record) of the calls after a trace's first
+    synchronize (the lead-in's), from its raw kineto events."""
+    from torch.autograd import DeviceType
+    host = sorted((e for e in events if e.device_type() != DeviceType.CUDA),
+                  key=lambda e: e.start_ns())
+    cut = next((e.start_ns() for e in host if "Synchronize" in e.name()),
+               None)
+    if cut is None:
+        return {}, 1
+    counted = [e for e in host if e.start_ns() > cut]
+    calls = {e.correlation_id() for e in counted}
+    launches = {e.correlation_id() for e in counted
+                if "LaunchKernel" in e.name()}
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    recorded = {e.correlation_id() for e in device
+                if not e.name().startswith(("Memcpy", "Memset"))}
+    us: dict[str, float] = defaultdict(float)
+    for e in device:
+        if e.correlation_id() in calls:
+            us[e.name()] += e.duration_ns() / 1e3 / iters
+    return dict(us), len(launches - recorded)
+
+
+def kernel_trace(fn, iters: int = 1) -> dict[str, float]:
+    """{CUDA kernel (or memory operation) name: mean device time in µs a
+    call} over ``iters`` calls of ``fn`` after a lead-in call, from a
+    trace in which every counted launch has its kernel record.  ``fn``
+    must not synchronize.  Raises RuntimeError when no attempt is whole
+    (after a launch the card refused, every trace of a process comes back
+    empty)."""
+    from torch.profiler import ProfilerActivity, profile
+    lost = []
+    for pause in PAUSES_S:
+        time.sleep(pause)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()                                  # the lead-in: not read
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, n = read(prof.profiler.kineto_results.events(), iters)
+        if not n:
+            return us
+        lost.append(n)
+    raise RuntimeError(f"every one of {len(PAUSES_S)} traces lost kernel "
+                       f"records (launches without one: {lost})")

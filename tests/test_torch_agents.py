@@ -20,6 +20,12 @@ One case runs the replicated page table (``--replicas 2
 --disaggregate``).  Also: ``PrefixPageMapper`` against JAX's over a
 map/free sequence, the evaluator's report and reconciliation on a
 converged document, and the options the port does not run yet.
+
+JAX's ``ReplicatedPageStore`` state is built from host copies (the fixture
+``_jax_state_from_copies`` of ``test_torch_jax_state.py``): its
+``jnp.asarray`` aliases the store's numpy buffers and the delta extract
+runs asynchronously, so a JAX packet could read writes made after it was
+made, and the JAX trace changed from run to run under load.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.core import doc as tdoc  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
+from test_torch_jax_state import _jax_state_from_copies  # noqa: E402,F401
 
 # A greedy token may differ only where JAX's top-1/top-2 gap is at most
 # this: 8 bf16 steps (2^-6) at the sim-LLM's |logits| <= 4.  Measured

@@ -13,7 +13,10 @@ bf16 rounding exactly where the kernel rounds, and the combine formulas.
     ``row_splits``.  Held to ``ref.paged_mla_chunk`` at full width (16
     heads, r 512, rd 64, max_len 1024) on the kernel phase's mixed step,
     an agent-trial step and a scheduler decode step, within the float32
-    rule (1e-5 abs + 1e-5 rel) with a margin of at least 2x under it.
+    rule (1e-5 abs + 1e-5 rel) with a margin of at least 2x under it; and
+    ``paged_mla_decode``'s walk (the same walk at C 1, start = pos) against
+    ``ref.paged_mla_decode`` at the kernel phase's positions and a 4-row
+    trial decode step.
 (b) The MHA walk: bf16 q as one term, P rounded to bf16 once (relative to
     the running max of its warp's key part), the in-block key parts of a
     pass with fewer than 4 row tiles and the split-KV combine.  Held to
@@ -42,6 +45,7 @@ from repro_torch.kernels import paged_chunk_attention as kmha  # noqa: E402
 from repro_torch.kernels import paged_chunk_attention_quant as kmhq  # noqa: E402,E501
 from repro_torch.kernels import paged_mla_chunk as kmla_bf16  # noqa: E402
 from repro_torch.kernels import paged_mla_chunk_quant as kmla  # noqa: E402
+from repro_torch.kernels import paged_mla_decode as kmla_dec  # noqa: E402
 
 LOG2E = 1.4426950408889634
 H100_SMS = 132
@@ -221,6 +225,41 @@ def test_mla_bf16_walk_keeps_the_float32_rule(step):
                          pool, btt, st, sp, r, scale, plan)
     live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
     got, want = torch.where(live, got, 0), torch.where(live, want, 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert _margin(got, want, 1e-5, 1e-5) <= 0.5
+
+
+# chip_smoke.py's kernel-phase decode positions (8 rows) and a decode step
+# of the MLA agent trial (4 rows); paged_mla_decode walks them as chunks of
+# span 1 at pos.
+DECODE_POS = {"phase": [1023, 17, 300, 511, 640, 5, 999, 128],
+              "trial": [412, 590, 733, 96]}
+
+
+@pytest.mark.parametrize("step", list(DECODE_POS))
+def test_mla_bf16_decode_walk_keeps_the_float32_rule(step):
+    """paged_mla_decode's walk (the chunk walk at C 1, start = pos, the
+    plan ``decode_split_plan``: 32-key runs) against
+    ``ref.paged_mla_decode`` at full width, within the float32 rule with a
+    margin of at least 2x."""
+    r, rd, dp, h = 512, 64, 640, 16
+    pos = DECODE_POS[step]
+    b, maxp = len(pos), MAX_LEN // PS
+    ones = [1] * b
+    q_abs, q_rope, rows, bt, new = _mla_inputs(
+        5, b, 1, h, r, rd, dp, pos, ones, maxp)
+    pool = torch.from_numpy(rows).bfloat16()
+    pt, btt = torch.tensor(pos), torch.from_numpy(bt)
+    scale = (128 + rd) ** -0.5
+    want, pool = ops.paged_mla_decode(
+        torch.from_numpy(q_abs[:, :, 0]), torch.from_numpy(q_rope[:, :, 0]),
+        pool, btt, pt, torch.from_numpy(new[:, 0]).bfloat16(), scale=scale)
+    assert kmla_dec.decode_split_plan is kmla.decode_split_plan
+    plan = kmla.decode_split_plan(b, h, maxp * PS, H100_SMS)
+    assert plan.nsplit > 1                   # every long row is split
+    got = _mla_emulation(torch.from_numpy(q_abs), torch.from_numpy(q_rope),
+                         pool, btt, pt, torch.tensor(ones), r, scale,
+                         plan)[:, :, 0]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert _margin(got, want, 1e-5, 1e-5) <= 0.5
 

@@ -215,24 +215,16 @@ def test_decode_split_plan_edges(card):
 
 
 def _device_kernels(fn) -> set[str]:
-    """Names of the CUDA kernels one call of ``fn`` ran (torch.profiler;
-    a trace that comes back empty, as the profiler's traces now and then
-    do, is taken again, up to three times).  The tests that use it come
-    before ``test_failed_launch_raises_and_returns_nothing`` in this file:
-    after that refused launch every later trace of the process came back
-    empty (seen on the H100, three traces a call)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = {e.key for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
-        if names:
-            return names
-    return set()
+    """Names of the CUDA kernels one call of ``fn`` ran, read after a
+    lead-in call from a torch.profiler trace whose counted launches all
+    have their kernel records (``device_trace.kernel_trace``: on the H100
+    a trace can lose kernel records, at its start in some processes, and
+    read as empty; such a trace is taken again after a pause).  The tests that use it come before
+    ``test_failed_launch_raises_and_returns_nothing`` in this file: after
+    that refused launch every later trace of the process came back empty
+    (seen on the H100, three traces a call)."""
+    from repro_torch.launch.device_trace import kernel_trace
+    return set(kernel_trace(fn))
 
 
 def test_decode_attention_runs_split_kv(card):
@@ -298,6 +290,41 @@ def test_chunk_walks_route_by_pool_dtype(card):
         walks = [n for n in seen if "mla" in n and "write" not in n
                  and "combine" not in n]
         assert walks and all(mla in n for n in walks), seen
+
+
+def test_mla_decode_routes_by_pool_dtype(card):
+    """paged_mla_decode (bf16 pool) and paged_mla_decode_quant (int8 /
+    fp8) run the tensor-core walk ``mla_mma::walk``, with its combine when
+    the plan splits the keys (17 splits at 8 rows over 1024 keys) and
+    without it at one split (32 keys), never an ``mla::attend``
+    instantiation; a float32 pool still runs ``mla::attend_float``."""
+    from repro_torch.kernels import paged_mla_chunk_quant as kmq
+    r = np.random.default_rng(9)
+    b, h, lr, rd, ps = 8, 16, 512, 64, 16
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for maxp in (64, 2):
+        plan = kmq.decode_split_plan(b, h, maxp * ps, sms)
+        assert (plan.nsplit > 1) == (maxp == 64), plan
+        pos = _t(r.integers(0, maxp * ps, b), torch.int32, card)
+        for pool_dtype in (torch.bfloat16, *QDTYPES, torch.float32):
+            q_abs, q_rope, pools, bt, new = _mla_inputs(
+                r, b, h, None, lr, rd, ps, maxp, pool_dtype, card)
+            name = ("paged_mla_decode_quant" if pool_dtype in QDTYPES
+                    else "paged_mla_decode")
+            op = getattr(ops, name)
+            seen = _device_kernels(lambda: op(q_abs, q_rope, *pools, bt, pos,
+                                              new, scale=0.07))
+            walks = [n for n in seen if "mla" in n and "write" not in n
+                     and "combine" not in n]
+            combined = any("combine" in n for n in seen)
+            if pool_dtype == torch.float32:
+                assert walks and all("mla::attend_float" in n
+                                     for n in walks), seen
+                assert not combined, seen
+            else:
+                assert walks and all("mla_mma::walk" in n
+                                     for n in walks), seen
+                assert combined == (plan.nsplit > 1), (seen, plan)
 
 
 MLA_CASES = [
@@ -766,6 +793,104 @@ def test_paged_mla_chunk_bf16_walk_edges(card, step, shape):
     live = (torch.arange(c, device=card)[None, :]
             < sp[:, None])[:, None, :, None]
     assert bool((c1[~live.expand_as(c1)] == 0).all())
+    torch.testing.assert_close(torch.where(live, c1, 0),
+                               torch.where(live, c2, 0), rtol=1e-5,
+                               atol=1e-5)
+
+
+# (maxp, positions) of the MLA decode walk at 8 rows: cap 512 (16 splits
+# of 32 keys) and cap 32 (one split); pos 0, both sides of a split
+# boundary (31 | 32, 255 | 256), mid-table, and past the table (clamped to
+# cap - 1).
+MLA_DECODE_POS = {"16split": (32, [0, 31, 32, 255, 256, 300, 511, 517]),
+                  "1split": (2, [0, 15, 16, 31, 5, 20, 7, 37])}
+
+
+@pytest.mark.parametrize("qr_dtype", DTYPES)
+@pytest.mark.parametrize("plan", list(MLA_DECODE_POS))
+@pytest.mark.parametrize("shape", ["full", "narrow", "h4"])
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, *QDTYPES])
+def test_paged_mla_decode_walk_edges(card, pool_dtype, shape, plan,
+                                     qr_dtype):
+    """The MLA decode walk (paged_mla_decode on bf16, paged_mla_decode_quant
+    on int8 / fp8 pools) against its plain version: pos 0, on a split
+    boundary, at cap - 1 after the clamp; a 16-split and a 1-split plan;
+    full width (16 heads over 512 + 64), a narrow one (20 heads over 200 +
+    24: two head tiles, the second partial) and 4 heads (a partial tile);
+    -1 table entries the walk reads (page 0) and one under a written
+    position (the write drops); q_rope float32 and bf16 (the model's).
+    Contexts within 1e-5; pools and scales bitwise."""
+    from repro_torch.kernels import paged_mla_chunk_quant as km
+    from repro_torch.models.cache import pad128
+    h, lr, rd = {"full": (16, 512, 64), "narrow": (20, 200, 24),
+                 "h4": (4, 512, 64)}[shape]
+    maxp, pos = MLA_DECODE_POS[plan]
+    b, ps = len(pos), 16
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    nsplit = km.decode_split_plan(b, h, maxp * ps, sms).nsplit
+    assert (nsplit == 16) if plan == "16split" else (nsplit == 1)
+    dp = pad128(lr + rd)
+    rng = np.random.default_rng(25)
+    pool = b * maxp + 2
+    rows = _t(rng.normal(size=(pool, ps, dp)), torch.float32, card)
+    pools = (list(ref.quantize_rows(rows, pool_dtype))
+             if pool_dtype in QDTYPES else [rows.to(pool_dtype)])
+    clamped = np.minimum(pos, maxp * ps - 1)
+    bt = _walk_tables(rng, b, maxp, ps, clamped, np.ones(b, np.int64), pool)
+    bt[2, 0] = -1                           # read as page 0
+    bt[3, clamped[3] // ps] = -1            # the write drops, reads page 0
+    bt = _t(bt, torch.int32, card)
+    q_abs = _t(rng.normal(size=(b, h, lr)), torch.float32, card)
+    q_rope = _t(rng.normal(size=(b, h, rd)), qr_dtype, card)
+    new = rng.normal(size=(b, dp))
+    new[..., lr + rd:] = 0
+    new = _t(new, torch.bfloat16, card)
+    pos = _t(pos, torch.int32, card)
+    name = ("paged_mla_decode_quant" if pool_dtype in QDTYPES
+            else "paged_mla_decode")
+    op = getattr(ops, name)
+    plain = [t.clone() for t in pools]
+    c1, *p1 = op(q_abs, q_rope, *pools, bt, pos, new,
+                 scale=(128 + rd) ** -0.5)
+    c2, *p2 = op(q_abs, q_rope, *plain, bt, pos, new,
+                 scale=(128 + rd) ** -0.5, impl="ref")
+    torch.cuda.synchronize()
+    trash = pool - 1
+    assert all(_same_bits(x[:trash], y[:trash]) for x, y in zip(p1, p2))
+    torch.testing.assert_close(c1, c2, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, *QDTYPES])
+def test_paged_mla_chunk_reads_bf16_q_rope_in_place(card, pool_dtype):
+    """The chunk walks read q_rope in its own dtype: a bf16 q_rope (the
+    model's) gives the plain version's contexts within 1e-5 at the defined
+    queries, mixed spans 1..64 at full width."""
+    from repro_torch.models.cache import pad128
+    h, lr, rd, ps, maxp, b, c = 16, 512, 64, 16, 64, 8, 64
+    rng = np.random.default_rng(26)
+    pool = b * maxp + 2
+    dp = pad128(lr + rd)
+    rows = _t(rng.normal(size=(pool, ps, dp)), torch.float32, card)
+    pools = (list(ref.quantize_rows(rows, pool_dtype))
+             if pool_dtype in QDTYPES else [rows.to(pool_dtype)])
+    bt = _t(_walk_tables(rng, b, maxp, ps, WALK_STARTS, WALK_SPANS, pool),
+            torch.int32, card)
+    q_abs = _t(rng.normal(size=(b, h, c, lr)), torch.float32, card)
+    q_rope = _t(rng.normal(size=(b, h, c, rd)), torch.bfloat16, card)
+    new = _t(rng.normal(size=(b, c, dp)), torch.bfloat16, card)
+    st = _t(WALK_STARTS, torch.int32, card)
+    sp = _t(WALK_SPANS, torch.int32, card)
+    op = (ops.paged_mla_chunk_quant if pool_dtype in QDTYPES
+          else ops.paged_mla_chunk)
+    plain = [t.clone() for t in pools]
+    c1, *p1 = op(q_abs, q_rope, *pools, bt, st, sp, new, scale=0.07)
+    c2, *p2 = op(q_abs, q_rope, *plain, bt, st, sp, new, scale=0.07,
+                 impl="ref")
+    torch.cuda.synchronize()
+    trash = pool - 1
+    assert all(_same_bits(x[:trash], y[:trash]) for x, y in zip(p1, p2))
+    live = (torch.arange(c, device=card)[None, :]
+            < sp[:, None])[:, None, :, None]
     torch.testing.assert_close(torch.where(live, c1, 0),
                                torch.where(live, c2, 0), rtol=1e-5,
                                atol=1e-5)

@@ -23,6 +23,12 @@ the CPU.
 
 The MLA model is reduced deepseek-v2-lite-16b with dense FFNs (the MoE is
 not ported), the same in both packages.
+
+JAX's ``ReplicatedPageStore`` state is built from host copies (the fixture
+``_jax_state_from_copies`` of ``test_torch_jax_state.py``): its
+``jnp.asarray`` aliases the store's numpy buffers and the delta extract
+runs asynchronously, so a JAX packet could read writes made after it was
+made, and the JAX trace changed from run to run under load.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving import chaos as tchaos  # noqa: E402
 from repro_torch.serving import replicated as trep  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
+from test_torch_jax_state import _jax_state_from_copies  # noqa: E402,F401
 
 # ---------------------------------------------------------------------------
 # page_transfer

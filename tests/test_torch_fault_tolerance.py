@@ -18,6 +18,12 @@ with the same float32 weights.
 
 Everything is exact with float32 weights on the CPU, so every comparison
 is equality.
+
+JAX's ``ReplicatedPageStore`` state is built from host copies (the fixture
+``_jax_state_from_copies`` of ``test_torch_jax_state.py``): its
+``jnp.asarray`` aliases the store's numpy buffers and the delta extract
+runs asynchronously, so a JAX packet could read writes made after it was
+made, and the JAX trace changed from run to run under load.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.serving import chaos as tchaos  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
+from test_torch_jax_state import _jax_state_from_copies  # noqa: E402,F401
 
 B, MAX_LEN, PS = 3, 32, 8
 

@@ -25,7 +25,11 @@ run: the rules their designs rest on are held here.
 (d) The two walks' split plans (``paged_mla_chunk_quant.split_plan``,
     ``paged_chunk_attention_quant.split_plan``): shapes only, their ranges
     cover [0, maxp·ps), and the blocks a decode-only step gets at the
-    agent trials' shapes.
+    agent trials' shapes; the MLA decode kernels' plan (the chunk plan at
+    C 1) covers [0, pos + 1) once at the kernel phase and a trial step.
+(e) ``paged_mla_decode_quant``'s walk (the MLA walk at C 1, start = pos)
+    against ``ref.paged_mla_decode_quant`` at full width, int8 and fp8,
+    within the float32 rule with a margin of at least 2x.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_chunk_attention_quant as kmha  # noqa: E402,E501
 from repro_torch.kernels import paged_mla_chunk_quant as kmla  # noqa: E402
+from repro_torch.kernels import paged_mla_decode_quant as kmla_dec  # noqa: E402,E501
 
 LOG2E = 1.4426950408889634
 H100_SMS = 132
@@ -213,6 +218,41 @@ def test_mla_walk_keeps_the_float32_rule(step, qname):
     if step == "trial":
         assert plan.nsplit > 1               # the decode rows are split
     got, want = torch.where(live, got, 0), torch.where(live, want, 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert _margin(got, want, 1e-5, 1e-5) <= 0.5
+
+
+# chip_smoke.py's kernel-phase decode positions (8 rows) and a decode step
+# of the MLA agent trial (4 rows).
+DECODE_POS = {"phase": [1023, 17, 300, 511, 640, 5, 999, 128],
+              "trial": [412, 590, 733, 96]}
+
+
+@pytest.mark.parametrize("qname", list(QDTYPES))
+@pytest.mark.parametrize("step", list(DECODE_POS))
+def test_mla_decode_walk_keeps_the_float32_rule(step, qname):
+    """paged_mla_decode_quant's walk (the chunk walk at C 1, start = pos,
+    the plan ``decode_split_plan``: 32-key runs) against
+    ``ref.paged_mla_decode_quant`` at full width, int8 and fp8, within the
+    float32 rule with a margin of at least 2x."""
+    r, rd, dp, h = 512, 64, 640, 16
+    pos = DECODE_POS[step]
+    b, maxp = len(pos), MAX_LEN // PS
+    ones = [1] * b
+    q_abs, q_rope, rows, bt, new = _mla_inputs(
+        5, b, 1, h, r, rd, dp, QDTYPES[qname], pos, ones, maxp)
+    codes, scales = ref.quantize_rows(torch.from_numpy(rows), QDTYPES[qname])
+    pt, btt = torch.tensor(pos), torch.from_numpy(bt)
+    scale = (128 + rd) ** -0.5
+    want, codes, scales = ops.paged_mla_decode_quant(
+        torch.from_numpy(q_abs[:, :, 0]), torch.from_numpy(q_rope[:, :, 0]),
+        codes, scales, btt, pt, torch.from_numpy(new[:, 0]), scale=scale)
+    assert kmla_dec.decode_split_plan is kmla.decode_split_plan
+    plan = kmla.decode_split_plan(b, h, maxp * PS, H100_SMS)
+    assert plan.nsplit > 1
+    got = _mla_emulation(torch.from_numpy(q_abs), torch.from_numpy(q_rope),
+                         codes, scales, btt, pt, torch.tensor(ones), r,
+                         scale, plan)[:, :, 0]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert _margin(got, want, 1e-5, 1e-5) <= 0.5
 
@@ -415,6 +455,41 @@ def test_mla_split_plan_feeds_the_card_at_the_trial_shape():
                                   kmla.MAX_SPLITS,
                                   cap // kmla.MIN_SPLIT_LEN)
     assert kmla.row_splits(32, 1000, plan.nsplit, ymax) == 2
+
+
+def test_mla_decode_plan_reads_shapes_only():
+    assert list(inspect.signature(kmla.decode_split_plan).parameters) == [
+        "b", "h", "cap", "sms"]
+
+
+@pytest.mark.parametrize("step", list(DECODE_POS))
+def test_mla_decode_plan_covers_each_row_once(step):
+    """The decode kernels' plan (``decode_split_plan``: the chunk plan at C
+    1 with 32-key runs, up to 32 a row), from shapes only: one live tile a
+    row, and for every row's keys [0, pos + 1) (the step's positions and
+    the edges 0, 31, 32, 63, 64, cap - 1) the splits cut whole key tiles
+    that cover them once and fit the grid.  Blocks: 136 at the kernel
+    phase's 8 rows (17 splits), 128 at the trial's 4 (32), of 132 SMs; the
+    chunk kernels' plan is unchanged (64-key runs, up to 16)."""
+    pos = DECODE_POS[step]
+    b, h, cap = len(pos), 16, MAX_LEN
+    plan = kmla.decode_split_plan(b, h, cap, H100_SMS)
+    ymax = kmla.grid_rows(1, h, plan.nsplit)
+    assert plan.split_len == kmla.DECODE_MIN_SPLIT_LEN == kmla.KEY_TILE
+    assert (plan.nsplit, ymax) == {"phase": (17, 17), "trial": (32, 32)}[step]
+    assert plan.blocks == b * ymax == {"phase": 136, "trial": 128}[step]
+    chunk = kmla.split_plan(b, 1, h, cap, H100_SMS)
+    assert (chunk.nsplit, chunk.split_len) == (16, kmla.MIN_SPLIT_LEN)
+    for p in sorted(set(pos) | {0, 31, 32, 63, 64, cap - 1}):
+        hi = p + 1
+        ns = kmla.row_splits(1, hi, plan.nsplit, ymax, plan.split_len)
+        per = kmla.split_keys(hi, ns)
+        assert per % kmla.KEY_TILE == 0 and 1 <= ns <= plan.nsplit <= ymax
+        assert ns == min(plan.nsplit, -(-hi // plan.split_len))
+        covered = np.zeros(hi, np.int64)
+        for s in range(ns):
+            covered[s * per:min(hi, (s + 1) * per)] += 1
+        assert (covered == 1).all()
 
 
 # -- the MHA split plan -----------------------------------------------------

@@ -20,9 +20,9 @@ CPU.
 Everything compared here is exact (integer state, float32 weights), so
 every comparison is equality.
 
-JAX is handed copies of its store's working arrays
-(``_jax_state_from_copies``): ``ReplicatedPageStore.state`` wraps them with
-``jnp.asarray``, which aliases a 64-byte-aligned numpy buffer, and the
+JAX is handed copies of its store's working arrays (the fixture
+``_jax_state_from_copies`` of ``test_torch_jax_state.py``):
+``ReplicatedPageStore.state`` wraps them with ``jnp.asarray``, which aliases a 64-byte-aligned numpy buffer, and the
 jitted delta extract runs asynchronously, so a packet could read a
 heartbeat or refcount the simulator wrote in place after ``make_packet``
 returned.  Whether it did depended on allocator alignment and CPU load,
@@ -31,7 +31,6 @@ run (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
-import copy
 import json
 
 import numpy as np
@@ -51,26 +50,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.serving import replicated as trep  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
 from repro_torch.serving import simulator as tsim  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def _jax_state_from_copies(monkeypatch):
-    """JAX's ``ReplicatedPageStore.state`` built from host copies of the
-    working arrays, so no JAX array aliases a buffer the store later writes
-    in place, and a delta reads the state as it was when extracted."""
-    state = jrep.ReplicatedPageStore.state
-
-    def from_copies(self):
-        snap = copy.copy(self)
-        for name, val in vars(self).items():
-            if isinstance(val, np.ndarray):
-                setattr(snap, name, val.copy())
-            elif isinstance(val, dict):
-                setattr(snap, name, {k: v.copy() if isinstance(
-                    v, np.ndarray) else v for k, v in val.items()})
-        return state(snap)
-
-    monkeypatch.setattr(jrep.ReplicatedPageStore, "state", from_copies)
+from test_torch_jax_state import _jax_state_from_copies  # noqa: E402,F401
 
 
 def test_prefix_hash_and_zero_state_match_jax():
