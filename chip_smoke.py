@@ -30,11 +30,13 @@
    JAX's sweep shapes and ``bench_merge``'s bank (K 4096, D 128, Dc 256;
    int32 / float32 / bf16 payloads; equal and INT32_MIN keys; duplicate
    targets with equal maximal keys, -1, < -1 and >= K lanes, Dc 0 and 1);
-   the four chunk kernels (bf16 and quantized pools) and the two MLA
-   decode kernels (bf16; int8 and fp8) also carry their tensor-core walk's
-   profile: the profiler's device time of the write, walk and combine, the
-   key-split plan (nsplit, split_len, blocks), and a trace that must show
-   ``chunk_mma`` / ``mla_mma::walk`` and none of the old walks;
+   the eight paged kernels (chunk and decode, MHA and MLA; bf16 and
+   quantized pools) also carry their tensor-core walk's profile: the
+   profiler's device time of the write, walk and combine, the key-split
+   plan (nsplit, split_len, blocks), and a trace that must show
+   ``chunk_mma`` / ``mla_mma::walk``, the combine exactly when the plan
+   splits, and none of the old walks; the kernel phase draws its CUDA
+   inputs from seeded generators, so every run checks the same draws;
    then runs the port's ``bench_merge --quick`` (the replica-sync sweep:
    every delta sync exact, delta < pmax < allgather bytes at rate 0.05;
    its kernel rows launch ``delta_apply``);
@@ -218,11 +220,15 @@ def _tables(rng, lens, trash):
     return bt
 
 
-def _paged_case(rng, lens):
+def _paged_case(rng, lens, gen):
+    """bf16 pools of random rows drawn from ``gen`` and tables from
+    ``_tables``."""
     maxp = MAX_LEN // PS
     trash = B * maxp
-    kp = torch.randn((trash + 1, H, PS, D), device="cuda").bfloat16()
-    vp = torch.randn((trash + 1, H, PS, D), device="cuda").bfloat16()
+    kp = torch.randn((trash + 1, H, PS, D), generator=gen,
+                     device="cuda").bfloat16()
+    vp = torch.randn((trash + 1, H, PS, D), generator=gen,
+                     device="cuda").bfloat16()
     bt = torch.as_tensor(_tables(rng, lens, trash), device="cuda")
     return kp, vp, bt, trash
 
@@ -236,12 +242,12 @@ def _pools_equal(a, b, trash) -> bool:
     return torch.equal(a[:trash], b[:trash])
 
 
-def _quant_case(rng, lens, qdtype):
+def _quant_case(rng, lens, qdtype, gen):
     """[k_pages, k_scales, v_pages, v_scales] (the wrappers' order): pools
     holding quantized random rows and their f32 scales, and tables as
     ``_paged_case``'s."""
     from repro_torch.kernels import ref
-    kp, vp, bt, trash = _paged_case(rng, lens)
+    kp, vp, bt, trash = _paged_case(rng, lens, gen)
     kq, ks = ref.quantize_rows(kp, qdtype)
     vq, vs = ref.quantize_rows(vp, qdtype)
     return [kq, ks, vq, vs], bt, trash
@@ -269,14 +275,18 @@ def walk_fields(fn, plan, want: str, forbid: tuple, prefix: str = "") -> dict:
 
 def quant_kernel_rows(rng):
     """The two quantized-pool kernels against their plain versions, int8
-    and fp8, at the shapes of the float kernels' checks.  The row reports
-    the int8 pools (the trial's); fp8 adds its own error and times.  The
-    chunk kernel's row adds its walk's profile (``walk_fields``: the
-    tensor-core ``chunk_mma``, never the old ``chunk_attend_quant``)."""
+    and fp8, at the shapes of the float kernels' checks, on inputs drawn
+    from a CUDA generator of seed 12.  The row reports the int8 pools (the
+    trial's); fp8 adds its own error and times.  Each row adds its walk's
+    profile (``walk_fields``: the tensor-core ``chunk_mma``, never the old
+    ``chunk_attend_quant`` or ``attend_kv``; the decode kernel on its
+    ``decode_split_plan``)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_chunk_attention_quant as kcq
+    from repro_torch.kernels import paged_decode_attention_quant as kdq
     from repro_torch.kernels.decode_attention import sm_count
     scale = D ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(12)
     rows = []
     start = np.array([0, 100, 300, 447, 700, 900, 959, 64])
     span = np.array([64, 64, 1, 1, 0, 30, 64, 17])
@@ -287,24 +297,30 @@ def quant_kernel_rows(rng):
             idx=(torch.as_tensor(start, dtype=torch.int32, device="cuda"),
                  torch.as_tensor(span, dtype=torch.int32, device="cuda")),
             op=ops.paged_chunk_attention_quant,
+            wrapper=kcq.paged_chunk_attention_quant,
+            plan=kcq.split_plan(B, H, MAX_LEN, sm_count(0)),
             source="src/repro_torch/kernels/csrc/paged_chunk_attention_quant.cu",
             replaces="src/repro/kernels/paged_chunk_attention.py:389"),
         "paged_decode_attention_quant": dict(
             lens=pos + 1, qshape=(B, H, D), kvshape=(B, H, D),
             idx=(torch.as_tensor(pos, dtype=torch.int32, device="cuda"),),
             op=ops.paged_decode_attention_quant,
+            wrapper=kdq.paged_decode_attention_quant,
+            plan=kcq.decode_split_plan(B, H, MAX_LEN, sm_count(0)),
             source="src/repro_torch/kernels/csrc/paged_decode_attention_quant.cu",
             replaces="src/repro/kernels/paged_decode_attention.py:355"),
     }
     for name, sp in specs.items():
         row = dict(name=name, route="cuda", source=sp["source"],
                    replaces=sp["replaces"], library_ms=None)
-        q = torch.randn(sp["qshape"], device="cuda").bfloat16()
-        kn = torch.randn(sp["kvshape"], device="cuda").bfloat16()
-        vn = torch.randn(sp["kvshape"], device="cuda").bfloat16()
+        q = torch.randn(sp["qshape"], generator=gen, device="cuda").bfloat16()
+        kn = torch.randn(sp["kvshape"], generator=gen,
+                         device="cuda").bfloat16()
+        vn = torch.randn(sp["kvshape"], generator=gen,
+                         device="cuda").bfloat16()
         for qname, qdtype in (("int8", torch.int8),
                               ("fp8", torch.float8_e4m3fn)):
-            pools, bt, trash = _quant_case(rng, sp["lens"], qdtype)
+            pools, bt, trash = _quant_case(rng, sp["lens"], qdtype, gen)
             twin = [t.clone() for t in pools]
             o1 = sp["op"](q, *pools, bt, *sp["idx"], kn, vn,
                           scale=scale)[0]
@@ -326,13 +342,12 @@ def quant_kernel_rows(rng):
             plain_ms = cuda_ms(lambda: sp["op"](q, *twin, bt, *sp["idx"],
                                                 kn, vn, scale=scale,
                                                 impl="ref"))
-            if name == "paged_chunk_attention_quant":
-                row.update(walk_fields(
-                    lambda: kcq.paged_chunk_attention_quant(
-                        q, *pools, bt, *sp["idx"], kn, vn, scale=scale),
-                    kcq.split_plan(B, H, MAX_LEN, sm_count(0)), "chunk_mma",
-                    ("chunk_attend_quant", "attend_kv"),
-                    "" if qname == "int8" else "fp8_"))
+            row.update(walk_fields(
+                lambda: sp["wrapper"](q, *pools, bt, *sp["idx"], kn, vn,
+                                      scale=scale),
+                sp["plan"], "chunk_mma",
+                ("chunk_attend_quant", "decode_attend", "attend_kv"),
+                "" if qname == "int8" else "fp8_"))
             if qname == "int8":
                 row.update(shapes=f"q{list(sp['qshape'])} bf16, int8 pools "
                                   f"[{trash + 1},{H},{PS},{D}] + f32 scales",
@@ -400,6 +415,7 @@ def mla_kernel_rows(rng):
     from repro_torch.kernels.decode_attention import sm_count
     scale = (128 + MLA_RD) ** -0.5
     lw = MLA_R + MLA_RD
+    gen = torch.Generator(device="cuda").manual_seed(13)
     start = np.array([0, 100, 300, 447, 700, 900, 959, 64])
     span = np.array([64, 64, 1, 1, 0, 30, 64, 17])
     pos = np.array([1023, 17, 300, 511, 640, 5, 999, 128])
@@ -420,10 +436,11 @@ def mla_kernel_rows(rng):
     for name, idx, lens, qs, tpu in specs:
         quant = name.endswith("_quant")
         op = getattr(ops, name)
-        q_abs = torch.randn(qs + (MLA_R,), device="cuda")
-        q_rope = torch.randn(qs + (MLA_RD,), device="cuda").bfloat16()
+        q_abs = torch.randn(qs + (MLA_R,), generator=gen, device="cuda")
+        q_rope = torch.randn(qs + (MLA_RD,), generator=gen,
+                             device="cuda").bfloat16()
         new_shape = (B, CHUNK, MLA_DP) if len(qs) == 3 else (B, MLA_DP)
-        new = torch.randn(new_shape, device="cuda").bfloat16()
+        new = torch.randn(new_shape, generator=gen, device="cuda").bfloat16()
         new[..., lw:] = 0                       # the model's pad columns
         bt = torch.as_tensor(_tables(rng, lens, B * (MAX_LEN // PS)),
                              device="cuda")
@@ -433,7 +450,8 @@ def mla_kernel_rows(rng):
         for qname, qdtype in ((("int8", torch.int8),
                                ("fp8", torch.float8_e4m3fn)) if quant
                               else (("bf16", torch.bfloat16),)):
-            pool = torch.randn((trash + 1, PS, MLA_DP), device="cuda")
+            pool = torch.randn((trash + 1, PS, MLA_DP), generator=gen,
+                               device="cuda")
             pools = (list(ref.quantize_rows(pool, qdtype)) if quant
                      else [pool.bfloat16()])
             twin = [t.clone() for t in pools]
@@ -520,17 +538,22 @@ def kernel_phase():
     from repro_torch.kernels import paged_chunk_attention as kchunk
     from repro_torch.kernels import paged_decode_attention as kpdec
     from repro_torch.kernels.decode_attention import sm_count
+    from repro_torch.kernels.paged_chunk_attention_quant import (
+        decode_split_plan)
     rng = np.random.default_rng(0)
+    # The MHA rows' CUDA inputs: a generator of their own, seed 11.
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
     scale = D ** -0.5
     rows = []
 
     # paged_chunk_attention: prompt chunks and decode rows in one step.
     start = np.array([0, 100, 300, 447, 700, 900, 959, 64])
     span = np.array([64, 64, 1, 1, 0, 30, 64, 17])
-    kp, vp, bt, trash = _paged_case(rng, start + span)
-    q = torch.randn((B, H, CHUNK, D), device="cuda").bfloat16()
-    kn = torch.randn((B, H, CHUNK, D), device="cuda").bfloat16()
-    vn = torch.randn((B, H, CHUNK, D), device="cuda").bfloat16()
+    kp, vp, bt, trash = _paged_case(rng, start + span, gen)
+    q, kn, vn = (rand(B, H, CHUNK, D) for _ in range(3))
     st = torch.as_tensor(start, dtype=torch.int32, device="cuda")
     sp = torch.as_tensor(span, dtype=torch.int32, device="cuda")
     kp2, vp2 = kp.clone(), vp.clone()
@@ -577,10 +600,8 @@ def kernel_phase():
 
     # paged_decode_attention: one token per row at ragged positions.
     pos = np.array([1023, 17, 300, 511, 640, 5, 999, 128])
-    kp, vp, bt, trash = _paged_case(rng, pos + 1)
-    q = torch.randn((B, H, D), device="cuda").bfloat16()
-    kn = torch.randn((B, H, D), device="cuda").bfloat16()
-    vn = torch.randn((B, H, D), device="cuda").bfloat16()
+    kp, vp, bt, trash = _paged_case(rng, pos + 1, gen)
+    q, kn, vn = (rand(B, H, D) for _ in range(3))
     ps_ = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     kp2, vp2 = kp.clone(), vp.clone()
     o1, _, _ = ops.paged_decode_attention(q, kp, vp, bt, ps_, kn, vn,
@@ -598,6 +619,10 @@ def kernel_phase():
     nbytes = (2 * int(pos.sum()) * H * D * 2 + 2 * 2 * B * H * D * 2
               + 2 * q.numel() * 2 + pages * 4 + B * 4)
     bms, by = bound(nbytes, 4 * int((pos + 1).sum()) * H * D)
+
+    def dec():
+        return kpdec.paged_decode_attention(q, kp, vp, bt, ps_, kn, vn,
+                                            scale=scale)
     rows.append(dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -605,11 +630,12 @@ def kernel_phase():
         shapes=f"q[{B},{H},{D}] bf16, pools[{trash + 1},{H},{PS},{D}], "
                f"pos {pos.tolist()}",
         max_abs_err=err, pools_bitwise=bitwise,
-        ms=cuda_ms(lambda: kpdec.paged_decode_attention(
-            q, kp, vp, bt, ps_, kn, vn, scale=scale)),
+        ms=cuda_ms(dec),
         plain_ms=cuda_ms(lambda: ref.paged_decode_attention(
             q, kp2, vp2, bt, ps_, kn, vn, scale=scale)),
-        bound_ms=bms, bound_by=by, library_ms=None))
+        bound_ms=bms, bound_by=by, library_ms=None,
+        **walk_fields(dec, decode_split_plan(B, H, MAX_LEN, sm_count(0)),
+                      "chunk_mma", ("decode_attend", "attend_kv"))))
 
     # decode_attention: dense [B, H, 1024, D] cache, ragged kv_len.
     kv_len = np.array([1024, 18, 301, 512, 641, 6, 1000, 129])
@@ -617,11 +643,12 @@ def kernel_phase():
                source="src/repro_torch/kernels/csrc/decode_attention.cu",
                replaces="src/repro/kernels/decode_attention.py:95",
                pools_bitwise=None)
+    dgen = torch.Generator(device="cuda").manual_seed(14)
     row.update(decode_attention_case(
-        "", "OLMo-1B", *_decode_inputs(B, H, H, MAX_LEN, D), kv_len))
+        "", "OLMo-1B", *_decode_inputs(B, H, H, MAX_LEN, D, dgen), kv_len))
     row.update(decode_attention_case(
         "d256_", "head_dim 256, MQA", *_decode_inputs(
-            B, RG_HQ, RG_HKV, MAX_LEN, RG_D), kv_len))
+            B, RG_HQ, RG_HKV, MAX_LEN, RG_D, dgen), kv_len))
     if row["d256_nsplit"] < 2:
         fail(f"decode_attention at RecurrentGemma's shape ran one split: "
              f"{row['d256_device_kernels']}")
@@ -629,7 +656,7 @@ def kernel_phase():
     # 64 over its max_len 256 cache, ragged kv_len up to 256.
     row.update(decode_attention_case(
         "d64_", "head_dim 64, whisper decoder", *_decode_inputs(
-            B, WH_H, WH_H, WH_MAX_LEN, WH_D),
+            B, WH_H, WH_H, WH_MAX_LEN, WH_D, dgen),
         np.array([256, 33, 1, 200, 129, 84, 255, 17])))
     rows.append(row)
     rows += quant_kernel_rows(rng)
@@ -735,11 +762,10 @@ def flash_attention_row() -> dict:
 RG_HQ, RG_HKV, RG_D, RG_W = 10, 1, 256, 2560
 
 
-def _decode_inputs(b, hq, hkv, s, d):
-    """q [b, hq, d] and k, v [b, hkv, s, d], bf16, random."""
-    return (torch.randn((b, hq, d), device="cuda").bfloat16(),
-            torch.randn((b, hkv, s, d), device="cuda").bfloat16(),
-            torch.randn((b, hkv, s, d), device="cuda").bfloat16())
+def _decode_inputs(b, hq, hkv, s, d, gen):
+    """q [b, hq, d] and k, v [b, hkv, s, d], bf16, random from ``gen``."""
+    return tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                 for shape in ((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)))
 
 
 def decode_attention_case(tag, label, q, k, v, kv_len) -> dict:
@@ -824,10 +850,11 @@ def linear_scan_row(rng) -> dict:
                replaces="src/repro/kernels/rglru_scan.py:67",
                library_ms=None, pools_bitwise=None)
     span = torch.as_tensor([64, 64, 1, 1, 0, 30, 64, 17], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
     for name, t in (("mixed", CHUNK), ("prefill", 2 * CHUNK)):
-        a = torch.rand((B, t, RG_W), device="cuda") * 0.7 + 0.3
-        b = torch.randn((B, t, RG_W), device="cuda")
-        h0 = torch.randn((B, RG_W), device="cuda")
+        a = torch.rand((B, t, RG_W), generator=gen, device="cuda") * 0.7 + 0.3
+        b = torch.randn((B, t, RG_W), generator=gen, device="cuda")
+        h0 = torch.randn((B, RG_W), generator=gen, device="cuda")
         if name == "mixed":
             valid = (torch.arange(t, device="cuda")[None, :]
                      < span[:, None])[..., None]

@@ -2,8 +2,9 @@
 port's main paths, on one CUDA card, against SDPA, and the tensor-core
 walks of the paged kernels (``paged_chunk_attention`` and
 ``paged_mla_chunk`` on bf16 pools, their ``_quant`` twins on int8 / fp8
-pools, and the MLA decode kernels ``paged_mla_decode`` and ``_quant``)
-through ``ops``, as the models call them.
+pools, the MLA decode kernels ``paged_mla_decode`` and ``_quant``, and
+the MHA decode kernels ``paged_decode_attention`` and ``_quant``) through
+``ops``, as the models call them.
 
   python src/repro_torch/benchmarks/bench_attention.py [--src DIR]
 
@@ -39,7 +40,10 @@ agent trial's 4-row decode step.  Their ``device_ms`` sums every kernel
 of the call (the write, the walk, a combine), there is no library call,
 and ``max_abs_err`` is against the plain version at the defined
 positions.  The decode rows pass the model's bf16 q_rope, which the
-kernels read in place.
+kernels read in place.  The MHA decode kernels (bf16 pools; int8 and fp8
+pools with f32 row scales; OLMo-1B's q [B, 16, 128] bf16, pools [P, 16,
+16, 128]) at the same three shapes (``engine_decode``: the paged OLMo-1B
+``Engine``'s step), ``device_ms`` again every kernel of the call.
 """
 from __future__ import annotations
 
@@ -238,7 +242,7 @@ def _bf16_rows(tree, gen, dev):
                         live)
 
 
-# The MLA decode kernels: (rows, pos) of each shape.
+# The decode kernels (MLA and MHA): (rows, pos) of each shape.
 DECODE_SHAPES = {
     "kernel_phase": (8, [1023, 17, 300, 511, 640, 5, 999, 128]),
     "engine_decode": (8, [136] * 8),
@@ -281,6 +285,44 @@ def _mla_decode_rows(tree, gen, dev):
                           impl=impl)[0]
             yield _walk_row(name, shape, qname, detail, tree, mla,
                             lambda: mla("ref", twin), live)
+
+
+def _mha_decode_rows(tree, gen, dev):
+    """JSON rows of paged_decode_attention (bf16 pools) and
+    paged_decode_attention_quant (int8, fp8) at DECODE_SHAPES, bf16 q and
+    new rows (OLMo-1B's)."""
+    from repro_torch.kernels import ops, ref
+    for shape, (b, pos) in DECODE_SHAPES.items():
+        pt = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+        bt = _table(b, pos, [1] * b, dev)
+        pages = b * (MAX_LEN // PS) + 1
+        live = torch.ones((), dtype=torch.bool, device=dev)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        q = rand(b, 16, 128).bfloat16()
+        kn, vn = (rand(b, 16, 128).bfloat16() for _ in range(2))
+        detail = (f"q[{b},16,128] bf16, pools[{pages},16,{PS},128], "
+                  f"pos {pos}")
+        for qname, qdtype in (("bf16", torch.bfloat16),
+                              ("int8", torch.int8),
+                              ("fp8", torch.float8_e4m3fn)):
+            rows = [rand(pages, 16, PS, 128) for _ in range(2)]
+            if qname == "bf16":
+                pools = [x.bfloat16() for x in rows]
+                name = "paged_decode_attention"
+            else:
+                pools = [*ref.quantize_rows(rows[0], qdtype),
+                         *ref.quantize_rows(rows[1], qdtype)]
+                name = "paged_decode_attention_quant"
+            twin = [t.clone() for t in pools]
+            op = getattr(ops, name)
+
+            def mha(impl="kernel", pools=pools, op=op):
+                return op(q, *pools, bt, pt, kn, vn, scale=128 ** -0.5,
+                          impl=impl)[0]
+            yield _walk_row(name, shape, qname, detail, tree, mha,
+                            lambda: mha("ref", twin), live)
 
 
 def _walk_row(name, shape, qname, shapes, tree, fn, plain, live) -> dict:
@@ -337,7 +379,8 @@ def main(argv=None) -> int:
             lambda: ref.decode_attention(q, k, v, kl, scale=scale),
             lambda: sdpa(q[:, :, None], kx, vx, attn_mask=mask,
                          scale=scale)[:, :, 0], "dense_attend")), flush=True)
-    for rows in (_quant_rows, _bf16_rows, _mla_decode_rows):
+    for rows in (_quant_rows, _bf16_rows, _mla_decode_rows,
+                 _mha_decode_rows):
         for row in rows(args.src, gen, dev):
             print(json.dumps(row), flush=True)
     card = subprocess.run(

@@ -1,27 +1,27 @@
-// The tensor-core walk of chunked mixed-step attention over a paged KV
-// cache (sm_90a): the attend of paged_chunk_attention (bf16 pools) and of
-// paged_chunk_attention_quant (int8 / e4m3 pools).  The pool is a policy
-// of the walk (CodePool, Bf16Pool below); rt::attend_kv
-// (attention_common.cuh) stays the walk of the decode kernels and of
-// float32 pools.
+// The tensor-core walk of paged attention over a paged KV cache (sm_90a):
+// the attend of paged_chunk_attention and paged_decode_attention (bf16
+// pools) and of their _quant twins (int8 / e4m3 pools).  The pool is a
+// policy of the walk (CodePool, Bf16Pool below); rt::attend
+// (attention_common.cuh) stays the walk of float32 pools.  A decode call
+// is a chunk of span 1 at pos (span == nullptr: no tensor of ones).
 //
 // FlashAttention-2 on mma.sync.m16n8k16, blocks of 4 warps for a (batch
 // row, KV head), grid (B, Hkv, nsplit):
 //   - The block's query rows are the (span position, group head) pairs of
 //     its KV head with the heads inner, m = j·group + g; rows m < span·group
 //     are live, the rest are written zero at once.  The block walks the
-//     live rows 64 at a time (16 a warp), so a span-1 decode row costs one
-//     pass, a 64-row prompt chunk one pass, and no block exists only to
-//     write zeros.
+//     live rows 64 at a time (16 a warp), so a span-1 decode row (the
+//     group's heads) costs one pass, a 64-row prompt chunk one pass, and
+//     no block exists only to write zeros.
 //   - q (query dtype T) is copied a pass's rows at a time into shared
 //     memory by cp.async (all copies in flight at once) and split into
 //     Terms<T>::Q bf16 terms (bf16: the value itself; float32: three terms,
 //     hi + mid + lo, float32 in effect); ldmatrix reads the A fragments.
-//   - A pass with fewer than 4 live row tiles of 16 (a span-1 row has one)
-//     splits each key tile between the warps: warp w takes row tile w %
-//     nrt and n8 key tiles of part w / nrt (k16 steps: at most KT / 16
-//     parts), keeps its own softmax state, and the parts merge in shared
-//     memory after the walk (in part order, the combine formula of
+//   - A pass with fewer than 4 live row tiles of 16 (a decode row of MHA
+//     has one) splits each key tile between the warps: warp w takes row
+//     tile w % nrt and n8 key tiles of part w / nrt (k16 steps: at most
+//     KT / 16 parts), keeps its own softmax state, and the parts merge in
+//     shared memory after the walk (in part order, the combine formula of
 //     split-KV), so a decode row keeps the warps busy.
 //   - K and V rows are gathered per key through the block table by
 //     cp.async (16 B a copy) into a ring of NST stages of KT keys, so NST -
@@ -38,26 +38,36 @@
 //     (V transposed) from rows padded to an odd count of 16 B, as
 //     flash_fwd_mma reads its tiles.
 //   - S = Q K^T, then the score column times scale · log2 e (CodePool:
-//     also s_k,t); causal and window masks per element, and tiles outside
-//     the pass's [lo, hi) are never gathered.  Online softmax in float32
-//     with exp2f, guarded as flash_fwd_mma's; l sums the float32 p.
-//   - O += P V (CodePool: p · s_v,t) with P as Terms<T>::P bf16 terms
-//     (bf16: rounded once, as flash_fwd_mma rounds P; float32: three terms
-//     by truncation, tc::split_trunc).  A row with no live key gives 0.
+//     also s_k,t); causal and window masks per element (a key t is live
+//     for the row at pos if t <= pos and, with a window, t > pos - window),
+//     and tiles outside the pass's [lo, hi) are never gathered.  Online
+//     softmax in float32 with exp2f, guarded as flash_fwd_mma's; l sums the
+//     float32 p.
+//   - O += P V (CodePool: p · s_v,t) with P as Terms<T>::P bf16 terms by
+//     truncation (tc::split_trunc: each term the upper 16 bits of what the
+//     earlier ones left).  bf16 q: two terms, P to 2^-14 relative, so the
+//     float32 O agrees with the plain version's to float32 noise and the
+//     one rounding of out to bf16 lands at most one bf16 step from it (P
+//     rounded once, the first design, put errors two steps out: PERF.md);
+//     float32 q: three, float32 in effect.  A row with no live key gives 0.
 //   - Split-KV: B·Hkv blocks alone (64 in the agent trial) left most of
 //     the 132 SMs idle and each decode row a serial walk of its key tiles
 //     (PERF.md: measured per-tile cycles), so the grid is (B, Hkv, nsplit):
 //     a row whose live rows fit one pass splits its keys over the nsplit
-//     blocks (ranges of split_len keys, a plan from shapes alone that aims
-//     at the policy's blocks an SM: paged_chunk_attention_quant.py and
-//     paged_chunk_attention.py · split_plan), each writing a float32
-//     partial (O, m, l), and chunk_combine (a second launch) forms out;
-//     longer rows are walked whole by block 0.
-// Footprint (ptxas -v, sm_90a; PERF.md, kernel table rows 1 and 5):
-// CodePool, bf16 q at head_dim 128: 167-168 registers, no spill, 109,056 B
-// of dynamic shared memory, 2 blocks an SM; float32 q (the tests' route)
-// 143,872 B, 1.  Bf16Pool at head_dim 128: q 17,408 B + a 3-stage ring of
-// 32 keys 52,224 B = 69,632 B, 3 blocks an SM.
+//     blocks (ranges of split_len keys, whole key tiles, a plan from shapes
+//     alone: paged_chunk_attention_quant.py · split_plan and
+//     decode_split_plan, paged_chunk_attention.py · split_plan), each
+//     writing a float32 partial (O, m, l) — a split with no live key (all
+//     past pos, or all below the window) writes m = -inf, l = 0, O = 0,
+//     which the combine weighs 0 — and chunk_combine (a second launch)
+//     forms out; longer rows are walked whole by block 0.
+// Footprint (ptxas -v, sm_90a; PERF.md, kernel table rows 1, 2, 4 and 5),
+// head_dim 128, P in two terms: Bf16Pool, bf16 q: 168 registers (its cap
+// at 3 blocks an SM; 158 with P in one term), no spill, q 17,408 B + a
+// 3-stage ring of 32 keys 52,224 B = 69,632 B of dynamic shared memory,
+// 3 blocks an SM.  CodePool, bf16 q: 183 registers (167-168 before), no
+// spill, 109,056 B, 2 blocks an SM; float32 q (the tests' route) 190,
+// 143,872 B, 1.
 #pragma once
 
 #include "mma_common.cuh"
@@ -105,7 +115,7 @@ struct Terms<float> {
 };
 template <>
 struct Terms<__nv_bfloat16> {
-  static constexpr int Q = 1, P = 1;
+  static constexpr int Q = 1, P = 2;
 };
 
 // Dynamic shared memory: q terms [Q][BR][D + 8] bf16, the ring
@@ -156,7 +166,8 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
   const int g = lane >> 2, j4 = lane & 3;
   const int group = hq / hkv;
   const int nrows = c * group;
-  const int live = span[b] * group;        // rows m < live are defined
+  // Rows m < live are defined (span == nullptr: the decode form, span 1).
+  const int live = (span == nullptr ? 1 : span[b]) * group;
   const int st = start[b], cap = maxp * ps;
   const int* bt_row = bt + static_cast<size_t>(b) * maxp;
   // Element offset of row m in q and out ([B, Hq, C, D]).
@@ -189,6 +200,27 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
     const int lo = max(window > 0 ? st + m0 / group - window + 1 : 0,
                        split * per);
     const int ntiles = hi > lo ? (hi - lo + KT - 1) / KT : 0;
+    if (ntiles == 0) {
+      // No key of the pass in this split (all past pos, or all below the
+      // window): an empty partial (m = -inf, l = 0, O = 0), which the
+      // combine weighs 0; a row walked whole gives 0.  Nothing else.
+      for (int x = tid; x < nlive * D; x += NT) {
+        const int m = m0 + x / D, col = x % D;
+        if (ns > 1) {
+          const size_t prow =
+              ((static_cast<size_t>(b) * hkv + kvh) * nsplit + split) *
+                  nrows + m;
+          part_o[prow * D + col] = 0.f;
+          if (col == 0) {
+            part_ml[2 * prow] = -INFINITY;
+            part_ml[2 * prow + 1] = 0.f;
+          }
+        } else {
+          out[row_off(m) + col] = rt::from_f<T>(0.f);
+        }
+      }
+      continue;
+    }
     // Warp roles: nrt row tiles of 16 are live; the warps split each key
     // tile ksplit ways between them, whole k16 steps a part (warp w: row
     // tile wt = w % nrt, key part w / nrt, its n8 key tiles [nlo, nhi)),
@@ -219,39 +251,38 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
                         (lpart ? vs : ks) + row, in);
     };
 
-    // q rows by 16-byte copies, all in flight at once: bf16 straight into
-    // the q tile; float32 into the raw ring, then split into its terms.
-    // (A split with no key of the pass loads none: its partial is empty.)
-    if (ntiles > 0) {
-      if constexpr (NQ == 1) {
-        for (int x = tid; x < BR * D / QV; x += NT) {
-          const int rr = x / (D / QV), col = (x % (D / QV)) * QV;
-          const bool in = m0 + rr < live;
-          tc::cp_async16(qs + rr * L::QS + col,
-                         in ? q + row_off(m0 + rr) + col : q, in);
-        }
-        tc::cp_async_commit();
-      } else {
-        T* qraw = reinterpret_cast<T*>(raw);              // [BR][D]
-        for (int x = tid; x < BR * D / QV; x += NT) {
-          const int rr = x / (D / QV), col = (x % (D / QV)) * QV;
-          const bool in = m0 + rr < live;
-          tc::cp_async16(qraw + rr * D + col,
-                         in ? q + row_off(m0 + rr) + col : q, in);
-        }
-        tc::cp_async_commit();
-        tc::cp_async_wait<0>();
-        __syncthreads();
-        for (int x = tid; x < BR * D; x += NT) {
-          const int rr = x / D, col = x % D;
-          bf16 t[NQ];
-          tc::split_bf16<NQ>(rt::to_f(qraw[x]), t);
-#pragma unroll
-          for (int i = 0; i < NQ; ++i)
-            qs[(i * BR + rr) * L::QS + col] = t[i];
-        }
-        __syncthreads();
+    // q rows of the live row tiles (nrt·16 rows; the rest are never read)
+    // by 16-byte copies, all in flight at once: bf16 straight into the q
+    // tile; float32 into the raw ring, then split into its terms.
+    const int qrows = nrt * 16;
+    if constexpr (NQ == 1) {
+      for (int x = tid; x < qrows * D / QV; x += NT) {
+        const int rr = x / (D / QV), col = (x % (D / QV)) * QV;
+        const bool in = m0 + rr < live;
+        tc::cp_async16(qs + rr * L::QS + col,
+                       in ? q + row_off(m0 + rr) + col : q, in);
       }
+      tc::cp_async_commit();
+    } else {
+      T* qraw = reinterpret_cast<T*>(raw);                // [BR][D]
+      for (int x = tid; x < qrows * D / QV; x += NT) {
+        const int rr = x / (D / QV), col = (x % (D / QV)) * QV;
+        const bool in = m0 + rr < live;
+        tc::cp_async16(qraw + rr * D + col,
+                       in ? q + row_off(m0 + rr) + col : q, in);
+      }
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      for (int x = tid; x < qrows * D; x += NT) {
+        const int rr = x / D, col = x % D;
+        bf16 t[NQ];
+        tc::split_bf16<NQ>(rt::to_f(qraw[x]), t);
+#pragma unroll
+        for (int i = 0; i < NQ; ++i)
+          qs[(i * BR + rr) * L::QS + col] = t[i];
+      }
+      __syncthreads();
     }
 #pragma unroll
     for (int i = 0; i < NST - 1; ++i) {  // the first NST - 1 tiles
@@ -392,17 +423,10 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
         for (int kk = 0; kk < KT / 16; ++kk) {
           if (2 * kk < nlo || 2 * kk >= nhi) continue;
           uint32_t p0[NP], p1[NP], p2[NP], p3[NP];
-          if constexpr (NP == 1) {
-            p0[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            p1[0] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            p2[0] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            p3[0] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-          } else {
-            tc::split_trunc<NP>(s[2 * kk][0], s[2 * kk][1], p0);
-            tc::split_trunc<NP>(s[2 * kk][2], s[2 * kk][3], p1);
-            tc::split_trunc<NP>(s[2 * kk + 1][0], s[2 * kk + 1][1], p2);
-            tc::split_trunc<NP>(s[2 * kk + 1][2], s[2 * kk + 1][3], p3);
-          }
+          tc::split_trunc<NP>(s[2 * kk][0], s[2 * kk][1], p0);
+          tc::split_trunc<NP>(s[2 * kk][2], s[2 * kk][3], p1);
+          tc::split_trunc<NP>(s[2 * kk + 1][0], s[2 * kk + 1][1], p2);
+          tc::split_trunc<NP>(s[2 * kk + 1][2], s[2 * kk + 1][3], p3);
 #pragma unroll
           for (int n2 = 0; n2 < ND / 2; ++n2) {
             uint32_t vb[4];
@@ -422,7 +446,7 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
     }
 
     // The key parts of a row tile meet in the (now free) raw ring: part kg
-    // writes (m, l, O) of its 16 rows, part 0 merges them in part order.
+    // writes (m, l, O) of its live rows, part 0 merges them in part order.
     float* mo = reinterpret_cast<float*>(raw);   // [NW][16][D]
     float* ml = mo + NW * 16 * D;                // [NW][16][2]
 #pragma unroll
@@ -431,6 +455,7 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int rr = g + 8 * e;
+        if (mw + rr >= live) continue;
         float* dst = mo + (warp * 16 + rr) * D + 2 * j4;
 #pragma unroll
         for (int n = 0; n < ND; ++n)
@@ -447,6 +472,7 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int rr = g + 8 * e, m = mw + rr;
+        if (m >= live) continue;
         float l = lrow[e];
         if (ksplit > 1) {
           float mmax = -INFINITY;
@@ -470,7 +496,6 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
             }
           }
         }
-        if (m >= live) continue;
         if (ns > 1) {                      // the split's partial (O, m, l)
           const size_t prow =
               ((static_cast<size_t>(b) * hkv + kvh) * nsplit + split) *
@@ -501,7 +526,7 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
         }
       }
     }
-    tc::cp_async_wait<0>();                // (a pass with no key tile)
+    tc::cp_async_wait<0>();                // (the trailing empty groups)
     __syncthreads();                       // the raw ring and q terms are
                                            // rebuilt next pass
   }
@@ -509,7 +534,8 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
 
 // out of the rows whose keys were split: grid (B·Hkv, ceil(C·group / 4)),
 // a warp a row: out = sum 2^(m_i - M)·O_i / sum 2^(m_i - M)·l_i over the
-// splits with a live key, M = max m_i (0 where none has one).
+// splits with a live key, M = max m_i (0 where none has one).  span ==
+// nullptr: the decode form (C 1), grid (B·Hkv, ceil(group / 4)).
 template <typename T>
 __global__ void __launch_bounds__(NT)
     chunk_combine(T* __restrict__ out, const float* __restrict__ part_o,
@@ -519,7 +545,7 @@ __global__ void __launch_bounds__(NT)
   const int bh = blockIdx.x, b = bh / hkv, kvh = bh % hkv;
   const int group = hq / hkv, nrows = c * group;
   const int m = blockIdx.y * NW + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  const int live = span[b] * group;
+  const int live = (span == nullptr ? 1 : span[b]) * group;
   if (live > BR || m >= live) return;      // walked whole, or past the span
   const size_t p0 = static_cast<size_t>(bh) * nsplit * nrows + m;
   // Lane s holds split s's weight 2^(m_s - M) (nsplit <= 32).
@@ -560,10 +586,11 @@ __global__ void __launch_bounds__(NT)
 
 // The walk (and, with several splits, the combine) over pools of policy P
 // for query dtype T; returns the CUDA status.  ks / vs: the row scales of a
-// CodePool (a Bf16Pool takes none).  part: float32 scratch of
-// B·Hkv·nsplit·C·group·(D + 2) when nsplit > 1 (O partials, then (m, l)
-// pairs); the split (nsplit ranges of split_len keys) is the caller's
-// split_plan's.
+// CodePool (a Bf16Pool takes none).  start / span: i32[B]; span ==
+// nullptr is the decode form (c == 1, start = pos).  part: float32 scratch
+// of B·Hkv·nsplit·C·group·(D + 2) when nsplit > 1 (O partials, then (m, l)
+// pairs); the split (nsplit ranges of split_len keys, whole key tiles) is
+// the caller's plan's.
 template <typename T, class P>
 int attend(const void* q, void* out, const void* kp, const void* vp,
            const float* ks, const float* vs, const int* bt, const int* start,
@@ -571,7 +598,7 @@ int attend(const void* q, void* out, const void* kp, const void* vp,
            int ps, int maxp, float scale, int window, int nsplit,
            int split_len, cudaStream_t stream) {
   if (nsplit < 1 || nsplit > 32 || (nsplit > 1 && part == nullptr) ||
-      split_len % P::KT)
+      split_len % P::KT || (span == nullptr && c != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t nrows = static_cast<size_t>(c) * (hq / hkv);
   float* part_o = part;

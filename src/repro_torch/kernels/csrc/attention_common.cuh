@@ -6,8 +6,7 @@
 //   1. gather KT keys and values token by token through an addressing
 //      functor (a block table for the paged pools, a stride for the dense
 //      cache) into shared memory as float, 16 bytes a thread per load
-//      (attend_kv takes the loader as a parameter: the quantized pools'
-//      loader multiplies each int8/fp8 row by its f32 scale there);
+//      (RawKV below);
 //   2. score every (query row, key) pair in float32, masking keys past the
 //      query's position and outside the window;
 //   3. online softmax, one warp per query row (running max, sum, rescale);
@@ -157,18 +156,20 @@ __device__ __forceinline__ int acc_col(int tid, int a) {
   else return (a % (D / NT)) * NT + tid;
 }
 
-// attend() over any key/value loader KV: KV::VEC elements per load of key
-// t's chunk ``part`` into kd/vd as float (see RawKV; the quantized pools'
-// loader dequantizes there).
-template <typename T, int D, class KV>
-__device__ __forceinline__ void attend_kv(const T* __restrict__ q,
-                                          T* __restrict__ out, const KV kv,
-                                          const RowSet& rows,
-                                          const int nrows, const int key_cap,
-                                          const float scale,
-                                          const int window) {
+// attend() over a float pool or cache of q's dtype, keys addressed by
+// Keys, loaded by RawKV.
+template <typename T, int D, class Keys>
+__device__ __forceinline__ void attend(const T* __restrict__ q,
+                                       T* __restrict__ out,
+                                       const T* __restrict__ kpool,
+                                       const T* __restrict__ vpool,
+                                       const Keys keys, const RowSet& rows,
+                                       const int nrows, const int key_cap,
+                                       const float scale, const int window) {
   static_assert((NT % D == 0 || D % NT == 0) && D % 8 == 0,
                 "head_dim must divide NT or be a multiple of it");
+  using KV = RawKV<T, Keys>;
+  const KV kv{kpool, vpool, keys};
   constexpr int VEC = KV::VEC;            // elements per 16-byte load
   static_assert(D % VEC == 0, "head_dim must hold whole 16-byte loads");
   constexpr int CHUNKS = D / VEC;         // 16-byte loads per key row
@@ -280,19 +281,6 @@ __device__ __forceinline__ void attend_kv(const T* __restrict__ q,
       out[rows.off[r] + d] = from_f<T>(l > 0.f ? acc[a] / l : 0.f);
     }
   }
-}
-
-// attend() over a float pool or cache of q's dtype.
-template <typename T, int D, class Keys>
-__device__ __forceinline__ void attend(const T* __restrict__ q,
-                                       T* __restrict__ out,
-                                       const T* __restrict__ kpool,
-                                       const T* __restrict__ vpool,
-                                       const Keys keys, const RowSet& rows,
-                                       const int nrows, const int key_cap,
-                                       const float scale, const int window) {
-  attend_kv<T, D>(q, out, RawKV<T, Keys>{kpool, vpool, keys}, rows, nrows,
-                  key_cap, scale, window);
 }
 
 // The fused write of the paged kernels, as its own launch: grid (B, Hkv,

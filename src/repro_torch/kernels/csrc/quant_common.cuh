@@ -25,9 +25,6 @@ struct Int8Codec {
   __device__ __forceinline__ static S quant(float q) {
     return static_cast<S>(fminf(fmaxf(rintf(q), -QMAX), QMAX));
   }
-  __device__ __forceinline__ static float dequant(S v) {
-    return static_cast<float>(v);
-  }
   // Four codes (byte i of w) as two bf16 pairs, exactly, in full-rate ALU
   // operations (no conversion instruction): 2^23 + 128 + v as a float by
   // byte permutes, less 2^23 + 128, is v; |v| <= 128 has at most 8
@@ -53,11 +50,6 @@ struct Fp8Codec {
   __device__ __forceinline__ static S quant(float q) {
     return static_cast<S>(__nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3));
   }
-  __device__ __forceinline__ static float dequant(S v) {
-    const __half_raw h = __nv_cvt_fp8_to_halfraw(
-        static_cast<__nv_fp8_storage_t>(v), __NV_E4M3);
-    return __half2float(__half(h));
-  }
   // Four codes (byte i of w) as two bf16 pairs (see Int8Codec), exactly,
   // in full-rate ALU operations: the sign and the 7 exponent / mantissa
   // bits placed under a float's sign and exponent make the code's value
@@ -76,34 +68,6 @@ struct Fp8Codec {
                                      ((w & 0x7f000000u) >> 4)) * 0x1p120f;
     lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
     hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-  }
-};
-
-// Loader of a quantized paged pool for attend_kv(): one 16-byte load of
-// K and of V per (key, chunk), each value times its row's scale.
-template <class Codec>
-struct QuantKV {
-  using S = typename Codec::S;
-  static constexpr int VEC = 16;  // one-byte elements per 16-byte load
-  const S* __restrict__ kpool;
-  const S* __restrict__ vpool;
-  const float* __restrict__ kscale;
-  const float* __restrict__ vscale;
-  PagedKeys keys;
-  __device__ __forceinline__ void load(int t, int part, float* kd,
-                                       float* vd) const {
-    const size_t r = keys.row(t);
-    const size_t o = r * keys.d + part * VEC;
-    const float sk = kscale[r], sv = vscale[r];
-    const uint4 kraw = *reinterpret_cast<const uint4*>(kpool + o);
-    const uint4 vraw = *reinterpret_cast<const uint4*>(vpool + o);
-    const S* ke = reinterpret_cast<const S*>(&kraw);
-    const S* ve = reinterpret_cast<const S*>(&vraw);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      kd[e] = Codec::dequant(ke[e]) * sk;
-      vd[e] = Codec::dequant(ve[e]) * sv;
-    }
   }
 };
 

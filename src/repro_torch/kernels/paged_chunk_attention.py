@@ -21,7 +21,8 @@ import torch
 from repro_torch.kernels import build as _b
 from repro_torch.kernels.decode_attention import sm_count
 from repro_torch.kernels.paged_chunk_attention_quant import (SplitPlan,
-                                                             plan_splits)
+                                                             plan_splits,
+                                                             scratch)
 
 NAME = "paged_chunk_attention"
 _ARGTYPES = ([_b.INT] + [_b.PTR] * 10 + [_b.INT] * 7
@@ -67,9 +68,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     plan = (split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0))
             if q.dtype == torch.bfloat16 else None)
-    part = (torch.empty(b * hkv * plan.nsplit * c * (hq // hkv) * (d + 2),
-                        dtype=torch.float32, device=dev)
-            if plan is not None and plan.nsplit > 1 else None)
+    part = scratch(plan, c * (hq // hkv), d, dev)
     args = [_b.ptr(NAME, "q", q, dev, dtype=q.dtype),
             _b.ptr(NAME, "out", out, dev),
             _b.ptr(NAME, "k_pages", k_pages, dev, dtype=q.dtype),

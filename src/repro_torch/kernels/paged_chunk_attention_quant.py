@@ -31,6 +31,11 @@ KEY_TILE = 64            # keys a tile of the walk
 MIN_SPLIT_LEN = 128      # keys a split takes at least: two tiles
 MAX_SPLITS = 16          # and at most this many splits a row
 BLOCKS_PER_SM = 2        # the plan aims at this many blocks an SM
+# The decode kernels' plan (``decode_split_plan``, both pools): ranges of
+# at least 128 keys (two of CodePool's tiles, four of Bf16Pool's), aiming
+# at 6 blocks an SM.
+DECODE_MIN_SPLIT_LEN = 128
+DECODE_BLOCKS_PER_SM = 6
 
 launches = 0            # kernel launches through this wrapper
 
@@ -50,23 +55,50 @@ def split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
     return plan_splits(b, hkv, cap, sms, BLOCKS_PER_SM)
 
 
-def plan_splits(b: int, hkv: int, cap: int, sms: int,
-                blocks_per_sm: int) -> SplitPlan:
+@functools.lru_cache(maxsize=256)
+def decode_split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
+    """The key split of the two MHA decode kernels (the walk at span 1,
+    start = pos, either pool), from shapes alone: ``plan_splits`` aiming
+    at ``DECODE_BLOCKS_PER_SM`` blocks an SM with ranges of at least
+    ``DECODE_MIN_SPLIT_LEN`` keys: 8 of 128 at the OLMo-1B Engine's 8 rows
+    and the trial's 4 over 1024 keys.  A decode row's live rows are its
+    group's heads, one pass of the walk, so its blocks come from splits
+    alone; a split past ``pos`` (which stays on the card) writes an empty
+    partial and ends.  Against the chunk plans (256 / 320 keys at 8 rows)
+    this measured 8-12 % off the Engine's decode step and 1-10 % onto the
+    kernel phase's step (positions up to 1023); runs of 64 lost at both
+    but the Engine's bf16 step (PERF.md).  The chunk kernels keep
+    ``split_plan``."""
+    return plan_splits(b, hkv, cap, sms, DECODE_BLOCKS_PER_SM,
+                       DECODE_MIN_SPLIT_LEN)
+
+
+def plan_splits(b: int, hkv: int, cap: int, sms: int, blocks_per_sm: int,
+                min_len: int = MIN_SPLIT_LEN) -> SplitPlan:
     """The walk takes one block a (row, KV head); the plan aims at
     ``blocks_per_sm`` blocks on each of ``sms`` SMs, or more (the range
     length rounds down to a multiple of ``KEY_TILE``), with ranges of at
-    least ``MIN_SPLIT_LEN`` keys, at most ``MAX_SPLITS`` of them.  They
-    cover [0, cap) with no gap and no overlap, the last one cut at cap.
-    The grid is (b, hkv, nsplit)."""
+    least ``min_len`` keys, at most ``MAX_SPLITS`` of them.  They cover
+    [0, cap) with no gap and no overlap, the last one cut at cap.  The
+    grid is (b, hkv, nsplit)."""
     heads = b * hkv
     want = max(1, -(-blocks_per_sm * sms // max(heads, 1)))
     split_len = cap // min(want, MAX_SPLITS) // KEY_TILE * KEY_TILE
-    split_len = max(MIN_SPLIT_LEN, split_len, -(-cap // MAX_SPLITS))
+    split_len = max(min_len, split_len, -(-cap // MAX_SPLITS))
     split_len = -(-split_len // KEY_TILE) * KEY_TILE
     nsplit = max(1, -(-cap // split_len))
-    target = heads * min(want, MAX_SPLITS,
-                         max(1, -(-cap // MIN_SPLIT_LEN)))
+    target = heads * min(want, MAX_SPLITS, max(1, -(-cap // min_len)))
     return SplitPlan(nsplit, split_len, heads * nsplit, target)
+
+
+def scratch(plan: SplitPlan | None, rows: int, d: int,
+            dev: torch.device) -> torch.Tensor | None:
+    """The float32 partials of a split walk: ``plan.blocks`` blocks of
+    ``rows`` query rows, each (O [d], m, l); None when nothing splits."""
+    if plan is None or plan.nsplit == 1:
+        return None
+    return torch.empty(plan.blocks * rows * (d + 2), dtype=torch.float32,
+                       device=dev)
 
 
 def paged_chunk_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
@@ -98,9 +130,7 @@ def paged_chunk_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     f32 = torch.float32
     out = torch.empty_like(q)
     plan = split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0))
-    part = (torch.empty(b * hkv * plan.nsplit * c * (hq // hkv) * (d + 2),
-                        dtype=f32, device=dev)
-            if plan.nsplit > 1 else None)
+    part = scratch(plan, c * (hq // hkv), d, dev)
     args = [_b.ptr(NAME, "q", q, dev, dtype=q.dtype),
             _b.ptr(NAME, "out", out, dev),
             _b.ptr(NAME, "k_pages", k_pages, dev),

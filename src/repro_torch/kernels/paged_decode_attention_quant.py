@@ -4,19 +4,27 @@ the call.
 
 Replaces ``src/repro/kernels/paged_decode_attention.py`` ·
 ``paged_decode_attention_quant``; the CUDA source and its design notes are
-in ``csrc/paged_decode_attention_quant.cu``.  Callers go through
+in ``csrc/paged_decode_attention_quant.cu`` (the tensor-core walk of
+``csrc/attend_mma.cuh`` at span 1).  Callers go through
 ``ops.paged_decode_attention_quant``, which applies the wrapper contract
 and sends CPU tensors to ``ref``.
+
+The row's keys are split over blocks by
+``paged_chunk_attention_quant.decode_split_plan``, which reads shapes
+only: ``pos`` stays on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build as _b
+from repro_torch.kernels.decode_attention import sm_count
+from repro_torch.kernels.paged_chunk_attention_quant import (
+    decode_split_plan, scratch)
 
 NAME = "paged_decode_attention_quant"
-_ARGTYPES = [_b.INT] * 3 + [_b.PTR] * 10 + [_b.INT] * 6 + [
-    _b.FLOAT, _b.INT, _b.PTR]
+_ARGTYPES = ([_b.INT] * 3 + [_b.PTR] * 11 + [_b.INT] * 6
+             + [_b.FLOAT] + [_b.INT] * 3 + [_b.PTR])
 
 launches = 0            # kernel launches through this wrapper
 
@@ -49,6 +57,8 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{NAME}: window must be >= 1, got {window}")
     f32 = torch.float32
     out = torch.empty_like(q)
+    plan = decode_split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0))
+    part = scratch(plan, hq // hkv, d, dev)
     args = [_b.ptr(NAME, "q", q, dev, dtype=q.dtype),
             _b.ptr(NAME, "out", out, dev),
             _b.ptr(NAME, "k_pages", k_pages, dev),
@@ -63,12 +73,13 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                    shape=(b, hkv, d)),
             _b.ptr(NAME, "block_tables", block_tables, dev,
                    dtype=torch.int32, shape=(b, maxp)),
-            _b.ptr(NAME, "pos", pos, dev, dtype=torch.int32, shape=(b,))]
+            _b.ptr(NAME, "pos", pos, dev, dtype=torch.int32, shape=(b,)),
+            _b.PTR(None if part is None else part.data_ptr())]
     lib = _b.load(NAME, _ARGTYPES)
     with torch.cuda.device(dev):
         status = lib.paged_decode_attention_quant(
             code, kvcode, qcode, *args, b, hq, hkv, d, ps, maxp, scale,
-            window or 0, _b.stream(dev))
+            window or 0, plan.nsplit, plan.split_len, _b.stream(dev))
     launches += 1
     _b.raise_on_error(NAME, lib, status)
     return out, k_pages, v_pages, k_scales, v_scales

@@ -17,11 +17,18 @@ bf16 rounding exactly where the kernel rounds, and the combine formulas.
     ``paged_mla_decode``'s walk (the same walk at C 1, start = pos) against
     ``ref.paged_mla_decode`` at the kernel phase's positions and a 4-row
     trial decode step.
-(b) The MHA walk: bf16 q as one term, P rounded to bf16 once (relative to
-    the running max of its warp's key part), the in-block key parts of a
-    pass with fewer than 4 row tiles and the split-KV combine.  Held to
-    ``ref.paged_chunk_attention`` within the card's bf16 rule (4e-3 +
-    2^-7·|x|), with GQA groups and windows.
+(b) The MHA walk: bf16 q as one term, P (or p · s_v on codes: the same
+    emulation with the row scales serves ``test_torch_quant_mma.py``) in
+    two bf16 terms by truncation (relative to the running max of its warp's
+    key part), the in-block key parts of a pass with fewer than 4 row tiles
+    and the split-KV combine.  Held, on 8 draws a case, to
+    ``ref.paged_chunk_attention`` before the output's bf16 rounding within
+    a quarter of the card's bf16 rule (4e-3 + 2^-7·|x|) and after it within
+    the rule, with GQA groups and windows; and ``paged_decode_attention``'s
+    walk (span 1 at start = pos on ``decode_split_plan``) the same way, at
+    the kernel phase's positions, the paged Engine's step, a trial step, a
+    window that empties whole splits and GQA group 32.  P rounded once (the
+    walk before) strays past half the rule.
 (c) The bf16 MHA walk's split plan (``paged_chunk_attention.split_plan``,
     aiming at the 3 blocks an SM that walk holds): shapes only, its ranges
     cover [0, maxp·ps) in whole key tiles; the quantized walk's plan stays
@@ -30,6 +37,7 @@ bf16 rounding exactly where the kernel rounds, and the combine formulas.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import math
 
@@ -40,7 +48,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_chunk_attention as kmha  # noqa: E402
 from repro_torch.kernels import paged_chunk_attention_quant as kmhq  # noqa: E402,E501
 from repro_torch.kernels import paged_mla_chunk as kmla_bf16  # noqa: E402
@@ -266,23 +274,42 @@ def test_mla_bf16_decode_walk_keeps_the_float32_rule(step):
 
 # -- the MHA walk -----------------------------------------------------------
 
-def _mha_emulation(q, kp, vp, bt, start, span, scale, window, plan):
-    """out [B, Hq, C, D] bf16 by the walk's arithmetic (see the module
-    note); rows past the span are 0."""
+MHA_CODE_KT = 64         # keys a tile of the MHA walk's CodePool
+P_TERMS = 2              # bf16 terms of P (p · s_v) on the card, bf16 q
+RULE_SHARE = 0.25        # of the bf16 rule, the float32 out before rounding
+SEEDS = range(8)         # the draws each MHA walk case is held on
+
+
+def _mha_emulation(q, kp, vp, bt, start, span, scale, window, plan,
+                   nterms=P_TERMS, scales=None):
+    """out [B, Hq, C, D] float32 by the walk's arithmetic (see the module
+    note), before its rounding to q's dtype; rows past the span are 0.
+    q: bf16 values; kp / vp: a bf16 pool's rows (Bf16Pool, 32-key tiles),
+    or int8 / e4m3 codes with ``scales`` = (k_scales, v_scales)
+    (CodePool, 64-key tiles: the K scale on the score column, P's terms of
+    p · s_v against the codes).  P takes ``nterms`` bf16 terms by
+    truncation (tc::split_trunc); l sums the float32 p.  A decode call is
+    span 1 at start = pos."""
     b, hq, c, d = q.shape
     hkv = kp.shape[1]
     group = hq // hkv
+    kt = MHA_KT if scales is None else MHA_CODE_KT
     cap = bt.shape[1] * PS
-    pages = bt.clamp(min=0).long()
-
-    def gather(x):                       # [P, Hkv, ps, D] -> [B, Hkv, cap, D]
-        return x.float()[pages].transpose(1, 2).reshape(b, hkv, cap, d)
-    kc, vc = gather(kp), gather(vp)
+    kpf, vpf = kp.float(), vp.float()
     out = torch.zeros(b, hq, c, d)
     for bi in range(b):
         st, live = int(start[bi]), int(span[bi]) * group
         if live == 0:
             continue
+        # The row's pages up to its last key, gathered: [Hkv, keys, ...].
+        pages = bt[bi, :-(-min(st + int(span[bi]), cap) // PS)]
+        pages = pages.clamp(min=0).long()
+
+        def gather(x):
+            return x[pages].transpose(0, 1).reshape(hkv, -1, *x.shape[3:])
+        kc, vc = gather(kpf), gather(vpf)
+        ks, vs = ((None, None) if scales is None
+                  else (gather(scales[0]), gather(scales[1])))
         ns = plan.nsplit if live <= MHA_BR else 1
         per = -(-plan.nsplit // ns) * plan.split_len
         # Rows m = j·group + g of each KV head: [Hkv, live, D].
@@ -295,37 +322,49 @@ def _mha_emulation(q, kp, vp, bt, start, span, scale, window, plan):
             nlive = min(MHA_BR, live - m0)
             rows = slice(m0, m0 + nlive)
             nrt = -(-nlive // 16)
-            ksplit = min(NW // nrt, MHA_KT // 16)
+            ksplit = min(NW // nrt, kt // 16)
             splits = []
             for s in range(ns):
                 hi = min(st + (m0 + nlive - 1) // group + 1, cap,
                          (s + 1) * per)
                 lo = max(st + m0 // group - window + 1 if window else 0,
                          s * per)
-                # Each warp key part keeps its own state over its 16 / 32
-                # keys of every tile; the parts merge in part order.
-                kparts = []
-                for kg in range(ksplit):
-                    state = (torch.full((hkv, nlive), -math.inf),
-                             torch.zeros(hkv, nlive),
-                             torch.zeros(hkv, nlive, d))
-                    width = MHA_KT // ksplit
-                    for t0 in range(lo, hi, MHA_KT):
-                        a = t0 + kg * width
-                        keys = torch.arange(a, a + width)
-                        kk = keys.clamp(max=cap - 1)
-                        x = (qm[:, rows] @ kc[bi][:, kk].transpose(-1, -2)
-                             ) * (scale * LOG2E)
-                        p_ = pos[rows][None, :, None]
-                        dead = (keys[None, None, :] >= hi) | (
-                            keys[None, None, :] > p_)
-                        if window:
-                            dead |= keys[None, None, :] <= p_ - window
-                        x = x.masked_fill(dead, -math.inf)
-                        state = _online(state, x,
-                                        lambda p: [p.bfloat16().float()],
-                                        vc[bi][:, kk])
-                    kparts.append(state)
+                if hi <= lo:                 # no live key: an empty partial
+                    splits.append((torch.full((hkv, nlive), -math.inf),
+                                   torch.zeros(hkv, nlive),
+                                   torch.zeros(hkv, nlive, d)))
+                    continue
+                # Each warp key part keeps its own state over its share of
+                # every tile's keys (states [Hkv, part, row]); the parts
+                # merge in part order.
+                width = kt // ksplit
+                state = (torch.full((hkv, ksplit, nlive), -math.inf),
+                         torch.zeros(hkv, ksplit, nlive),
+                         torch.zeros(hkv, ksplit, nlive, d))
+                for t0 in range(lo, hi, kt):
+                    keys = torch.arange(t0, t0 + kt)
+                    kk = keys.clamp(max=kc.shape[1] - 1)
+                    x = qm[:, None, rows] @ kc[:, kk].reshape(
+                        hkv, ksplit, width, d).transpose(-1, -2)
+                    keys = keys.reshape(ksplit, 1, width)
+                    if ks is None:
+                        x = x * (scale * LOG2E)
+                        sv = 1.0
+                    else:
+                        x = x * (ks[:, kk] * (scale * LOG2E)).reshape(
+                            hkv, ksplit, 1, width)
+                        sv = vs[:, kk].reshape(hkv, ksplit, 1, width)
+                    p_ = pos[rows][:, None]
+                    dead = (keys >= hi) | (keys > p_)
+                    if window:
+                        dead |= keys <= p_ - window
+                    x = x.masked_fill(dead, -math.inf)
+                    state = _online(
+                        state, x,
+                        lambda p, sv=sv: _trunc_terms(p * sv, nterms),
+                        vc[:, kk].reshape(hkv, ksplit, width, d))
+                kparts = [tuple(t[:, k] for t in state)
+                          for k in range(ksplit)]
                 splits.append(kparts[0] if ksplit == 1 else _merge(kparts))
             _, den, num = splits[0] if ns == 1 else _merge(splits)
             res[:, rows] = torch.where(
@@ -333,7 +372,7 @@ def _mha_emulation(q, kp, vp, bt, start, span, scale, window, plan):
                 num * (1.0 / den.clamp(min=1e-30))[..., None], 0.0)
         out[bi, :, :int(span[bi])] = (res.reshape(hkv, -1, group, d)
                                       .transpose(1, 2).reshape(hq, -1, d))
-    return out.bfloat16()
+    return out
 
 
 MHA_CASES = {
@@ -346,6 +385,24 @@ MHA_CASES = {
     "gqa2_window200": (3, 4, 2, 40, 128, 200, [301, 0, 650], [40, 17, 1]),
     "gqa8_d32": (2, 16, 2, 5, 32, 1, [90, 12], [5, 3]),
 }
+# The MHA decode kernels' calls (the walk at span 1, start = pos): the
+# kernel phase's 8 positions, the paged OLMo-1B Engine's decode step (8
+# rows at pos 136), a 4-row agent-trial step, a window that leaves whole
+# splits of every long row below it, and GQA group 32 (two m16 tiles of
+# rows in one pass).  (B, Hq, Hkv, D, window, pos)
+MHA_DECODE_CASES = {
+    "phase": (8, 16, 16, 128, None, DECODE_POS["phase"]),
+    "engine": (8, 16, 16, 128, None, [136] * 8),
+    "trial": (4, 16, 16, 128, None, DECODE_POS["trial"]),
+    "gqa4_window100": (3, 8, 2, 64, 100, [700, 1000, 64]),
+    "gqa32": (2, 32, 1, 128, None, [900, 37]),
+}
+
+
+def _decode_case(name):
+    """A decode case as a walk case (C 1, start = pos, span 1)."""
+    b, hq, hkv, d, window, pos = MHA_DECODE_CASES[name]
+    return (b, hq, hkv, 1, d, window, pos, [1] * b)
 
 
 def _mha_inputs(seed, case):
@@ -363,25 +420,128 @@ def _mha_inputs(seed, case):
     return q, kn, vn, kp, vp, bt
 
 
+def _walk_inputs(seed, case):
+    """One draw of a walk case: bf16 values (float32 carriers) of q, the
+    new K/V rows and pools that hold only the pages the rows' keys [0,
+    start + span) use, on a seeded permutation, plus a last page the
+    table's other entries point at; row 0's last entry is -1."""
+    b, hq, hkv, c, d, window, start, span = case
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    need = [-(-int(n) // PS) for n in np.add(start, span)]
+    live = sum(need)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen).bfloat16().float()
+    q = draw(b, hq, c, d)
+    kn, vn = draw(b, hkv, c, d), draw(b, hkv, c, d)
+    kp, vp = draw(live + 1, hkv, PS, d), draw(live + 1, hkv, PS, d)
+    bt = np.full((b, MAX_LEN // PS), live, np.int32)
+    perm, used = rng.permutation(live), 0
+    for i, k in enumerate(need):
+        bt[i, :k] = perm[used:used + k]
+        used += k
+    bt[0, -1] = -1
+    return q, kn, vn, kp, vp, torch.from_numpy(bt)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """One intra-op thread: the emulation runs many small ops, which a
+    thread pool only slows, and the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@_one_thread()
+def hold_mha_walk(seed, case, qdtype=None, decode=False) -> float:
+    """One draw of an MHA walk case: the plain version's float32 out (bf16
+    values in float32 carriers, so it is the bf16 call's out before its one
+    rounding) against the emulation's, within ``RULE_SHARE`` of the card's
+    bf16 rule (4e-3 + 2^-7·|x|), and both rounded to bf16 within the rule.
+    bf16 pools (``qdtype`` None: ``paged_chunk_attention.split_plan``) or
+    int8 / e4m3 codes with row scales (``paged_chunk_attention_quant
+    .split_plan``); ``decode``: the decode kernels at span 1 on
+    ``decode_split_plan``.  Returns the float32 margin."""
+    b, hq, hkv, c, d, window, start, span = case
+    q, kn, vn, kp, vp, bt = _walk_inputs(seed, case)
+    st, sp = torch.tensor(start), torch.tensor(span)
+    # Query slots j >= max(span) are defined nowhere: the plain version's
+    # cost grows with C, the walk's does not.
+    c = max(span)
+    q, kn, vn = q[:, :, :c], kn[:, :, :c], vn[:, :, :c]
+    if qdtype is None:
+        pools = [kp, vp]
+        plan = kmha.split_plan
+    else:
+        pools = [*ref.quantize_rows(kp, qdtype), *ref.quantize_rows(vp,
+                                                                    qdtype)]
+        plan = kmhq.split_plan
+    # The plain version reads the table up to the last page a row uses (its
+    # cost grows with the table, the outputs do not move); the walk's plan
+    # and the emulation take the whole table.
+    used = bt[:, :-(-max(np.add(start, span)) // PS)]
+    if decode:
+        plan = kmhq.decode_split_plan
+        op = (ops.paged_decode_attention if qdtype is None
+              else ops.paged_decode_attention_quant)
+        want = op(q[:, :, 0], *pools, used, st, kn[:, :, 0], vn[:, :, 0],
+                  window=window)[0][:, :, None]
+    else:
+        op = (ops.paged_chunk_attention if qdtype is None
+              else ops.paged_chunk_attention_quant)
+        want = op(q, *pools, used, st, sp, kn, vn, window=window)[0]
+    plan = plan(b, hkv, MAX_LEN, H100_SMS)
+    kw = {} if qdtype is None else dict(scales=(pools[1], pools[3]))
+    got = _mha_emulation(q, pools[0], pools[len(pools) // 2], bt, st, sp,
+                         d ** -0.5, window, plan, **kw)
+    live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
+    got, want = torch.where(live, got, 0), torch.where(live, want, 0)
+    margin = _margin(got, want, 4e-3, 2 ** -7)
+    assert margin <= RULE_SHARE, (seed, margin)
+    torch.testing.assert_close(got.bfloat16().float(),
+                               want.bfloat16().float(), rtol=2 ** -7,
+                               atol=4e-3)
+    return margin
+
+
 @pytest.mark.parametrize("name", list(MHA_CASES))
 def test_mha_bf16_walk_keeps_the_bf16_rule(name):
-    case = MHA_CASES[name]
+    for seed in SEEDS:
+        hold_mha_walk(seed, MHA_CASES[name])
+
+
+@pytest.mark.parametrize("name", list(MHA_DECODE_CASES))
+def test_mha_bf16_decode_walk_keeps_the_bf16_rule(name):
+    """paged_decode_attention's walk on bf16 pools (the chunk walk at span
+    1, start = pos, ``decode_split_plan``, P in two terms) against
+    ``ref.paged_decode_attention`` on every seed."""
+    for seed in SEEDS:
+        hold_mha_walk(seed, _decode_case(name), decode=True)
+
+
+def test_mha_p_in_one_term_misses_the_margin():
+    """Why P takes two terms: with P rounded once (the walk before), the
+    float32 out of the kernel phase's chunk step strays past half the
+    rule (this draw: past the rule itself, so its bf16 out can land two
+    steps from the plain version's); two terms keep it under a tenth of
+    ``RULE_SHARE``."""
+    case = MHA_CASES["olmo_phase"]
     b, hq, hkv, c, d, window, start, span = case
-    q, kn, vn, kp, vp, bt = _mha_inputs(4, case)
-    qt = torch.from_numpy(q).bfloat16()
-    kpt, vpt = (torch.from_numpy(x).bfloat16() for x in (kp, vp))
+    q, kn, vn, kp, vp, bt = _walk_inputs(0, case)
     st, sp = torch.tensor(start), torch.tensor(span)
-    want, kpt, vpt = ops.paged_chunk_attention(
-        qt, kpt, vpt, torch.from_numpy(bt), st, sp,
-        torch.from_numpy(kn).bfloat16(), torch.from_numpy(vn).bfloat16(),
-        window=window)
+    want = ops.paged_chunk_attention(q, kp, vp, bt, st, sp, kn, vn)[0]
     plan = kmha.split_plan(b, hkv, MAX_LEN, H100_SMS)
-    got = _mha_emulation(qt, kpt, vpt, torch.from_numpy(bt), st, sp,
-                         d ** -0.5, window, plan)
     live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
-    got = torch.where(live, got.float(), 0)
-    want = torch.where(live, want.float(), 0)
-    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=4e-3)
+    margins = [
+        _margin(torch.where(live, _mha_emulation(
+            q, kp, vp, bt, st, sp, d ** -0.5, None, plan, nterms=n), 0),
+            torch.where(live, want, 0), 4e-3, 2 ** -7) for n in (1, 2)]
+    assert margins[0] > 0.5 and margins[1] < RULE_SHARE / 10, margins
 
 
 # -- the split plans --------------------------------------------------------

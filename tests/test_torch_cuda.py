@@ -327,6 +327,51 @@ def test_mla_decode_routes_by_pool_dtype(card):
                 assert combined == (plan.nsplit > 1), (seen, plan)
 
 
+def test_mha_decode_routes_by_pool_dtype(card):
+    """paged_decode_attention (bf16 pools) and paged_decode_attention_quant
+    (int8 / fp8 pools, bf16 and float32 q) run the tensor-core walk
+    ``chunk_mma`` at span 1, with ``chunk_combine`` exactly when the
+    decode plan splits the keys (8 splits at 8 rows over 1024 keys, one
+    over 64), never the FMA walks ``decode_attend`` / ``attend_kv``; a
+    float32 pool still runs ``decode_attend``."""
+    from repro_torch.kernels import paged_chunk_attention_quant as kcq
+    r = np.random.default_rng(10)
+    b, hq, hkv, ps, d = 8, 16, 16, 16, 128
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for maxp in (64, 4):
+        plan = kcq.decode_split_plan(b, hkv, maxp * ps, sms)
+        assert (plan.nsplit > 1) == (maxp == 64), plan
+        pos = _t(r.integers(0, maxp * ps, b), torch.int32, card)
+        for pool_dtype, q_dtype in ((torch.bfloat16, torch.bfloat16),
+                                    (torch.int8, torch.bfloat16),
+                                    (torch.float8_e4m3fn, torch.bfloat16),
+                                    (torch.int8, torch.float32),
+                                    (torch.float32, torch.float32)):
+            q = _t(r.normal(size=(b, hq, d)), q_dtype, card)
+            kn, vn = (_t(r.normal(size=(b, hkv, d)), q_dtype, card)
+                      for _ in range(2))
+            if pool_dtype in QDTYPES:
+                *pools, bt = _quant_inputs(r, b, hkv, ps, maxp, d,
+                                           pool_dtype, card)
+                op = ops.paged_decode_attention_quant
+            else:
+                *pools, bt = _paged_inputs(r, b, hkv, ps, maxp, d,
+                                           pool_dtype, card)
+                op = ops.paged_decode_attention
+            seen = _device_kernels(lambda: op(q, *pools, bt, pos, kn, vn))
+            walks = [n for n in seen if "attend" in n
+                     and "combine" not in n]
+            combined = any("combine" in n for n in seen)
+            assert not any("attend_kv" in n for n in seen), seen
+            if pool_dtype == torch.float32:
+                assert walks and all("decode_attend" in n
+                                     for n in walks), seen
+                assert not combined, seen
+            else:
+                assert walks and all("chunk_mma" in n for n in walks), seen
+                assert combined == (plan.nsplit > 1), (seen, plan)
+
+
 MLA_CASES = [
     # (B, H, C, r, rd, page_size, maxp)
     (2, 4, 1, 32, 8, 4, 6),
@@ -546,6 +591,119 @@ def test_paged_decode_quant_kernel_matches_plain(card, case, dtype, qdtype):
     torch.cuda.synchronize()
     assert all(_same_bits(x, y) for x, y in zip(pools1, pools2))
     torch.testing.assert_close(o1.float(), o2.float(), **_tol(dtype))
+
+
+def test_mha_decode_splits_past_the_window_weigh_zero(card):
+    """A window that leaves whole key splits of each long row below it
+    (and splits past pos): the walk writes those splits as empty partials
+    and the combine gives them no weight, so the output matches the plain
+    version; bf16, int8 and fp8 pools, GQA group 4."""
+    from repro_torch.kernels import paged_chunk_attention_quant as kcq
+    r = np.random.default_rng(11)
+    b, hq, hkv, ps, maxp, d, window = 3, 8, 2, 16, 64, 64, 100
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = kcq.decode_split_plan(b, hkv, maxp * ps, sms)
+    pos = [700, 1000, 64]
+    assert plan.nsplit > 1 and (pos[0] - window + 1) >= plan.split_len
+    pos = _t(pos, torch.int32, card)
+    q = _t(r.normal(size=(b, hq, d)), torch.bfloat16, card)
+    kn, vn = (_t(r.normal(size=(b, hkv, d)), torch.bfloat16, card)
+              for _ in range(2))
+    for pool_dtype in (torch.bfloat16, *QDTYPES):
+        if pool_dtype in QDTYPES:
+            *pools, bt = _quant_inputs(r, b, hkv, ps, maxp, d, pool_dtype,
+                                       card)
+            op = ops.paged_decode_attention_quant
+        else:
+            *pools, bt = _paged_inputs(r, b, hkv, ps, maxp, d, pool_dtype,
+                                       card)
+            op = ops.paged_decode_attention
+        plain = [t.clone() for t in pools]
+        o1, *p1 = op(q, *pools, bt, pos, kn, vn, window=window)
+        o2, *p2 = op(q, *plain, bt, pos, kn, vn, window=window, impl="ref")
+        torch.cuda.synchronize()
+        assert all(_same_bits(x, y) for x, y in zip(p1, p2))
+        torch.testing.assert_close(o1.float(), o2.float(),
+                                   **_tol(torch.bfloat16))
+
+
+# chip_smoke.py's kernel phase: 8 rows, OLMo-1B's 16 heads of 128, page
+# 16, max_len 1024; the chunk step's start / span and the decode step's
+# positions.
+PHASE_START = [0, 100, 300, 447, 700, 900, 959, 64]
+PHASE_SPAN = [64, 64, 1, 1, 0, 30, 64, 17]
+PHASE_POS = [1023, 17, 300, 511, 640, 5, 999, 128]
+
+
+def _rule_share(got, want, live=None) -> float:
+    """The largest error as a share of the bf16 rule 4e-3 + 2^-7·|x|."""
+    share = ((got.float() - want.float()).abs()
+             / (4e-3 + 2 ** -7 * want.float().abs()))
+    if live is not None:
+        share = torch.where(live, share, 0)
+    return float(share.max())
+
+
+def test_bf16_walks_keep_the_rule_on_64_draws(card):
+    """Rows 1, 2, 4 and 5 of PERF.md's kernel table (the chunk and decode
+    walks on tensor cores, bf16 q; int8 and fp8 pools for the quantized
+    pair) on 64 seeded draws of chip_smoke.py's kernel-phase shapes:
+    every draw within the bf16 rule, which P in two bf16 terms keeps a
+    bf16 step inside (P rounded once put the largest errors on its edge:
+    PERF.md).  ``flash_attention`` (row 10, P rounded once, untouched) at
+    whisper's encoder shape is measured on the same draws and reported,
+    not held: the printed summary gives each row's largest share of the
+    rule (run with -rP)."""
+    b, h, c, d, ps, maxp = 8, 16, 64, 128, 16, 64
+    st, sp = (_t(x, torch.int32, card) for x in (PHASE_START, PHASE_SPAN))
+    pos = _t(PHASE_POS, torch.int32, card)
+    live = (torch.arange(c, device=card)[None, :]
+            < sp[:, None])[:, None, :, None]
+    worst, fails = {}, []
+    for seed in range(64):
+        gen = torch.Generator(device=card).manual_seed(seed)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=card).bfloat16()
+        bt = _t(np.random.default_rng(seed).permutation(b * maxp + 1)[
+            :b * maxp].reshape(b, maxp), torch.int32, card)
+        pools = [rand(b * maxp + 1, h, ps, d) for _ in range(2)]
+        qc, knc, vnc = (rand(b, h, c, d) for _ in range(3))
+        qd, knd, vnd = (rand(b, h, d) for _ in range(3))
+        for pool in ("bf16", "int8", "fp8"):
+            if pool == "bf16":
+                pk = pools
+                chunk, dec = ops.paged_chunk_attention, \
+                    ops.paged_decode_attention
+            else:
+                qdtype = torch.int8 if pool == "int8" else \
+                    torch.float8_e4m3fn
+                pk = [*ref.quantize_rows(pools[0], qdtype),
+                      *ref.quantize_rows(pools[1], qdtype)]
+                chunk, dec = (ops.paged_chunk_attention_quant,
+                              ops.paged_decode_attention_quant)
+            for name, op, args, mask in (
+                    ("chunk", chunk, (st, sp, knc, vnc), live),
+                    ("decode", dec, (pos, knd, vnd), None)):
+                q = qc if name == "chunk" else qd
+                a, z = [t.clone() for t in pk], [t.clone() for t in pk]
+                got = op(q, *a, bt, *args)[0]
+                want = op(q, *z, bt, *args, impl="ref")[0]
+                share = _rule_share(got, want, mask)
+                key = f"{name}_{pool}"
+                worst[key] = max(worst.get(key, 0.0), share)
+                if share > 1:
+                    fails.append((key, seed, share))
+        q, k, v = (rand(8, 6, 1500, 64) for _ in range(3))
+        share = _rule_share(ops.flash_attention(q, k, v, causal=False),
+                            ref.flash_attention(q, k, v, causal=False))
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0),
+                                       share)
+        worst["flash_attention_draws_past_the_rule"] = (
+            worst.get("flash_attention_draws_past_the_rule", 0)
+            + (share > 1))
+    print("64 draws, largest share of the bf16 rule:", worst)
+    assert not fails, f"{len(fails)} of 64·6 checks past the rule: {fails}"
 
 
 @pytest.mark.parametrize("qdtype", QDTYPES)

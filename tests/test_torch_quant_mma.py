@@ -18,15 +18,23 @@ run: the rules their designs rest on are held here.
     must keep a margin of at least 2x under it.  The port's plain version
     is held to JAX's ``paged_mla_chunk_quant`` oracle on the same numpy
     inputs at a small size.
-(c) The same for the MHA walk (bf16 q as one term, p · s_v rounded to bf16
-    once) against ``ref.paged_chunk_attention_quant`` within the card's
-    bf16 rule (4e-3 + 2^-7·|x|), with GQA groups and windows, and the
-    port's plain version against JAX's oracle.
+(c) The MHA walk, on codes: ``test_torch_bf16_mma.hold_mha_walk`` (the
+    emulation in the walk's key-tile order: 64-key tiles in four warp
+    parts, the K scale on the score column, p · s_v in two bf16 terms)
+    against ``ref.paged_chunk_attention_quant`` and, for
+    ``paged_decode_attention_quant`` (span 1 at pos, ``decode_split_plan``),
+    ``ref.paged_decode_attention_quant``, 8 draws a case: a quarter of the
+    card's bf16 rule (4e-3 + 2^-7·|x|) before the output's rounding, the
+    rule after it; and the port's plain version against JAX's oracle.
 (d) The two walks' split plans (``paged_mla_chunk_quant.split_plan``,
     ``paged_chunk_attention_quant.split_plan``): shapes only, their ranges
     cover [0, maxp·ps), and the blocks a decode-only step gets at the
     agent trials' shapes; the MLA decode kernels' plan (the chunk plan at
-    C 1) covers [0, pos + 1) once at the kernel phase and a trial step.
+    C 1) covers [0, pos + 1) once at the kernel phase and a trial step; the
+    MHA decode kernels' plan (``paged_chunk_attention_quant
+    .decode_split_plan``): shapes only, whole tiles of either pool, at
+    most 32 ranges that cover [0, pos + 1) once, splits wholly below a
+    window.
 (e) ``paged_mla_decode_quant``'s walk (the MLA walk at C 1, start = pos)
     against ``ref.paged_mla_decode_quant`` at full width, int8 and fp8,
     within the float32 rule with a margin of at least 2x.
@@ -47,6 +55,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_chunk_attention_quant as kmha  # noqa: E402,E501
 from repro_torch.kernels import paged_mla_chunk_quant as kmla  # noqa: E402
 from repro_torch.kernels import paged_mla_decode_quant as kmla_dec  # noqa: E402,E501
+from test_torch_bf16_mma import (MHA_DECODE_CASES, SEEDS,  # noqa: E402
+                                 _decode_case, hold_mha_walk)
 
 LOG2E = 1.4426950408889634
 H100_SMS = 132
@@ -294,39 +304,6 @@ def test_mla_plain_version_matches_jax_oracle():
 
 # -- the MHA walk -----------------------------------------------------------
 
-def _mha_emulation(q, codes_k, sk, codes_v, sv, bt, start, span, scale,
-                   window):
-    """out [B, Hq, C, D] (q's dtype) by the walk's arithmetic: q as one
-    bf16 term (it is bf16), the K scale and the softmax scale on the score
-    column, p · s_v rounded to bf16 once, l from the float32 p."""
-    b, hq, c, d = q.shape
-    hkv = codes_k.shape[1]
-    cap = bt.shape[1] * PS
-    pages = bt.clamp(min=0).long()
-
-    def gather(x):                       # [P, Hkv, ps, ...] -> [B, Hkv, cap, ...]
-        g = x[pages]                     # [B, maxp, Hkv, ps, ...]
-        g = g.transpose(1, 2)
-        return g.reshape(b, hkv, cap, *x.shape[3:])
-    kc, vc = gather(codes_k.float()), gather(codes_v.float())
-    ks, vs = gather(sk), gather(sv)
-    grp = hq // hkv
-    kc, vc, ks, vs = (t.repeat_interleave(grp, dim=1) for t in (kc, vc, ks, vs))
-    x = (q.float() @ kc.transpose(-1, -2)) * ks[:, :, None, :] * (
-        scale * LOG2E)
-    pos = start[:, None] + torch.arange(c)[None, :]            # [B, C]
-    t = torch.arange(cap)
-    dead = t[None, None, :] > pos[:, :, None]
-    if window:
-        dead |= t[None, None, :] <= pos[:, :, None] - window
-    x = x.masked_fill(dead[:, None], -math.inf)
-    m = x.max(-1, keepdim=True).values
-    p = torch.exp2(x - torch.where(m == -math.inf, 0.0, m))
-    pv = (p * vs[:, :, None, :]).bfloat16().float()
-    o = (pv @ vc) / p.sum(-1, keepdim=True).clamp(min=1e-30)
-    return o.to(q.dtype)
-
-
 MHA_CASES = {
     # (B, Hq, Hkv, C, D, window, start, span)
     "olmo_phase": (8, 16, 16, 64, 128, None, PHASE["start"], PHASE["span"]),
@@ -354,23 +331,22 @@ def _mha_inputs(seed, case, qdtype):
 @pytest.mark.parametrize("qname", list(QDTYPES))
 @pytest.mark.parametrize("name", list(MHA_CASES))
 def test_mha_walk_keeps_the_bf16_rule(name, qname):
-    case = MHA_CASES[name]
-    b, hq, hkv, c, d, window, start, span = case
-    q, kn, vn, kp, vp, bt = _mha_inputs(4, case, QDTYPES[qname])
-    qt = torch.from_numpy(q).bfloat16()
-    kq, ks = ref.quantize_rows(torch.from_numpy(kp), QDTYPES[qname])
-    vq, vs = ref.quantize_rows(torch.from_numpy(vp), QDTYPES[qname])
-    st, sp = torch.tensor(start), torch.tensor(span)
-    want, kq, vq, ks, vs = ops.paged_chunk_attention_quant(
-        qt, kq, ks, vq, vs, torch.from_numpy(bt), st, sp,
-        torch.from_numpy(kn).bfloat16(), torch.from_numpy(vn).bfloat16(),
-        window=window)
-    got = _mha_emulation(qt, kq, ks, vq, vs, torch.from_numpy(bt), st, sp,
-                         d ** -0.5, window)
-    live = (torch.arange(c)[None, :] < sp[:, None])[:, None, :, None]
-    got = torch.where(live, got.float(), 0)
-    want = torch.where(live, want.float(), 0)
-    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=4e-3)
+    """The MHA walk on codes (``hold_mha_walk``: the emulation in the
+    walk's key-tile order, 64-key tiles in four warp parts, the K scale on
+    the score column, p · s_v in two bf16 terms, the chunk plan) against
+    ``ref.paged_chunk_attention_quant`` on every seed."""
+    for seed in SEEDS:
+        hold_mha_walk(seed, MHA_CASES[name], QDTYPES[qname])
+
+
+@pytest.mark.parametrize("qname", list(QDTYPES))
+@pytest.mark.parametrize("name", list(MHA_DECODE_CASES))
+def test_mha_decode_walk_keeps_the_bf16_rule(name, qname):
+    """paged_decode_attention_quant's walk (span 1 at pos on
+    ``decode_split_plan``) against ``ref.paged_decode_attention_quant``
+    on every seed."""
+    for seed in SEEDS:
+        hold_mha_walk(seed, _decode_case(name), QDTYPES[qname], decode=True)
 
 
 def test_mha_plain_version_matches_jax_oracle():
@@ -524,3 +500,56 @@ def test_mha_split_plan_feeds_the_card_at_the_trial_shape():
     assert plan.nsplit > 1
     assert plan.blocks >= plan.target >= kmha.BLOCKS_PER_SM * H100_SMS
     assert plan.split_len >= kmha.MIN_SPLIT_LEN
+
+
+# -- the MHA decode plan ----------------------------------------------------
+
+def test_mha_decode_plan_reads_shapes_only():
+    assert list(inspect.signature(kmha.decode_split_plan).parameters) == [
+        "b", "hkv", "cap", "sms"]
+
+
+@pytest.mark.parametrize("name", list(MHA_DECODE_CASES))
+def test_mha_decode_plan_covers_each_row_once(name):
+    """The MHA decode kernels' plan (``decode_split_plan``), from shapes
+    only: ranges of whole key tiles of either pool (a multiple of 64 keys:
+    CodePool's tile, two of Bf16Pool's), at least 128 keys, at most 16
+    (the combine takes 32), that cover every row's keys [0, pos + 1) once
+    (the case's positions and the edges 0, 31, 32, 63, 64, cap - 1): 8
+    ranges of 128 at the OLMo-1B shapes; the chunk kernels' plans are
+    unchanged."""
+    b, hq, hkv, d, window, pos = MHA_DECODE_CASES[name]
+    plan = kmha.decode_split_plan(b, hkv, MAX_LEN, H100_SMS)
+    assert 1 <= plan.nsplit <= kmha.MAX_SPLITS < 32
+    assert plan.split_len % kmha.KEY_TILE == 0 and kmha.KEY_TILE == 64
+    assert plan.split_len >= kmha.DECODE_MIN_SPLIT_LEN
+    if hkv == 16:
+        assert (plan.nsplit, plan.split_len) == (8, 128)
+    assert plan.blocks == b * hkv * plan.nsplit
+    for p in sorted(set(pos) | {0, 31, 32, 63, 64, MAX_LEN - 1}):
+        covered = np.zeros(p + 1, np.int64)
+        for s in range(plan.nsplit):
+            covered[s * plan.split_len:(s + 1) * plan.split_len] += 1
+        assert (covered == 1).all()
+    assert kmha.split_plan(b, hkv, MAX_LEN, H100_SMS) == kmha.plan_splits(
+        b, hkv, MAX_LEN, H100_SMS, kmha.BLOCKS_PER_SM)
+
+
+def test_mha_decode_window_leaves_whole_splits_empty():
+    """The window case: every long row has splits wholly below its window
+    (keys < pos - window + 1) and splits wholly past pos.  The walk writes
+    both as empty partials (m = -inf, l = 0, O = 0), which the combine
+    weighs 0: ``test_mha_decode_walk_keeps_the_bf16_rule`` (and its bf16
+    twin) hold the result to the plain version in this case."""
+    b, hq, hkv, d, window, pos = MHA_DECODE_CASES["gqa4_window100"]
+    plan = kmha.decode_split_plan(b, hkv, MAX_LEN, H100_SMS)
+    for p in pos:
+        lo = p - window + 1
+        below = [s for s in range(plan.nsplit)
+                 if (s + 1) * plan.split_len <= lo]
+        past = [s for s in range(plan.nsplit) if s * plan.split_len > p]
+        live = plan.nsplit - len(below) - len(past)
+        assert live <= -(-window // plan.split_len) + 1
+        assert past or p >= (plan.nsplit - 1) * plan.split_len
+        assert below or lo < plan.split_len
+    assert sum(p - window + 1 >= plan.split_len for p in pos) == 2
