@@ -22,7 +22,9 @@
    rows, prefill's 128) and ``page_transfer`` bitwise on every pool leaf adoption moves (OLMo's
    bf16 / int8 / fp8 rows and f32 scales, MLA's latent rows and scales;
    one lane and 64 with -1 lanes, out-of-range and repeated destinations,
-   pools of 513 and 400 pages) and ``flash_attention`` at whisper-tiny's
+   pools of 513 and 400 pages; a pulled OLMo-1B page through its 32 bf16
+   and 64 int8 leaves in one launch, timed against the one-leaf launches
+   and ``torch._foreach_copy_``) and ``flash_attention`` at whisper-tiny's
    encoder shape (q/k/v [8, 6, 1500, 64] bf16, bidirectional; timed against
    SDPA; the trace must show the tensor-core ``flash_fwd_mma``), causal
    GQA with Tq < Tk, and a float32 sliding window, and the
@@ -156,6 +158,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean host time of ``fn`` in ms, each call ended by a synchronize,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
 
 
 def device_kernel_us(fn, iters: int = 20) -> dict[str, float]:
@@ -936,11 +950,74 @@ def _xfer_live(s, d) -> tuple[np.ndarray, np.ndarray]:
     return s[keep], d[keep]
 
 
+# A pulled OLMo-1B page: every pool leaf of its 16 paged layers, K and V
+# (bf16: 32 leaves of 64 KB), and the int8 pools' f32 scales beside them
+# (64 leaves: 32 of 32 KB, 32 of 1 KB).
+PULLED_PAGES = {"pulled_bf16": ["olmo_bf16"] * 32,
+                "pulled_int8": ["olmo_int8", "olmo_scales"] * 32}
+
+
+def pulled_page_fields(tag: str, leaves: list) -> dict:
+    """One pulled page (one lane) through every leaf in one
+    ``page_transfer`` launch, as ``copy_pages_across`` issues it: every
+    destination pool bitwise against the plain version leaf by leaf, the
+    launch count, the kernel's device time, the same leaves as one-leaf
+    launches (the sum of their device times), ``torch._foreach_copy_``
+    over the one-row views (one PyTorch call moving the same bytes, ids
+    known on the host: the yardstick) and the bound (every leaf's row read
+    and written once)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import page_transfer as kxfer
+    gen = torch.Generator(device="cuda").manual_seed(len(tag))
+    pairs = []
+    for name in leaves:
+        row, dtype = XFER_ROWS[name]
+        shapes = [(pages,) + row for pages in (XFER_PAGES, XFER_DST_PAGES)]
+        if dtype.itemsize == 1:
+            pairs.append(tuple(torch.randint(
+                0, 256, shape, generator=gen, dtype=torch.uint8,
+                device="cuda").view(dtype) for shape in shapes))
+        else:
+            pairs.append(tuple(torch.randn(shape, generator=gen,
+                                           device="cuda").to(dtype)
+                               for shape in shapes))
+    si = torch.tensor([5], dtype=torch.int32, device="cuda")
+    di = torch.tensor([7], dtype=torch.int32, device="cuda")
+    plains = [d.clone() for _, d in pairs]
+    for (s, _), plain in zip(pairs, plains):
+        ref.page_transfer(s, plain, si, di)
+    before = kxfer.launches
+    ops.page_transfer_leaves(pairs, si, di)
+    torch.cuda.synchronize()
+    if kxfer.launches - before != 1:
+        fail(f"{tag}: {len(pairs)} leaves took {kxfer.launches - before} "
+             f"launches, not one")
+    if not all(torch.equal(_bits(d), _bits(p))
+               for (_, d), p in zip(pairs, plains)):
+        fail(f"{tag}: page_transfer_leaves disagrees with the plain version")
+    del plains
+    page_bytes = sum(d[0].numel() * d.element_size() for _, d in pairs)
+    s_rows = [s[5:6] for s, _ in pairs]
+    d_rows = [d[7:8] for _, d in pairs]
+    bms, _ = bound(2 * page_bytes, 0)
+    return {f"{tag}_leaves": len(pairs), f"{tag}_bytes": page_bytes,
+            f"{tag}_ms": kernel_device_ms(
+                lambda: kxfer.page_transfer_leaves(pairs, si, di),
+                "transfer"),
+            f"{tag}_one_leaf_sum_ms": kernel_device_ms(
+                lambda: [kxfer.page_transfer_leaves([(s, d)], si, di)
+                         for s, d in pairs], "transfer"),
+            f"{tag}_foreach_copy_ms": kernel_device_ms(
+                lambda: torch._foreach_copy_(d_rows, s_rows), ""),
+            f"{tag}_bound_ms": bms}
+
+
 def page_transfer_row(rng) -> dict:
     """``page_transfer`` against its plain version, bitwise, on every pool
-    leaf the workloads adopt (one lane, as a pull issues per leaf per
-    layer, and 64 lanes), then timed at OLMo-1B's bf16 rows.  ``ms`` is the
-    kernel's device time (the profiler's: the wrapper's host work is
+    leaf the workloads adopt (one lane and 64 lanes), a pulled OLMo-1B
+    page through its 32 bf16 and 64 int8 leaves in one launch
+    (``pulled_page_fields``), then timed at OLMo-1B's bf16 rows.  ``ms``
+    is the kernel's device time (the profiler's: the wrapper's host work is
     longer than a 64 KB copy); ``library_ms`` is two PyTorch calls,
     ``dst.index_copy_(0, d, src.index_select(0, s))`` on the writing
     lanes.  The bound is 2 x writing lanes x row bytes over the HBM rate."""
@@ -970,16 +1047,18 @@ def page_transfer_row(rng) -> dict:
                 fail(f"page_transfer disagrees with its plain version on "
                      f"{name}, {len(s)} lanes")
             checked.append(f"{name}:{len(s)}")
-    row_shape, dtype = XFER_ROWS["olmo_bf16"]
-    src = torch.randn((XFER_PAGES,) + row_shape, device="cuda").to(dtype)
-    dst = torch.zeros((XFER_DST_PAGES,) + row_shape, dtype=dtype,
-                      device="cuda")
-    row_bytes = int(np.prod(row_shape)) * dtype.itemsize
     out = dict(name="page_transfer", route="cuda",
                source="src/repro_torch/kernels/csrc/page_transfer.cu",
                replaces="src/repro/kernels/page_transfer.py:96",
                checked_bitwise=checked, max_abs_err=0.0,
                pools_bitwise=True)
+    for tag, leaves in PULLED_PAGES.items():
+        out.update(pulled_page_fields(tag, leaves))
+    row_shape, dtype = XFER_ROWS["olmo_bf16"]
+    src = torch.randn((XFER_PAGES,) + row_shape, device="cuda").to(dtype)
+    dst = torch.zeros((XFER_DST_PAGES,) + row_shape, dtype=dtype,
+                      device="cuda")
+    row_bytes = int(np.prod(row_shape)) * dtype.itemsize
     for (s, d), tag in zip(lanes, ("", "64_")):
         si = torch.as_tensor(s, dtype=torch.int32, device="cuda")
         di = torch.as_tensor(d, dtype=torch.int32, device="cuda")
@@ -990,7 +1069,8 @@ def page_transfer_row(rng) -> dict:
             f"{tag}shapes": f"pools [{XFER_PAGES}|{XFER_DST_PAGES},{H},{PS},"
                             f"{D}] bf16, {len(s)} lanes ({live} writing)",
             f"{tag}ms": kernel_device_ms(
-                lambda: kxfer.page_transfer(src, dst, si, di), "transfer"),
+                lambda: kxfer.page_transfer_leaves([(src, dst)], si, di),
+                "transfer"),
             f"{tag}wrapper_ms": cuda_ms(
                 lambda: ops.page_transfer(src, dst, si, di)),
             f"{tag}plain_ms": cuda_ms(
@@ -1110,7 +1190,10 @@ def delta_apply_row(rng) -> dict:
     bench_merge's own inputs (``kernel_inputs``).  ``ms`` is the kernel's
     device time (the profiler's).  The bound counts each register's key
     and one source row (the bank's or the winning lane's) read and written
-    once, and every lane's (idx, key) read once."""
+    once, and every lane's (idx, key) read once.  ``copy_floor_ms`` is the
+    device time of ``key.clone()`` and ``pay.clone()``: the bank's bytes
+    copied once, a yardstick (no one PyTorch call computes the
+    function)."""
     from repro_torch.benchmarks import bench_merge
     from repro_torch.kernels import delta_apply as kdelta
     from repro_torch.kernels import ops, ref
@@ -1150,6 +1233,8 @@ def delta_apply_row(rng) -> dict:
         wrapper_ms=cuda_ms(lambda: ops.delta_apply(key, pay, idx, dkey,
                                                    dpay)),
         plain_ms=cuda_ms(lambda: ref.delta_apply(key, pay, idx, dkey, dpay)),
+        copy_floor_ms=kernel_device_ms(lambda: (key.clone(), pay.clone()),
+                                       ""),
         bound_ms=bms, bound_by=by, library_ms=None)
 
 
@@ -1706,7 +1791,24 @@ def _disagg_run(cfg, params, device, *, xfer_crash=False, **kw) -> dict:
                   gossip_host_s_per_step=gossip_s / steps,
                   page_transfer_launches=counts["page_transfer"],
                   first_transfer=first, launches=counts)
+    if first and device != "cpu":
+        report.update(_pull_host_ms(server, first))
     return dict(report=report, server=server, reqs=reqs)
+
+
+def _pull_host_ms(server, first, iters: int = 20) -> dict:
+    """Host ms of the first pull's page move again, once the run is over:
+    ``copy_pages_across`` from the exporter's cache into the adopter's,
+    and ``export_pages`` of the page (the snapshot a pull takes for its
+    rollback), each ended by a synchronize."""
+    from repro_torch.models import cache as cache_mod
+    src = server.engines[first["exporter"]].cache
+    dst = server.engines[first["adopter"]].cache
+    page = [first["page"]]
+    return dict(pull_host_ms=host_ms(lambda: cache_mod.copy_pages_across(
+                    src, dst, page, impl=server.impl), iters),
+                export_host_ms=host_ms(lambda: cache_mod.export_pages(
+                    dst, page), iters))
 
 
 def _stream_gap(cfg, params, prompt, tokens, j) -> float:

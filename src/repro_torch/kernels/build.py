@@ -91,14 +91,20 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(lib_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            lib.rt_error_string.argtypes = [ctypes.c_int]
-            lib.rt_error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
+            lib = _loaded[name] = open_lib(lib_path(name), name, argtypes)
         return lib
+
+
+def open_lib(path, name: str, argtypes: list) -> ctypes.CDLL:
+    """The library at ``path`` with its C function ``name`` and
+    ``rt_error_string`` declared."""
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 # -- binding helpers shared by the kernel wrappers ---------------------------

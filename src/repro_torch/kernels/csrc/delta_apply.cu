@@ -14,20 +14,33 @@
 //
 // Bound on the H100: bytes.  Each register's key and one source row (the
 // bank's or the winning lane's) read once and written once, and every
-// lane's (idx, key) read once; integer compares only.
+// lane's (idx, key) read once; integer compares only.  At bench_merge's
+// bank (K 4096, int32 rows of 512 B, Dc 256): 4.2 MB, 1.26 µs.
 //
-// Design:
-//   * Each block owns a tile of TILE rows.  It stages the lanes' (idx, key)
-//     in shared memory, NT at a time; warp w scans the staged lanes w,
-//     w + WARPS, ... and keeps, per row of the tile (one row per thread of
-//     the warp), the best (key, lane) seen, starting from the bank's key
-//     with no lane.  The WARPS candidates of a row are then reduced by
-//     (larger key, then lower lane).  Each block reads every lane's
-//     (idx, key): Dc x 8 bytes per block, from L2 after the first.
-//   * Then the block writes its rows: a row whose best lane exists takes
-//     that lane's payload row and key, every other row the bank's.  Each
-//     output row is written once, as bytes (byte_rows.cuh), so every dtype
-//     is bitwise.
+// What held the first kernel back: 32-row tiles gave 128 blocks (one an
+// SM), and each block scanned the lanes before it touched the 16 KB of
+// bank rows that are 97 % of its bytes, then copied them in a loop of
+// 16-byte load->store pairs: a few KB in flight an SM, HBM latency paid
+// after a latency-bound scan.  The design:
+//   * 16-row tiles: 256 blocks at K 4096, two an SM, all resident at once.
+//   * The bank rows first.  Each thread issues its loads of the tile's
+//     bytes (up to HELD accesses of the widest width the rows allow, 8 KB
+//     a block at 512-byte rows) into registers before anything else, so
+//     HBM latency overlaps the key reads, the lane staging and the
+//     reduction.  A tile wider than NT x HELD accesses copies the rest
+//     after the scan.
+//   * The scan, with no shared-memory staging and no per-row sweep:
+//     thread t takes lanes t, t + NT, ...; a lane that targets a row of
+//     the tile (rare: about Dc x TILE / K a tile) shows in its warp's
+//     ballot, and the warp thread that owns that row folds it into its
+//     best (key, lane).  The WARPS candidates of a row and the bank's key
+//     are then reduced by (larger key, then lower lane).  Each block
+//     reads every lane's (idx, key): Dc x 8 bytes a block, from L2 after
+//     the first.
+//   * Each output row is written once, as bytes (byte_rows.cuh), so every
+//     dtype is bitwise: a row whose best lane exists takes that lane's
+//     payload row (L2-resident after the first block) and key, every other
+//     row the bank's, from the registers.
 //   * The Pallas kernel instead sweeps every lane over every 1024-row tile
 //     with a where over the tile (K x Dc row compares and selects) and
 //     pads K, D and Dc; nothing here is padded.
@@ -37,12 +50,15 @@ namespace {
 
 constexpr int NT = 256;                // threads per block
 constexpr int WARPS = NT / 32;
-constexpr int TILE = 32;               // bank rows per block
-static_assert(TILE == 32, "one row per lane of a warp");
+constexpr int TILE = 16;               // bank rows per block
+constexpr int HELD = 4;                // bank accesses a thread holds
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(TILE <= 32, "a warp thread owns each row of the tile");
 
 // (k, l) beats (bk, bl): a larger key, or the same key from a lower lane.
-// A row's starting candidate is (bank key, -1); a lane is only ever taken
-// with a key strictly above the bank's, so a -1 never ties with a lane.
+// A row starts from the bank's key with no lane (-1), a warp's candidate
+// from (INT32_MIN, -1); a lane is only ever taken with a key strictly
+// above the candidate's, so a -1 never ties with a lane.
 __device__ __forceinline__ bool beats(int k, int l, int bk, int bl) {
   return k > bk || (k == bk && l >= 0 && bl >= 0 && l < bl);
 }
@@ -56,57 +72,90 @@ __global__ void __launch_bounds__(NT)
                      const char* __restrict__ d_pay, int* __restrict__ key_o,
                      char* __restrict__ pay_o, int k, int dc,
                      long long row_bytes) {
-  __shared__ int s_idx[NT];
-  __shared__ int s_key[NT];
   __shared__ int s_best_k[WARPS][TILE];
   __shared__ int s_best_l[WARPS][TILE];
   __shared__ int s_lane[TILE];
 
   const int row0 = blockIdx.x * TILE;
+  const int rows = k - row0 < TILE ? k - row0 : TILE;
+  const long long per_row = row_bytes / static_cast<long long>(sizeof(V));
+  const long long n_acc = rows * per_row;   // the tile's accesses
+  const V* bank = reinterpret_cast<const V*>(pay + row0 * row_bytes);
+  V* out = reinterpret_cast<V*>(pay_o + row0 * row_bytes);
+
+  // 1. The tile's bank rows into registers, every load issued now, and
+  // the tile's bank keys.
+  V held[HELD];
+#pragma unroll
+  for (int u = 0; u < HELD; ++u) {
+    const long long i = threadIdx.x + u * NT;
+    if (i < n_acc) held[u] = bank[i];
+  }
+  const int bank_k = threadIdx.x < rows ? key[row0 + threadIdx.x] : 0;
+
+  // 2. The lane scan, while those loads are in flight.  Warp thread r
+  // keeps its warp's best lane for row r of the tile.
   const int warp = threadIdx.x / 32;
-  const int r = threadIdx.x % 32;          // this thread's row of the tile
-  const int row = row0 + r;
-  int best_k = row < k ? key[row] : 0;
+  const int wl = threadIdx.x % 32;
+  int best_k = INT32_MIN;
   int best_l = -1;
   for (int base = 0; base < dc; base += NT) {
     const int j = base + threadIdx.x;
-    s_idx[threadIdx.x] = j < dc ? d_idx[j] : -1;
-    s_key[threadIdx.x] = j < dc ? d_key[j] : 0;
-    __syncthreads();
-    const int n = dc - base < NT ? dc - base : NT;
-    for (int t = warp; t < n; t += WARPS) {
-      // Lanes out of [0, K) never equal a row < K.
-      if (s_idx[t] == row && row < k && beats(s_key[t], base + t, best_k,
-                                              best_l)) {
-        best_k = s_key[t];
-        best_l = base + t;
+    const int idx = j < dc ? d_idx[j] : -1;
+    const int kj = j < dc ? d_key[j] : 0;
+    // Rows of the tile only: lanes out of [0, K) never fall in one.
+    const unsigned r = static_cast<unsigned>(idx) -
+                       static_cast<unsigned>(row0);
+    const bool hit = j < dc && r < static_cast<unsigned>(rows);
+    for (unsigned m = __ballot_sync(FULL, hit); m; m &= m - 1) {
+      const int src = __ffs(m) - 1;
+      const int hr = __shfl_sync(FULL, static_cast<int>(r), src);
+      const int hk = __shfl_sync(FULL, kj, src);
+      const int hl = base + warp * 32 + src;
+      if (wl == hr && beats(hk, hl, best_k, best_l)) {
+        best_k = hk;
+        best_l = hl;
       }
     }
-    __syncthreads();
   }
-  s_best_k[warp][r] = best_k;
-  s_best_l[warp][r] = best_l;
+  if (wl < TILE) {
+    s_best_k[warp][wl] = best_k;
+    s_best_l[warp][wl] = best_l;
+  }
   __syncthreads();
-  if (warp == 0) {
-    for (int w = 1; w < WARPS; ++w)
-      if (beats(s_best_k[w][r], s_best_l[w][r], best_k, best_l)) {
-        best_k = s_best_k[w][r];
-        best_l = s_best_l[w][r];
+  if (threadIdx.x < rows) {
+    const int rr = threadIdx.x;
+    int bk = bank_k;
+    int bl = -1;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      if (beats(s_best_k[w][rr], s_best_l[w][rr], bk, bl)) {
+        bk = s_best_k[w][rr];
+        bl = s_best_l[w][rr];
       }
-    s_lane[r] = best_l;
-    if (row < k) key_o[row] = best_k;
+    s_lane[rr] = bl;
+    key_o[row0 + rr] = bk;
   }
   __syncthreads();
 
-  const int rows = k - row0 < TILE ? k - row0 : TILE;
-  const long long per_row = row_bytes / static_cast<long long>(sizeof(V));
-  for (long long i = threadIdx.x; i < rows * per_row; i += NT) {
+  // 3. Each output row once: the winning lane's row, else the bank's.
+#pragma unroll
+  for (int u = 0; u < HELD; ++u) {
+    const long long i = threadIdx.x + u * NT;
+    if (i < n_acc) {
+      const int rr = static_cast<int>(i / per_row);
+      const int lane = s_lane[rr];
+      out[i] = lane >= 0 ? reinterpret_cast<const V*>(
+                               d_pay + lane * row_bytes)[i - rr * per_row]
+                         : held[u];
+    }
+  }
+  for (long long i = threadIdx.x + HELD * NT; i < n_acc; i += NT) {
     const int rr = static_cast<int>(i / per_row);
-    const long long c = i - rr * per_row;
     const int lane = s_lane[rr];
     const char* src = lane >= 0 ? d_pay + lane * row_bytes
                                 : pay + (row0 + rr) * row_bytes;
-    copy_access<V>(src, pay_o + (row0 + rr) * row_bytes, c);
+    copy_access<V>(src, pay_o + (row0 + rr) * row_bytes, i - rr * per_row);
   }
 }
 

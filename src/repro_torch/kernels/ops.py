@@ -36,6 +36,8 @@ counterpart here.
                                             start, span, ln, scale=s)
     y, h_last = ops.linear_scan(a, b, h0)          # h_t = a_t h_{t-1} + b_t
     dst_pool = ops.page_transfer(src_pool, dst_pool, src_ids, dst_ids)
+    dsts = ops.page_transfer_leaves([(src_pool, dst_pool), ...], src_ids,
+                                    dst_ids)             # one launch
     key, pay = ops.lww_merge(key_a, pay_a, key_b, pay_b)      # LWW join
     key, pay = ops.delta_apply(key, pay, d_idx, d_key, d_pay)
 """
@@ -396,12 +398,25 @@ def page_transfer(src_pool, dst_pool, src_ids, dst_ids, *,
     64 bytes included: the TPU wrapper's tileability escape has no
     counterpart.
     """
-    if tuple(src_pool.shape[1:]) != tuple(dst_pool.shape[1:]) \
-            or src_pool.dtype != dst_pool.dtype:
-        raise ValueError(
-            f"page_transfer: pool rows do not match: src "
-            f"{tuple(src_pool.shape)} ({src_pool.dtype}) vs dst "
-            f"{tuple(dst_pool.shape)} ({dst_pool.dtype})")
+    return page_transfer_leaves([(src_pool, dst_pool)], src_ids, dst_ids,
+                                impl=impl)[0]
+
+
+def page_transfer_leaves(pairs, src_ids, dst_ids, *, impl: str = "kernel"):
+    """``page_transfer`` of one id vector through every (src_pool,
+    dst_pool) pair of ``pairs`` (the pool leaves of an adoption: K, V and
+    scale pools of every paged layer), each pair checked as
+    ``page_transfer`` checks it.  On the card one launch moves every leaf
+    (one a ``MAX_LEAVES`` chunk of the table), so no destination may
+    overlap another pool of the list.  Returns the destination pools,
+    updated in place."""
+    for i, (src_pool, dst_pool) in enumerate(pairs):
+        if tuple(src_pool.shape[1:]) != tuple(dst_pool.shape[1:]) \
+                or src_pool.dtype != dst_pool.dtype:
+            raise ValueError(
+                f"page_transfer: pool rows do not match{_leaf(i, pairs)}: "
+                f"src {tuple(src_pool.shape)} ({src_pool.dtype}) vs dst "
+                f"{tuple(dst_pool.shape)} ({dst_pool.dtype})")
     src_ids = torch.as_tensor(src_ids)
     dst_ids = torch.as_tensor(dst_ids)
     if src_ids.shape != dst_ids.shape or src_ids.dim() != 1:
@@ -409,20 +424,47 @@ def page_transfer(src_pool, dst_pool, src_ids, dst_ids, *,
             f"page_transfer: id vectors must be matching 1-D arrays, got "
             f"src_ids {tuple(src_ids.shape)} vs dst_ids "
             f"{tuple(dst_ids.shape)}")
-    if src_ids.shape[0] == 0:
-        return dst_pool
-    if src_pool.untyped_storage().data_ptr() \
-            == dst_pool.untyped_storage().data_ptr():
-        raise ValueError("page_transfer: src_pool and dst_pool share "
-                         "storage; a parallel copy inside one pool would "
-                         "race (use cache.copy_pages)")
-    if _plain(dst_pool, impl):
-        return ref.page_transfer(src_pool, dst_pool, src_ids, dst_ids)
-    dev = dst_pool.device
-    return _xfer.page_transfer(
-        src_pool, dst_pool,
-        src_ids.to(device=dev, dtype=torch.int32).contiguous(),
+    dsts = [dst for _, dst in pairs]
+    if src_ids.shape[0] == 0 or not pairs:
+        return dsts
+    for i, (src_pool, dst_pool) in enumerate(pairs):
+        if src_pool.untyped_storage().data_ptr() \
+                == dst_pool.untyped_storage().data_ptr():
+            raise ValueError(f"page_transfer: src_pool and dst_pool share "
+                             f"storage{_leaf(i, pairs)}; a parallel copy "
+                             f"inside one pool would race (use "
+                             f"cache.copy_pages)")
+    if len(pairs) > 1:
+        _check_apart(pairs)
+    if _plain(dsts[0], impl):
+        for src_pool, dst_pool in pairs:
+            ref.page_transfer(src_pool, dst_pool, src_ids, dst_ids)
+        return dsts
+    dev = dsts[0].device
+    return _xfer.page_transfer_leaves(
+        pairs, src_ids.to(device=dev, dtype=torch.int32).contiguous(),
         dst_ids.to(device=dev, dtype=torch.int32).contiguous())
+
+
+def _leaf(i: int, pairs) -> str:
+    return f" (leaf {i})" if len(pairs) > 1 else ""
+
+
+def _check_apart(pairs) -> None:
+    """Raise if a destination pool's bytes overlap any other pool of
+    ``pairs`` (sources may overlap each other: they are only read)."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(),
+                    is_dst) for pair in pairs
+                   for t, is_dst in zip(pair, (False, True)) if t.numel())
+    end_any = end_dst = -1
+    for lo, hi, is_dst in spans:
+        if lo < end_dst or (is_dst and lo < end_any):
+            raise ValueError("page_transfer: a destination pool overlaps "
+                             "another pool of the transfer; one launch "
+                             "copies every leaf in parallel")
+        end_any = max(end_any, hi)
+        if is_dst:
+            end_dst = max(end_dst, hi)
 
 
 def _bank(kernel: str, key, pay) -> None:

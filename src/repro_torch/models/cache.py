@@ -502,12 +502,14 @@ def export_pages(cache: Params, pages) -> dict:
 def adopt_pages(cache: Params, rows: dict, pages, *,
                 impl: str = "kernel") -> Params:
     """Scatter ``rows`` (a peer's ``export_pages`` at the same page ids)
-    into ``pages`` of this cache's pools, in place (the card runs the
-    ``page_transfer`` kernel, rows as its source pool).  -1 lanes drop; ids
-    past the pool write its last row; where ids repeat the last lane wins.
-    Raises with the layer and both shapes on any leaf mismatch."""
+    into ``pages`` of this cache's pools, in place (the card runs one
+    ``page_transfer`` launch over every leaf, rows as its source pools).
+    -1 lanes drop; ids past the pool write its last row; where ids repeat
+    the last lane wins.  Raises with the layer and both shapes on any leaf
+    mismatch, before anything is written."""
     from repro_torch.kernels import ops
     ids_in = _Ids(pages)
+    pairs: dict = {}             # pool pages: [(rows, pool)], one call each
 
     def ad(path, layout, layer):
         key = "/".join(path)
@@ -523,19 +525,22 @@ def adopt_pages(cache: Params, rows: dict, pages, *,
                     f"adopt_pages: exported rows for layer {key} ({layout}) "
                     f"are missing pool leaf '{name}'")
             src = torch.as_tensor(src).to(pool.device)
-            ids = ids_in.on(pool.device)
-            want = (ids.shape[0],) + tuple(pool.shape[1:])
+            want = (ids_in.on(pool.device).shape[0],) + tuple(pool.shape[1:])
             if tuple(src.shape) != want or src.dtype != pool.dtype:
                 raise _leaf_mismatch("adopt_pages", path, layout, name,
                                      src, pool)
-            tgt = torch.where(ids >= 0, ids.clamp(0, pool.shape[0] - 1), -1)
-            ops.page_transfer(src.contiguous(), pool,
-                              torch.arange(ids.shape[0],
-                                           device=pool.device), tgt,
-                              impl=impl)
+            pairs.setdefault((pool.device, pool.shape[0]), []).append(
+                (src.contiguous(), pool))
         return layer
 
-    return map_layers(cache, ad, layouts=PAGED_LAYOUTS)
+    out = map_layers(cache, ad, layouts=PAGED_LAYOUTS)
+    for (dev, num_pages), group in pairs.items():
+        ids = ids_in.on(dev)
+        tgt = torch.where(ids >= 0, ids.clamp(0, num_pages - 1), -1)
+        ops.page_transfer_leaves(group, torch.arange(ids.shape[0],
+                                                     device=dev), tgt,
+                                 impl=impl)
+    return out
 
 
 def copy_pages_across(src_cache: Params, dst_cache: Params, src,
@@ -546,11 +551,13 @@ def copy_pages_across(src_cache: Params, dst_cache: Params, src,
     layer, in place (``dst`` defaults to ``src``: the replicated server's
     pools share one global page-id space).  -1 lanes drop.
 
-    One ``ops.page_transfer`` launch per pool leaf per paged layer, scale
-    leaves included, so every layout lands bitwise.  The caches must agree
-    on layer structure and per-leaf row shape and dtype; page counts may
-    differ.  Returns ``(dst_cache, bytes_moved)``: the row bytes of every
-    lane live on both sides, summed over leaves and layers (JAX's count).
+    One ``ops.page_transfer_leaves`` call moves every pool leaf of every
+    paged layer, scale leaves included, so every layout lands bitwise (on
+    the card one launch a 64-leaf chunk).  The caches must agree on layer
+    structure and per-leaf row shape and dtype; page counts may differ;
+    a mismatch raises before anything is written.  Returns ``(dst_cache,
+    bytes_moved)``: the row bytes of every lane live on both sides, summed
+    over leaves and layers (JAX's count).
     """
     from repro_torch.kernels import ops
 
@@ -566,6 +573,7 @@ def copy_pages_across(src_cache: Params, dst_cache: Params, src,
     src_layers = {path: (layout, layer)
                   for path, layout, layer in iter_layers(src_cache)
                   if layout in PAGED_LAYOUTS}
+    pairs: dict = {}             # device: [(src pool, dst pool)]
     moved = 0
 
     def xfer(path, layout, layer):
@@ -585,10 +593,12 @@ def copy_pages_across(src_cache: Params, dst_cache: Params, src,
                 raise _leaf_mismatch(
                     "copy_pages_across", path, layout, name,
                     spool if spool is not None else torch.zeros(()), dpool)
-            ops.page_transfer(spool, dpool, src_ids.on(dpool.device),
-                              dst_ids.on(dpool.device), impl=impl)
+            pairs.setdefault(dpool.device, []).append((spool, dpool))
             moved += dpool[0].numel() * dpool.element_size() * n_valid
         return layer
 
     out = map_layers(dst_cache, xfer, layouts=PAGED_LAYOUTS)
+    for dev, group in pairs.items():
+        ops.page_transfer_leaves(group, src_ids.on(dev), dst_ids.on(dev),
+                                 impl=impl)
     return out, moved

@@ -1210,6 +1210,79 @@ def test_page_transfer_kernel_edges(card):
     _xfer_check(other, view, [4, 0, 2], [3, 0, 0], card)
 
 
+def _xfer_leaves_check(pairs, s, d, dev) -> int:
+    """``ops.page_transfer_leaves`` against a loop of the plain version,
+    bitwise on every destination pool; returns the launches it made."""
+    si, di = (torch.as_tensor(x, device=dev) for x in (s, d))
+    plains = [dst.clone() for _, dst in pairs]
+    for (src, _), plain in zip(pairs, plains):
+        ref.page_transfer(src, plain, si, di)
+    before = ops.launch_counts()["page_transfer"]
+    out = ops.page_transfer_leaves(pairs, si, di)
+    torch.cuda.synchronize()
+    assert all(o is dst for o, (_, dst) in zip(out, pairs))
+    for (_, dst), plain in zip(pairs, plains):
+        assert torch.equal(dst.contiguous().view(torch.uint8),
+                           plain.contiguous().view(torch.uint8))
+    return ops.launch_counts()["page_transfer"] - before
+
+
+def test_page_transfer_leaves_mixed_widths_in_one_launch(card):
+    """One table of 16-, 4- and 1-byte leaves (every row of XFER_ROWS and
+    a bf16 view 2 bytes off alignment), pools of different page counts,
+    -1 lanes, destinations past a pool and duplicates: one launch,
+    bitwise against the plain version leaf by leaf."""
+    from repro_torch.kernels import page_transfer as kxfer
+    pairs = [(_xfer_pool(9 + i, row, dtype, card, 2 * i),
+              _xfer_pool(7 + i % 3, row, dtype, card, 2 * i + 1))
+             for i, (row, dtype) in enumerate(XFER_ROWS.values())]
+    flat = _xfer_pool(1, (4 * 7 + 1,), torch.bfloat16, card, 40)[0]
+    pairs.append((_xfer_pool(5, (7,), torch.bfloat16, card, 41),
+                  flat[1:].view(4, 7)))
+    (table,) = kxfer.leaf_tables(pairs)
+    assert {leaf.width for leaf in table} == {16, 4, 1}
+    s = [0, -1, 3, 5, 11, 6, 2, -1, 8, 4]
+    d = [2, 1, -1, 9, 0, 2, 4, 4, 6, 3]
+    assert _xfer_leaves_check(pairs, s, d, card) == 1
+    rng = np.random.default_rng(7)
+    s, d = rng.integers(-1, 14, 64), rng.integers(-1, 11, 64)
+    assert _xfer_leaves_check(pairs, s.tolist(), d.tolist(), card) == 1
+
+
+@pytest.mark.parametrize("n_leaves", [1, 64, 65, 130])
+def test_page_transfer_leaves_one_launch_a_chunk(card, n_leaves):
+    """A table past the 64-leaf cap goes out in one launch a chunk, and
+    every leaf of every chunk lands bitwise."""
+    from repro_torch.kernels import page_transfer as kxfer
+    pairs = [(_xfer_pool(6, (3, 8), torch.bfloat16, card, 3 * i),
+              _xfer_pool(5, (3, 8), torch.bfloat16, card, 3 * i + 1))
+             for i in range(n_leaves)]
+    want = -(-n_leaves // kxfer.MAX_LEAVES)
+    assert _xfer_leaves_check(pairs, [5, 1, -1, 2], [0, 4, 3, 0],
+                              card) == want
+
+
+def test_page_transfer_leaves_drop_by_each_leafs_pool(card):
+    """A lane whose destination is past one leaf's pool but inside
+    another's drops in the first and writes in the second; a later lane
+    with the same destination supersedes it only where both are live."""
+    row = (16, 16, 128)
+    small = (_xfer_pool(12, row, torch.bfloat16, card, 50),
+             _xfer_pool(6, row, torch.bfloat16, card, 51))
+    large = (_xfer_pool(12, row, torch.bfloat16, card, 52),
+             _xfer_pool(11, row, torch.bfloat16, card, 53))
+    scales = (_xfer_pool(12, (16, 16), torch.float32, card, 54),
+              _xfer_pool(8, (16, 16), torch.float32, card, 55))
+    s = [3, 7, 1, 9, -1, 4]
+    d = [8, 2, 8, 10, 2, 7]
+    assert _xfer_leaves_check([small, large, scales], s, d, card) == 1
+    # Leaf by leaf: row 8 of `large` holds lane 2's source, `small` never
+    # saw it, and lane 4's -1 source did not supersede lane 1.
+    assert torch.equal(large[1][8], large[0][1])
+    assert torch.equal(large[1][2], large[0][7])
+    assert torch.equal(scales[1][7], scales[0][4])
+
+
 # flash_attention: JAX's ATTN_CASES (tests/test_kernels.py), whisper's
 # encoder shape, and GQA / Tq < Tk / window / no-live-key variants.
 FLASH_CASES = [
@@ -1356,6 +1429,35 @@ def test_delta_apply_kernel_matches_plain(card, k, d, dtype):
         assert ops.launch_counts()["delta_apply"] == before + 1
         want = ref.delta_apply(key, pay, di, dk, dp)
         assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+
+
+# Tiles and lane tables past bench_merge's: K not a multiple of the 16-row
+# tile, Dc past one staging round of 256, rows wider than the 16 KB a
+# block holds in registers (D 1024 int32: 4 KB rows, 64 KB tiles).
+DELTA_WIDE = [(4095, 128, 300), (17, 5, 1000), (4113, 300, 513),
+              (33, 1024, 64), (1000, 17, 257)]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("k,d,dc", DELTA_WIDE)
+def test_delta_apply_kernel_tiles_and_wide_tables(card, k, d, dc, dtype):
+    """Targets drawn with replacement from [-3, K + 3) and keys from a
+    narrow range: duplicates with equal keys, keys equal to the bank's,
+    lanes below 0 and at K or past it; bitwise against the plain version."""
+    r = np.random.default_rng(k + d + dc)
+    key = _t(r.integers(0, 40, k), torch.int32, card)
+    pay = _bank_pay(r, (k, d), dtype, card)
+    di = _t(r.integers(-3, k + 3, dc), torch.int32, card)
+    dk = _t(r.integers(0, 60, dc), torch.int32, card)
+    dp = _bank_pay(r, (dc, d), dtype, card)
+    before = ops.launch_counts()["delta_apply"]
+    got = ops.delta_apply(key, pay, di, dk, dp)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["delta_apply"] == before + 1
+    want = ref.delta_apply(key, pay, di, dk, dp)
+    assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert bool((got[0] != key).any())       # some lanes won
 
 
 def test_register_bank_kernel_edges(card):
