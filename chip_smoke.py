@@ -14,7 +14,8 @@
    kernels at DeepSeek-V2-Lite's (16 heads over a 512 + 64 latent row,
    pool rows of 640; bf16, int8 and fp8 pools), ``decode_attention`` also
    at RecurrentGemma-2B's local attention (10 query heads on 1 KV head of
-   256) and whisper-tiny's decoder (6 heads of 64 over 256 keys), each with
+   256), whisper-tiny's decoder (6 heads of 64 over 256 keys) and the
+   agents' sim LLM (4 rows, 4 heads of 16 over 1024 keys), each with
    its split plan and, beside the event times, the profiler's device time
    of the kernels and of SDPA (a plan of several splits must show its
    combine kernel in the trace), ``linear_scan`` at its RG-LRU's (batch
@@ -41,12 +42,22 @@
    inputs from seeded generators, so every run checks the same draws;
    then runs the port's ``bench_merge --quick`` (the replica-sync sweep:
    every delta sync exact, delta < pmax < allgather bytes at rate 0.05;
-   its kernel rows launch ``delta_apply``);
+   its kernel rows launch ``delta_apply``), then the paper's tables
+   (``benchmarks.common.run_suite`` on the sim LLM: one run a mode of
+   ``tic_tac_toe`` and ``dashboard`` with 4 agents; every trial converges,
+   ``decode_attention`` launches; the table 3, 4, 5, 7 and RQ3 rows);
 3. serves ``olmo-1b`` at full width with seeded random bf16 weights:
    ``ContinuousBatchingEngine`` answers 16 requests (bf16 pools, then int8
    pools), ``Engine.generate`` decodes on a dense and on a paged cache;
    each path runs once through the kernels (launch counts must be > 0) and
-   once through the plain versions, and the two must agree;
+   once through the plain versions, and the two must agree; then the
+   same 16 requests with speculative decoding: bf16 pools with the
+   ``ngram`` drafter and with an oracle drafter (the non-spec stream),
+   int8 pools ``ngram``, each answered with drafts, its verify kernel
+   launched and its streams equal to the same pools' non-spec streams but
+   at near-ties (the oracle run in fewer steps), with the snapshot's cost;
+   and one captured int8 spec step (verify through the kernels against
+   the plain path, the rolled-back tail bitwise its pre-verify bytes);
 4. runs the CodeCRDT agent trial (``agents/orchestrator.run_task``) on
    ``olmo-1b`` at full width, 4 agents on ``dashboard``: (a) parallel,
    paged, chunked, int8 pools, allgather merge; (b) as (a) with the delta
@@ -56,8 +67,10 @@
    (a), captured in a fifth, untimed run, a mixed step runs through the
    kernels and through the plain versions, layer by layer from the same
    inputs (pools bitwise but for the trash page) and end to end (logits);
-   then disaggregated serving (``workload.DISAGG``: one prefill and one
-   decode engine on a replicated page table, sharing OLMo's parameters):
+   trial (h), (a) with ``spec_decode="doc"``, ``spec_k=4``, must converge
+   and draft; then disaggregated serving (``workload.DISAGG``: one prefill
+   and one decode engine on a replicated page table, sharing OLMo's
+   parameters):
    adoption on through the kernels, off, on through the plain versions, on
    int8 pools, and an exporter crash mid-transfer (3 replicas); every run
    answers its 8 requests and converges, the first adopted page equals the
@@ -69,15 +82,18 @@
    full width with dense FFNs, seeded random bf16 weights): the scheduler
    on bf16 and int8 latent pools, ``Engine.generate`` on dense and paged
    latent caches, the first-step logits of the paged routes against the
-   plain path; then trial run (e), (a)'s configuration on that model;
+   plain path, the scheduler with ``ngram`` speculation on bf16 and int8
+   latent pools; then trial run (e), (a)'s configuration on that model;
 6. serves ``recurrentgemma-2b`` at full width (``workload.RECURRENT_ARCH``,
    seeded random bf16 weights; the MLA model freed first): the scheduler
    through the kernels and through the plain versions, ``Engine.generate``
    on a dense and a paged cache, the first-step logits of decode and of a
    mixed step against the plain path, one mid-run scheduler step layer by
    layer from the same inputs (each recurrent layer's h and conv state
-   against the plain path's), then trial run (f), (a)'s configuration on
-   that model without int8 (no layer of it holds a pool to quantize);
+   against the plain path's), the scheduler with ``ngram`` speculation
+   (its verify and committed-span replay on ``linear_scan``), then trial
+   run (f), (a)'s configuration on that model without int8 (no layer of
+   it holds a pool to quantize);
 7. serves ``whisper-tiny`` at full width (``workload.WHISPER``, seeded
    random bf16 weights and stub frames [8, 1500, 384]): ``Engine.generate``
    through the kernels (its encoder on ``flash_attention``, 4 launches a
@@ -129,6 +145,10 @@ LOGITS_ATOL = 0.25
 H, D = 16, 128
 B, PS, MAX_LEN, CHUNK = (workload.ENGINE[k] for k in (
     "batch", "page_size", "max_len", "chunk_size"))
+
+# The agents' sim LLM (reduced OLMo-1B: d_model 64, 4 heads of 16) at the
+# tables' 4 agents.
+SIM_B, SIM_H, SIM_D = 4, 4, 16
 
 # The agent trial at full width (phase 4).
 TRIAL = dict(n_agents=4, kv="paged", prefill="chunked", page_size=16,
@@ -672,6 +692,12 @@ def kernel_phase():
         "d64_", "head_dim 64, whisper decoder", *_decode_inputs(
             B, WH_H, WH_H, WH_MAX_LEN, WH_D, dgen),
         np.array([256, 33, 1, 200, 129, 84, 255, 17])))
+    # The agents' sim LLM (the tables' trials): 4 rows, 4 heads of 16 over
+    # its max_len 1024 dense cache.
+    row.update(decode_attention_case(
+        "sim_", "head_dim 16, sim LLM", *_decode_inputs(
+            SIM_B, SIM_H, SIM_H, MAX_LEN, SIM_D, dgen),
+        np.array([1024, 37, 300, 641])))
     rows.append(row)
     rows += quant_kernel_rows(rng)
     rows += mla_kernel_rows(rng)
@@ -1540,10 +1566,11 @@ def serving_phase():
 
     cfg = configs.get(workload.ARCH)
     params, init_s = _init_params(cfg)
-    results = {}
+    results, streams = {}, {}
     eng, reqs, wall, counts = _serve(cfg, params, "kernel")
     if counts["paged_chunk_attention"] <= 0:
         fail("the scheduler never launched paged_chunk_attention")
+    streams["off"] = reqs
     _check_answered(cfg, eng, reqs, "scheduler")
     report = _serve_report(eng, wall, counts)
     _, reqs_ref, wall_ref, _ = _serve(cfg, params, "ref")
@@ -1560,6 +1587,7 @@ def serving_phase():
         fail("the int8 scheduler never launched paged_chunk_attention_quant")
     _check_answered(cfg, eng, reqs, "int8 scheduler")
     results["scheduler_int8"] = _serve_report(eng, wall, counts)
+    streams["int8"] = reqs
 
     results["engine_dense"] = _engine_generate(cfg, params, False,
                                                "decode_attention")
@@ -1568,7 +1596,7 @@ def serving_phase():
     results["first_step_logits"] = _first_step_errors(cfg, params,
                                                       OLMO_ROUTES)
     results["init_s"] = init_s
-    return cfg, params, results
+    return cfg, params, results, streams
 
 
 def mla_serving_phase():
@@ -1578,7 +1606,7 @@ def mla_serving_phase():
     logits of the two paged routes."""
     cfg = workload.mla_config()
     params, init_s = _init_params(cfg)
-    results = {}
+    results, streams = {}, {}
     for quant, kernel, name in (("off", "paged_mla_chunk", "scheduler"),
                                 ("int8", "paged_mla_chunk_quant",
                                  "scheduler_int8")):
@@ -1588,6 +1616,7 @@ def mla_serving_phase():
             fail(f"the MLA {name} never launched {kernel}")
         _check_answered(cfg, eng, reqs, f"MLA {name}")
         results[name] = _serve_report(eng, wall, counts)
+        streams[quant] = reqs
     # The dense latent cache runs no kernel (plain matmuls, as in JAX).
     results["engine_dense"] = _engine_generate(cfg, params, False, None)
     results["engine_paged"] = _engine_generate(cfg, params, True,
@@ -1595,7 +1624,7 @@ def mla_serving_phase():
     results["first_step_logits"] = _first_step_errors(cfg, params,
                                                       MLA_ROUTES)
     results["init_s"] = init_s
-    return cfg, params, results
+    return cfg, params, results, streams
 
 
 def recurrent_serving_phase():
@@ -1612,6 +1641,7 @@ def recurrent_serving_phase():
     if counts["linear_scan"] <= 0:
         fail("the recurrent scheduler never launched linear_scan")
     _check_answered(cfg, eng, reqs, "recurrent scheduler")
+    streams = {"off": reqs}
     report = _serve_report(eng, wall, counts)
     _, reqs_ref, wall_ref, _ = _serve(cfg, params, "ref")
     results["scheduler"] = dict(
@@ -1629,7 +1659,7 @@ def recurrent_serving_phase():
     results["first_step_logits"] = _first_step_errors(cfg, params,
                                                       RECURRENT_ROUTES)
     results["init_s"] = init_s
-    return cfg, params, results
+    return cfg, params, results, streams
 
 
 def whisper_phase():
@@ -1836,8 +1866,8 @@ def _streams_tie_aware(cfg, params, a, b, label) -> dict:
         gap = _stream_gap(cfg, params, ra.prompt, ra.tokens, j)
         gaps.append(gap)
         if gap > 2 * LOGITS_ATOL:
-            fail(f"disaggregated streams ({label}): request {ra.rid} "
-                 f"differs at token {j} where the top-2 gap is {gap}")
+            fail(f"streams ({label}): request {ra.rid} differs at token "
+                 f"{j} where the top-2 gap is {gap}")
     return dict(requests_differing=differing, gaps=gaps)
 
 
@@ -2034,6 +2064,9 @@ def _run_trial(cfg, params, task, name, kw) -> dict:
                replicas=r.replicas, disaggregated=r.disaggregated,
                cross_replica_prefix_hits=r.cross_replica_prefix_hits,
                page_sync_bytes=r.page_sync_bytes,
+               spec_decode=r.spec_decode, draft_tokens=r.draft_tokens,
+               accepted_tokens=r.accepted_tokens,
+               rollback_tokens=r.rollback_tokens,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                launches=counts)
     emit({"trial": res})
@@ -2117,6 +2150,291 @@ def recurrent_trial(cfg, params) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The paper's tables on the sim LLM
+# ---------------------------------------------------------------------------
+
+TABLE_TASKS = ["tic_tac_toe", "dashboard"]
+
+
+def tables_phase() -> dict:
+    """``benchmarks.common.run_suite`` on the card (the agents' sim LLM:
+    reduced OLMo-1B, d_model 64, 4 heads of 16, a dense cache replayed
+    token by token, so its decode steps run ``decode_attention`` at head
+    dim 16): one run a mode on two tasks with 4 agents, its cache file in
+    a temporary directory.  Every trial must converge and
+    ``decode_attention`` must launch; the table 3, 4, 5, 7 and RQ3 rows
+    are returned (their wall figures are host-bound)."""
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.benchmarks import common, tables
+    from repro_torch.kernels import ops
+    common.sim_llm("cuda")
+    keep = common.RESULTS_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        common.RESULTS_DIR = Path(tmp)
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            suite = common.run_suite(runs_per_mode=1, n_agents=4,
+                                     tasks=TABLE_TASKS, force=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = ops.launch_counts()
+        finally:
+            common.RESULTS_DIR = keep
+    trials = [r for modes in suite.values() for rs in modes.values()
+              for r in rs]
+    if len(trials) != 2 * len(TABLE_TASKS) or not all(
+            r.converged for r in trials):
+        fail(f"the tables' trials did not all converge: "
+             f"{[(r.task, r.mode, r.converged) for r in trials]}")
+    if counts["decode_attention"] <= 0:
+        fail("the tables' trials never launched decode_attention")
+    rows = (tables.table3(suite) + tables.table4(suite)
+            + tables.table5(suite) + tables.table7(suite)
+            + tables.rq3_consistency(suite))
+    return dict(rows=rows, trials=len(trials), wall_s=wall,
+                steps=sum(r.steps for r in trials), launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+SPEC_STATS = ("draft_tokens", "accepted_tokens", "rollback_tokens",
+              "spec_steps", "spec_rollbacks")
+
+
+class _OracleDrafter:
+    """Proposes the continuation of a request's non-speculative stream
+    (found by its context as a prefix of prompt + tokens): what a drafter
+    that is always right would propose."""
+
+    name = "oracle"
+
+    def __init__(self, reqs):
+        self._full = [list(r.prompt) + list(r.tokens) for r in reqs]
+
+    def propose(self, context, k):
+        n = len(context)
+        for full in self._full:
+            if len(full) > n and full[:n] == context:
+                return full[n:n + k]
+        return []
+
+
+def _snapshot_cost(eng) -> dict:
+    """Device and host ms of one rollback snapshot (``snapshot_span`` at
+    width 8, every pool and scale leaf of the engine's cache)."""
+    from repro_torch.models import cache as cache_mod
+    start = torch.arange(100, 100 + 96 * B, 96, dtype=torch.int32,
+                         device="cuda")
+
+    def snap():
+        return cache_mod.snapshot_span(eng.cache, start, 8)
+    leaves = sum(len(x) for x in snap()["layers"])
+    return dict(snapshot_leaves=leaves,
+                snapshot_device_ms=kernel_device_ms(snap, ""),
+                snapshot_host_ms=host_ms(snap))
+
+
+def _spec_run(cfg, params, name, base, base_report, kernel, *, cost=False,
+              **kw) -> dict:
+    """The workload's 16 requests with speculative decoding (``ngram``
+    unless a ``drafter`` is given): answered, drafts proposed, ``kernel``
+    launched, the streams tie-aware to the same pools' non-spec run
+    ``base``; steps and tokens/s beside that run's."""
+    host = {"draft_host_s": 0.0, "snapshot_host_s": 0.0,
+            "restore_host_s": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[key] += time.perf_counter() - t
+        return call
+
+    def engine(*a, **k):
+        eng = kept[0](*a, **k)
+        eng.drafter.propose = timed(eng.drafter.propose, "draft_host_s")
+        return eng
+
+    from repro_torch.models import lm
+    kept = workload.engine, lm.rollback_snapshot, lm.rollback_restore
+    workload.engine = engine
+    lm.rollback_snapshot = timed(lm.rollback_snapshot, "snapshot_host_s")
+    lm.rollback_restore = timed(lm.rollback_restore, "restore_host_s")
+    try:
+        eng, reqs, wall, counts = _serve(cfg, params, "kernel",
+                                         spec_decode="ngram", **kw)
+    finally:
+        workload.engine, lm.rollback_snapshot, lm.rollback_restore = kept
+    _check_answered(cfg, eng, reqs, name)
+    st = eng.stats
+    if not (st["draft_tokens"] > 0 and st["spec_steps"] > 0):
+        fail(f"spec run {name} drafted nothing: {st}")
+    if counts[kernel] <= 0:
+        fail(f"spec run {name} never launched {kernel}")
+    report = dict(_serve_report(eng, wall, counts),
+                  **{k: st[k] for k in SPEC_STATS},
+                  accept_rate=eng.spec_accept_rate,
+                  base_steps=base_report["steps"],
+                  base_tokens_per_s=base_report["tokens_per_s"], **host,
+                  streams=_streams_tie_aware(cfg, params, reqs, base, name))
+    if cost:
+        report.update(_snapshot_cost(eng))
+    emit({"spec_run": name, **{k: report[k] for k in (
+        "steps", "base_steps", "accept_rate", "draft_tokens",
+        "accepted_tokens", "tokens_per_s", "base_tokens_per_s", "wall_s",
+        "draft_host_s", "snapshot_host_s", "restore_host_s")}})
+    return report
+
+
+def _spec_step_check(cfg, params) -> dict:
+    """One captured spec step of the OLMo int8 workload, from the first
+    state whose verify step carries drafts and then rolls a tail back:
+    the verify step through the kernels against ``impl="ref"`` from the
+    same state (all-position logits within ``LOGITS_ATOL``, argmax equal
+    wherever the plain top-2 gap exceeds twice that); after the step's
+    rollback, every rejected-tail slot of every pool and scale leaf holds
+    its pre-verify bytes, slots on the trash page aside."""
+    from repro_torch.models import cache as cache_mod, lm
+    eng = workload.engine(cfg, params, impl="kernel", device="cuda",
+                          kv_quant="int8", spec_decode="ngram")
+    fund, verify = eng._fund_drafts, eng._verify
+    cur = {}
+
+    def funding(spans):
+        cur["drafts"] = fund(spans)
+        return cur["drafts"]
+
+    def verifying(params_, cache, toks, start, span):
+        if cur.get("drafts") and "pre" not in cur:
+            cur.update(pre=_clone(cache), toks=toks.clone(),
+                       start=start.clone(), span=span.clone(),
+                       before={r: len(eng.rows[r].tokens)
+                               for r in cur["drafts"]},
+                       reqs={r: eng.rows[r] for r in cur["drafts"]})
+        return verify(params_, cache, toks, start, span)
+
+    eng._fund_drafts, eng._verify = funding, verifying
+    for r in workload.requests(cfg.vocab_size):
+        eng.submit(r)
+    while True:
+        rolled = eng.stats["spec_rollbacks"]
+        cur.clear()
+        more = eng.step()
+        if "pre" in cur and eng.stats["spec_rollbacks"] > rolled:
+            break
+        if not more:
+            fail("the int8 spec run reached no step that rolled back")
+    pre, toks, start, span = (cur[k] for k in ("pre", "toks", "start",
+                                               "span"))
+    c = toks.shape[1]
+    live = torch.arange(c, device="cuda")[None, :] < span[:, None]
+    lk, _ = lm.mixed_step(params, cfg, toks, _clone(pre), start, span,
+                          impl="kernel", all_logits=True)
+    lr, _ = lm.mixed_step(params, cfg, toks, _clone(pre), start, span,
+                          impl="ref", all_logits=True)
+    out = _compare_logits(lk[live], lr[live])
+    # The pools as the step left them, read through the tables the step
+    # wrote with (the host has freed the tail pages since).
+    view = {"layers": [dict(lc, block_tables=lp["block_tables"])
+                       if "block_tables" in lc else lc
+                       for lc, lp in zip(eng.cache["layers"],
+                                         pre["layers"])]}
+    post = cache_mod.snapshot_span(view, start, c)
+    want = cache_mod.snapshot_span(pre, start, c)
+    bt = lm.get_block_tables(pre).cpu()
+    st, sp = start.cpu().tolist(), span.cpu().tolist()
+    slots, equal = 0, True
+    for r, req in cur["reqs"].items():
+        n_app = len(req.tokens) - cur["before"][r]
+        for w in range(n_app, sp[r]):
+            if int(bt[r, (st[r] + w) // PS]) == eng.trash_page:
+                continue
+            slots += 1
+            for lp, lw in zip(post["layers"], want["layers"]):
+                for name in lp:
+                    equal &= torch.equal(_bits(lp[name][r, w:w + 1]),
+                                         _bits(lw[name][r, w:w + 1]))
+    out.update(spans=sp, drafts={r: len(d) for r, d in cur["drafts"].items()},
+               accepted={r: len(req.tokens) - cur["before"][r] - 1
+                         for r, req in cur["reqs"].items()},
+               rolled_back_slots=slots, rollback_bitwise=equal,
+               step=eng.stats["steps"])
+    if not (slots > 0 and equal and np.isfinite(out["max_abs_err"])
+            and out["max_abs_err"] <= LOGITS_ATOL
+            and out["clear_rows_agree"]):
+        fail(f"captured spec step: {out}")
+    return out
+
+
+def olmo_spec_phase(cfg, params, serving, streams) -> dict:
+    """OLMo-1B's spec runs: bf16 pools ``ngram`` (and the snapshot's
+    cost), bf16 pools with the oracle drafter, int8 pools ``ngram``; then
+    the captured int8 spec step."""
+    out = {"bf16_ngram": _spec_run(
+        cfg, params, "olmo bf16 ngram", streams["off"],
+        serving["scheduler"], "paged_chunk_attention", cost=True)}
+    oracle = _spec_run(cfg, params, "olmo bf16 oracle", streams["off"],
+                       serving["scheduler"], "paged_chunk_attention",
+                       drafter=_OracleDrafter(streams["off"]))
+    if not (oracle["accepted_tokens"] > 0
+            and oracle["steps"] < oracle["base_steps"]):
+        fail(f"the oracle drafter's run did not take fewer steps: {oracle}")
+    out["bf16_oracle"] = oracle
+    out["int8_ngram"] = _spec_run(
+        cfg, params, "olmo int8 ngram", streams["int8"],
+        serving["scheduler_int8"], "paged_chunk_attention_quant",
+        cost=True, kv_quant="int8")
+    out["captured_int8_step"] = _spec_step_check(cfg, params)
+    return out
+
+
+def mla_spec_phase(cfg, params, serving, streams) -> dict:
+    """The MLA workload's spec runs on bf16 and int8 latent pools."""
+    return {"bf16_ngram": _spec_run(cfg, params, "mla bf16 ngram",
+                                    streams["off"], serving["scheduler"],
+                                    "paged_mla_chunk"),
+            "int8_ngram": _spec_run(cfg, params, "mla int8 ngram",
+                                    streams["int8"],
+                                    serving["scheduler_int8"],
+                                    "paged_mla_chunk_quant",
+                                    kv_quant="int8")}
+
+
+def recurrent_spec_phase(cfg, params, serving, streams) -> dict:
+    """RecurrentGemma-2B's spec run: its verify and committed-span replay
+    run ``linear_scan``."""
+    return {"ngram": _spec_run(cfg, params, "recurrent ngram",
+                               streams["off"], serving["scheduler"],
+                               "linear_scan")}
+
+
+def spec_trial(cfg, params, a) -> dict:
+    """Trial run (h): (a)'s configuration with ``spec_decode="doc"``,
+    ``spec_k=4`` (drafts from the shared CRDT document); it must converge,
+    draft, and launch paged_chunk_attention_quant."""
+    from repro_torch.agents.tasks import TASKS
+    res = _run_trial(cfg, params, TASKS[TRIAL_TASK], "h",
+                     dict(mode="parallel", merge="allgather",
+                          spec_decode="doc", spec_k=4))
+    if res["draft_tokens"] <= 0:
+        fail(f"trial (h) drafted nothing: {res}")
+    if res["launches"]["paged_chunk_attention_quant"] <= 0:
+        fail("trial (h) never launched paged_chunk_attention_quant")
+    emit({"trial_h_vs_a": {k: (res[k], a[k]) for k in (
+        "steps", "digest", "accepted_tokens", "draft_tokens", "wall_s",
+        "tokens_per_s")}})
+    return res
+
+
 def _path_launches(results, name: str) -> list[int]:
     """Kernel ``name``'s count in every launch-count dict that the paths'
     results hold (under a ``launches`` key, at any depth)."""
@@ -2169,23 +2487,44 @@ def main() -> int:
                            for row in kernels]})
     bench = bench_merge_phase()
     emit({"bench_merge": bench, "card": card})
-    cfg, params, serving = serving_phase()
+    t_tables = time.perf_counter()
+    paper = tables_phase()
+    emit({"paper_tables": paper, "card": card})
+    added_s = time.perf_counter() - t_tables
+    cfg, params, serving, streams = serving_phase()
     emit({"serving": serving, "card": card})
+    t_added = time.perf_counter()
+    olmo_spec = olmo_spec_phase(cfg, params, serving, streams)
+    emit({"olmo_spec": olmo_spec, "card": card})
+    added_s += time.perf_counter() - t_added
     trial, trial_counts = trial_phase(cfg, params)
     emit({"trial_mid_step": trial["mid_trial_step"], "card": card})
+    t_added = time.perf_counter()
+    trial_h = spec_trial(cfg, params, trial["a"])
+    added_s += time.perf_counter() - t_added
     disagg = disagg_phase(cfg, params)
     emit({"disagg_serving": {k: v for k, v in disagg.items()
                              if k.startswith("streams")}, "card": card})
     trial_g = replicated_trial(cfg, params)
     del params                  # the MLA model takes the card's memory next
     torch.cuda.empty_cache()
-    mla_cfg, mla_params, mla_serving = mla_serving_phase()
+    mla_cfg, mla_params, mla_serving, streams = mla_serving_phase()
     emit({"mla_serving": mla_serving, "card": card})
+    t_added = time.perf_counter()
+    mla_spec = mla_spec_phase(mla_cfg, mla_params, mla_serving, streams)
+    emit({"mla_spec": mla_spec, "card": card})
+    added_s += time.perf_counter() - t_added
     trial_e = mla_trial(mla_cfg, mla_params)
     del mla_params              # the recurrent model takes the card next
     torch.cuda.empty_cache()
-    rec_cfg, rec_params, rec_serving = recurrent_serving_phase()
+    rec_cfg, rec_params, rec_serving, streams = recurrent_serving_phase()
     emit({"recurrent_serving": rec_serving, "card": card})
+    t_added = time.perf_counter()
+    rec_spec = recurrent_spec_phase(rec_cfg, rec_params, rec_serving,
+                                    streams)
+    emit({"recurrent_spec": rec_spec, "card": card})
+    added_s += time.perf_counter() - t_added
+    del streams
     trial_f = recurrent_trial(rec_cfg, rec_params)
     del rec_params
     gc.collect()                # so the peak memory read is whisper's own
@@ -2198,8 +2537,9 @@ def main() -> int:
     # flash_attention on the whisper Engine, delta_apply on bench_merge,
     # each path's counts read right after its run.  lww_merge has no path:
     # its count is summed over every path's counts, and must be 0.
-    paths = [bench, serving, trial, disagg, trial_g, mla_serving, trial_e,
-             rec_serving, trial_f, whisper]
+    paths = [bench, paper, serving, olmo_spec, trial, trial_h, disagg,
+             trial_g, mla_serving, mla_spec, trial_e, rec_serving, rec_spec,
+             trial_f, whisper]
     lww = _path_launches(paths, "lww_merge")
     if sum(lww) != 0:
         fail(f"a path launched lww_merge, which none calls: {lww}")
@@ -2228,6 +2568,16 @@ def main() -> int:
                 whisper["kernel"]["launches"]["flash_attention"],
                 "delta_apply": bench["launches"]["delta_apply"],
                 "lww_merge": sum(lww)}
+    spec_paths = {
+        "paged_chunk_attention": olmo_spec["bf16_ngram"]["launches"]
+        ["paged_chunk_attention"],
+        "paged_chunk_attention_quant": olmo_spec["int8_ngram"]["launches"]
+        ["paged_chunk_attention_quant"],
+        "paged_mla_chunk": mla_spec["bf16_ngram"]["launches"]
+        ["paged_mla_chunk"],
+        "paged_mla_chunk_quant": mla_spec["int8_ngram"]["launches"]
+        ["paged_mla_chunk_quant"],
+        "linear_scan": rec_spec["ngram"]["launches"]["linear_scan"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] == "decode_attention":
@@ -2237,8 +2587,14 @@ def main() -> int:
             # Its third: the whisper decoder's self-attention, head_dim 64.
             row["d64_launches"] = (whisper["kernel"]["launches"]
                                    ["decode_attention"])
+            # Its fourth: the tables' sim-LLM trials, head_dim 16.
+            row["sim_launches"] = paper["launches"]["decode_attention"]
+        if row["name"] in spec_paths:
+            # The speculative runs' verify steps, at their span widths.
+            row["spec_launches"] = spec_paths[row["name"]]
         row["kernel_ms"] = row["ms"]
         emit({"kernel": row["name"], **row})
+    emit({"added_phases_s": added_s, "total_s": time.perf_counter() - t0})
     emit({"card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

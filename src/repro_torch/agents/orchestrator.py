@@ -29,8 +29,13 @@ metadata replicas (``serving/replicated.ReplicatedPrefixPageMapper``) that
 gossip at every coordination sync; ``disaggregate`` homes agent 0 on a
 prefill domain whose header pages the others adopt cross-replica.
 
-Not ported yet: speculative decoding (ROADMAP.md queue 1 item 8); its
-option raises.
+``spec_decode="ngram"|"doc"`` (with ``prefill="chunked"``) widens
+generating agents' spans with host-side drafts (``serving/draft.py``): one
+verify step (``lm.verify_step``) scores every row, each agent commits its
+accepted prefix plus the bonus token, and rejected tails roll back bitwise
+from a pre-verify snapshot (``cache.snapshot_span`` / ``restore_span``).
+The ``doc`` drafter reads the live per-slot lists of flushed document
+tokens, so what one agent has flushed is draftable for every other.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from repro_torch.core import protocol, todo, tree
 from repro_torch.core.clock import Lamport, i32
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving import draft as draft_mod
 from repro_torch.serving import engine as engine_mod
 
 IDLE, PREFILL, GEN, HALT = "idle", "prefill", "gen", "halt"
@@ -71,6 +77,8 @@ class AgentState:
     failures: int = 0                   # consecutive page-map failures
     needs_map: bool = False             # row unmapped; waiting to retry
     retry_at: int = 0                   # step at which to retry the map
+    hist: list = field(default_factory=list)  # raw prompt+generated tokens
+                                        # (speculative drafting context)
 
 
 @dataclass
@@ -173,11 +181,6 @@ def count_conflicts(merged: doc_mod.SlotDoc) -> tuple[int, int]:
     return conflicts, total
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet: ROADMAP.md queue 1 {item}")
-
-
 # ---------------------------------------------------------------------------
 # The run loop
 # ---------------------------------------------------------------------------
@@ -222,8 +225,6 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
         raise ValueError("--spec-decode rides the mixed serve step: "
                          "use --prefill chunked (verify widens decode "
                          "spans, which the replay baseline cannot express)")
-    if spec_decode != "off":
-        raise _not_ported("--spec-decode", "item 8 (speculative decoding)")
     if mode == "sequential":
         n_agents = 1
     dev = resolve_device(device)
@@ -327,6 +328,22 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
     tok_h = np.ones((n_agents,), np.int64)
     mixed_fn = engine_mod.make_mixed_step_fn(cfg) if chunked else None
 
+    # Speculative decoding through the mixed step: a host-side drafter
+    # widens GEN rows from span 1 to 1 + k, one verify call scores the
+    # whole batch (rows without a draft read preds at their last span
+    # position: greedy sampling), and rejected tails roll back bitwise
+    # from a pre-verify snapshot.  The PrefixPageMapper maps each row's
+    # whole generation horizon, so speculative writes land in mapped pages
+    # and rollback frees no page here.
+    drafter = verify_fn = None
+    spec_k = max(1, int(spec_k))
+    wclamp = chunk_size
+    has_state = bool(lm.state_layers(cfg))
+    if spec_decode != "off":
+        drafter = draft_mod.make_drafter(spec_decode)
+        wclamp = max(chunk_size, 1 + spec_k)
+        verify_fn = engine_mod.make_verify_step_fn(cfg)
+
     t0 = time_fn()
 
     # --- Outliner: generates the skeleton, posts TODOs (both modes pay it).
@@ -342,7 +359,8 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
                            * (task.par_inflation if mode == "parallel"
                               else 1.0)))
     stats = dict(gen=0, replay=0, steps=0, inval=0, collide=0, observe=0,
-                 syncs=0, sync_bytes=0, agent_fail=0, agent_retry=0)
+                 syncs=0, sync_bytes=0, agent_fail=0, agent_retry=0,
+                 draft=0, accepted=0, rollback=0)
     merge_perm_seed = 0
 
     # Host-side mirrors: CRDT appends are buffered per agent and flushed at
@@ -350,6 +368,12 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
     host_len = np.zeros((k_todos,), np.int64)          # merged view lengths
     buffers: list[list[int]] = [[] for _ in range(n_agents)]
     buf_slot = [-1] * n_agents
+    # Per-slot mirrors of flushed (committed) document content: the doc
+    # drafter reads these LIVE lists, so anything one agent has flushed is
+    # draftable for every other agent at once.
+    slot_toks: list[list[int]] = [[] for _ in range(k_todos)]
+    if drafter is not None and hasattr(drafter, "set_docs"):
+        drafter.set_docs(slot_toks)
     done_count = 0
     board_dirty = True
     run_buf_cap = 128
@@ -366,6 +390,7 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
             docs[i] = doc_mod.append(docs[i], buf_slot[i], to_dev(arr),
                                      len(chunk))
         host_len[buf_slot[i]] += len(toks)
+        slot_toks[buf_slot[i]].extend(toks)
         buffers[i] = []
 
     def sync_replicas():
@@ -421,6 +446,7 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
                     a.reprefills = 0
                     a.queue = _prompt_tokens(task, a.todo_id, docs, vocab,
                                              rng)
+                    a.hist = list(a.queue)
                     a.tokens_left = gen_budget
                     snap_len[a.client] = host_len.copy()
                     buf_slot[a.row] = a.todo_id
@@ -468,8 +494,24 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
                     spans[a.row] = 1
                 elif a.phase == GEN:
                     spans[a.row] = 1
+            drafts: dict[int, list[int]] = {}
+            if drafter is not None:
+                # Widen decode rows with drafter proposals.  The cap keeps
+                # every speculative write inside the row's mapped horizon
+                # and the accepted run inside the agent's remaining budget.
+                for a in agents:
+                    if a.phase != GEN or spans[a.row] != 1:
+                        continue
+                    cap = min(spec_k, a.tokens_left - 1,
+                              max_len - int(pos_h[a.row]) - 1)
+                    if cap <= 0:
+                        continue
+                    d = drafter.propose(a.hist, cap)[:cap]
+                    if d:
+                        drafts[a.row] = d
+                        spans[a.row] = 1 + len(d)
             width = engine_mod.width_bucket(int(max(spans.max(), 1)),
-                                            chunk_size)
+                                            wclamp)
             toks = np.zeros((n_agents, width), np.int64)
             for a in agents:
                 if spans[a.row] == 0:
@@ -481,13 +523,59 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
                     stats["replay"] += len(seg)
                 else:
                     toks[a.row, 0] = tok_h[a.row]
+                    d = drafts.get(a.row)
+                    if d:
+                        toks[a.row, 1:1 + len(d)] = d
             push_tables()
-            nxt, cache = mixed_fn(params, cache, to_dev(toks), to_dev(pos_h),
-                                  to_dev(spans))
-            sampled = nxt.cpu().numpy()        # the one per-step sync
+            start_d = to_dev(pos_h)                # pre-step positions
+            if verify_fn is not None:
+                snap = (lm.rollback_snapshot(cfg, cache, start_d, width)
+                        if drafts else None)
+                preds_d, acc_d, cache = verify_fn(params, cache,
+                                                  to_dev(toks), start_d,
+                                                  to_dev(spans))
+                # preds and accept counts in one copy: the step's one sync.
+                both = torch.cat([preds_d, acc_d[:, None]], 1).cpu().numpy()
+                preds, acc = both[:, :-1], both[:, -1]
+                sampled = preds[np.arange(n_agents),
+                                np.clip(spans - 1, 0, width - 1)]
+            else:
+                nxt, cache = mixed_fn(params, cache, to_dev(toks), start_d,
+                                      to_dev(spans))
+                sampled = nxt.cpu().numpy()    # the one per-step sync
             stats["steps"] += 1
+            roll_lo = np.zeros((n_agents,), np.int64)
+            roll_hi = np.zeros((n_agents,), np.int64)
+            replay_spans = np.zeros((n_agents,), np.int64)
             for a in agents:
                 if spans[a.row] == 0:
+                    continue
+                d = drafts.get(a.row)
+                if d is not None:
+                    # Speculative row: commit the longest accepted prefix
+                    # plus the verifier's bonus token; mark the rejected
+                    # tail for rollback.
+                    pos0 = int(pos_h[a.row])
+                    appended, a_dev = draft_mod.accept_tokens(
+                        d, acc[a.row], preds[a.row], a.tokens_left, None)
+                    n_app = len(appended)
+                    stats["draft"] += len(d)
+                    stats["accepted"] += min(n_app, a_dev)
+                    n_roll = int(spans[a.row]) - n_app
+                    pos_h[a.row] += n_app
+                    for t in appended:
+                        buffers[a.row].append(int(t) % vocab)
+                        a.hist.append(int(t))
+                    tok_h[a.row] = int(appended[-1])
+                    stats["gen"] += n_app
+                    a.tokens_left -= n_app
+                    if n_roll > 0:
+                        stats["rollback"] += n_roll
+                        roll_lo[a.row] = pos0 + n_app
+                        roll_hi[a.row] = pos0 + int(spans[a.row])
+                        replay_spans[a.row] = n_app
+                    if a.tokens_left <= 0:
+                        finishing.append(a)
                     continue
                 pos_h[a.row] += int(spans[a.row])
                 if a.phase == PREFILL:
@@ -496,10 +584,26 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
                     a.phase = GEN           # chunk's last logits = 1st token
                 tok_h[a.row] = int(sampled[a.row])
                 buffers[a.row].append(int(sampled[a.row]) % vocab)
+                if drafter is not None:
+                    a.hist.append(int(sampled[a.row]))
                 stats["gen"] += 1
                 a.tokens_left -= 1
                 if a.tokens_left <= 0:
                     finishing.append(a)
+            if replay_spans.any():
+                # Rejected tails back to their pre-verify bytes; recurrent
+                # carries back to their pre-verify value, then advanced by
+                # replaying exactly the committed tokens (their attention
+                # writes rewrite the same tokens at the same positions).
+                cache = lm.rollback_restore(cfg, cache, snap, start_d,
+                                            to_dev(roll_lo), to_dev(roll_hi),
+                                            torch.from_numpy(replay_spans > 0))
+                if has_state:
+                    w2 = engine_mod.width_bucket(int(replay_spans.max()),
+                                                 wclamp)
+                    _, _, cache = verify_fn(params, cache,
+                                            to_dev(toks[:, :w2]), start_d,
+                                            to_dev(replay_spans))
             for a in finishing:
                 finish_agent(a)
         else:
@@ -550,6 +654,7 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
                         stats["inval"] += 1
                         a.queue = _prompt_tokens(task, a.todo_id, docs,
                                                  vocab, rng)
+                        a.hist = list(a.queue)
                         a.phase = PREFILL
                         pos_h[a.row] = 0
                         if mixed_fn is None:
@@ -597,7 +702,10 @@ def run_task(cfg: ModelConfig, params, task: TaskSpec, *, mode: str,
         page_sync_bytes=getattr(mapper, "sync_bytes", 0),
         agent_failures=stats["agent_fail"],
         agent_retries=stats["agent_retry"],
-        spec_decode=spec_decode)
+        spec_decode=spec_decode,
+        draft_tokens=stats["draft"],
+        accepted_tokens=stats["accepted"],
+        rollback_tokens=stats["rollback"])
 
 
 def make_sim_llm(seed: int = 0, device=None):
@@ -645,9 +753,13 @@ def main() -> None:
                          "replicas that gossip the CRDT page table")
     ap.add_argument("--spec-decode", default="off",
                     choices=["off", "ngram", "doc"],
-                    help="speculative decoding (not ported yet: only "
-                         "'off' runs)")
-    ap.add_argument("--spec-k", type=int, default=4)
+                    help="speculative decoding through the mixed step: "
+                         "'ngram' drafts from each agent's own "
+                         "prompt+generated history (prompt lookup), 'doc' "
+                         "drafts from the shared CRDT document content "
+                         "with n-gram fallback (requires --prefill chunked)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens proposed per agent per step")
     ap.add_argument("--kv-quant", default="off",
                     choices=["off", "int8", "fp8"],
                     help="quantized page pools (requires --kv paged): int8 "

@@ -3,7 +3,9 @@ attention kernels over float and quantized pools, MHA and MLA, blocked
 (flash) attention over whole sequences, the diagonal linear recurrence of
 the RG-LRU, the cross-pool page transfer of disaggregated serving, and the
 two register-bank operations of replica sync: the LWW join of two banks and
-the LWW-guarded scatter of a delta buffer into a bank.
+the LWW-guarded scatter of a delta buffer into a bank; and the plain
+pieces of speculative decoding's verify step (greedy acceptance, span
+snapshot and rollback), which have no kernel in either package.
 
 Each function is the mathematical definition with no tiling, line for line
 in semantics with ``repro.kernels.ref``: the CPU path of every wrapper in
@@ -546,3 +548,128 @@ def delta_apply(key: torch.Tensor, pay: torch.Tensor, d_idx: torch.Tensor,
     out_pay = pay.clone()
     out_pay[won] = d_pay.to(pay.dtype)[first[won]]
     return torch.where(won, top[:k], key), out_pay
+
+
+# ---------------------------------------------------------------------------
+# Speculative-decoding verify path (span acceptance + rollback)
+# ---------------------------------------------------------------------------
+
+def speculative_accept(preds: torch.Tensor, tokens: torch.Tensor,
+                       span: torch.Tensor) -> torch.Tensor:
+    """Greedy longest-accepted-prefix count per row.
+
+    preds: i32[B, C] argmax at every span position (the verify step's
+    all-logits mixed step); tokens: i32[B, C] the span fed,
+    ``tokens[b] = [last_committed, d_1 .. d_m, pad]``; span: i32[B] = 1 + m.
+    Draft d_{j+1} is accepted iff every earlier one was and
+    ``preds[b, j] == tokens[b, j + 1]``.  Counts lie in [0, m]; rows with
+    span <= 1 count 0.  ``preds[b, accepted[b]]`` is the bonus token, the
+    one plain greedy decoding would emit next.
+    """
+    b, c = tokens.shape
+    if c == 1:
+        return torch.zeros((b,), dtype=torch.int32, device=tokens.device)
+    span = span.to(tokens.device)
+    j = torch.arange(c - 1, device=tokens.device)
+    ok = (preds[:, :-1] == tokens[:, 1:]) & (j[None, :] < span[:, None] - 1)
+    # argmin returns the first minimum: the first rejected position.
+    first_bad = torch.argmin(ok.to(torch.int32), dim=1)
+    return torch.where(ok.all(dim=1), c - 1, first_bad).to(torch.int32)
+
+
+def _span_pages(block_tables: torch.Tensor, start: torch.Tensor, width: int,
+                ps: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(positions [B, W], table entries [B, W] (-1 kept), slots [B, W]) of
+    the window [start, start + width); positions past the table read its
+    last entry."""
+    bt = block_tables.long()
+    maxp = bt.shape[-1]
+    tpos = (start.to(bt.device).long()[:, None]
+            + torch.arange(width, device=bt.device)[None, :])
+    pg = torch.take_along_dim(bt, (tpos // ps).clamp(0, maxp - 1), dim=1)
+    return tpos, pg, tpos % ps
+
+
+def paged_span_slots(block_tables: torch.Tensor, start: torch.Tensor,
+                     width: int, ps: int, num_pages: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pages, slots), each [B, W]: where ``paged_span_gather`` reads the
+    window [start, start + width) in a pool of ``num_pages`` pages of
+    ``ps`` slots (pages clamped into the pool).  Every leaf that shares the
+    tables takes the same pair."""
+    _, pg, slot = _span_pages(block_tables, start, width, ps)
+    return pg.clamp(0, num_pages - 1), slot
+
+
+def paged_span_lanes(block_tables: torch.Tensor, start: torch.Tensor,
+                     lo: torch.Tensor, hi: torch.Tensor, width: int, ps: int,
+                     num_pages: int) -> tuple[torch.Tensor, ...]:
+    """(rows, offsets, pages, slots), each 1-D with one entry a lane that
+    ``paged_span_restore`` writes: window positions in [lo[b], hi[b])
+    inside the table with an allocated entry (a page past the pool writes
+    its last page, as JAX's clip).  One device-to-host sync (the count of
+    lanes); every leaf that shares the tables takes the same lanes."""
+    tpos, pg, slot = _span_pages(block_tables, start, width, ps)
+    dev = tpos.device
+    keep = ((tpos >= lo.to(dev).long()[:, None])
+            & (tpos < hi.to(dev).long()[:, None])
+            & (tpos // ps < block_tables.shape[-1]) & (pg >= 0))
+    b, w = keep.nonzero(as_tuple=True)
+    return b, w, pg[b, w].clamp(max=num_pages - 1), slot[b, w]
+
+
+def paged_span_gather(pool: torch.Tensor, block_tables: torch.Tensor,
+                      start: torch.Tensor, width: int,
+                      slot_axis: int | None = None,
+                      slots: tuple[torch.Tensor, torch.Tensor] | None = None
+                      ) -> torch.Tensor:
+    """A copy of the pool slots a mixed-step write window covers.
+
+    ``out[b, w] = pool[block_tables[b, (start[b]+w) // ps], ...,
+    (start[b]+w) % ps, ...]``: the pre-verify bytes of every slot a span
+    written at [start, start + width) could touch.  pool: [P, Hkv, ps, D]
+    (MHA K/V, slot axis 2) or [P, ps, Dp] (MLA latent, slot axis 1).
+    Scale leaves drop the trailing feature axis but keep the slot axis,
+    [P, Hkv, ps] (slot axis 2) or [P, ps] (slot axis 1): pass ``slot_axis``
+    for those.  Positions past the table and -1 entries are clamped; their
+    lanes hold garbage that ``paged_span_restore`` masks out.  ``slots``
+    takes ``paged_span_slots``' pair where the caller has it.  Advanced
+    indexing copies, so the snapshot survives the verify step's in-place
+    writes.
+    """
+    if slot_axis is None:
+        slot_axis = 2 if pool.dim() == 4 else 1
+    pg, slot = slots or paged_span_slots(block_tables, start, width,
+                                         pool.shape[slot_axis], pool.shape[0])
+    if slot_axis == 2:
+        return pool[pg, :, slot]             # [B, W, Hkv, (D)]
+    return pool[pg, slot]                    # [B, W, (Dp)]
+
+
+def paged_span_restore(pool: torch.Tensor, snap: torch.Tensor,
+                       block_tables: torch.Tensor, start: torch.Tensor,
+                       lo: torch.Tensor, hi: torch.Tensor,
+                       slot_axis: int | None = None,
+                       lanes: tuple[torch.Tensor, ...] | None = None
+                       ) -> torch.Tensor:
+    """Rejected-tail rollback, in place: write ``snap`` (from
+    ``paged_span_gather`` at the same ``start``) back at positions in
+    [lo[b], hi[b]); returns ``pool``.
+
+    Lanes outside the window (accepted positions, rows with lo == hi,
+    positions past the table, -1 entries) are dropped, so committed slots
+    keep the verify step's writes bit for bit and the rejected tail gets
+    its pre-verify bytes back.  ``slot_axis`` as in ``paged_span_gather``;
+    ``lanes`` takes ``paged_span_lanes``' result where the caller has it.
+    """
+    if slot_axis is None:
+        slot_axis = 2 if pool.dim() == 4 else 1
+    b, w, pg, slot = lanes or paged_span_lanes(
+        block_tables, start, lo, hi, snap.shape[1], pool.shape[slot_axis],
+        pool.shape[0])
+    vals = snap[b, w].to(pool.dtype)
+    if slot_axis == 2:
+        pool[pg, :, slot] = vals
+    else:
+        pool[pg, slot] = vals
+    return pool

@@ -29,7 +29,9 @@ Layouts ported so far:
 
 Disaggregated serving moves physical pages between two engines' caches
 (``export_pages`` / ``adopt_pages`` through the host, ``copy_pages_across``
-device to device on the ``page_transfer`` kernel).
+device to device on the ``page_transfer`` kernel).  Speculative decoding
+copies the slots a verify span may write (``snapshot_span``) and writes a
+rejected tail back from that copy (``restore_span``).
 
 The latent pool's feature axis is padded to a multiple of 128 as in the
 JAX package (whose TPU kernels need the lane width), so caches carry across
@@ -602,3 +604,133 @@ def copy_pages_across(src_cache: Params, dst_cache: Params, src,
         ops.page_transfer_leaves(group, src_ids.on(dev), dst_ids.on(dev),
                                  impl=impl)
     return out, moved
+
+
+# ---------------------------------------------------------------------------
+# Span snapshot / restore (speculative-decoding rollback)
+# ---------------------------------------------------------------------------
+
+# Slot axis of every pool and scale leaf of a paged layer: MHA-family leaves
+# are [P, Hkv, ps, ...] (slot axis 2), MLA-family [P, ps, ...] (slot axis
+# 1); scale leaves drop the trailing feature axis and keep the slot axis.
+_SPAN_SLOT_AXIS = {l: (2 if l.startswith("paged_mha") else 1)
+                   for l in PAGED_LAYOUTS}
+
+
+def _span_positions(start, width: int, device) -> torch.Tensor:
+    start = torch.as_tensor(start).to(device=device, dtype=torch.long)
+    return start[:, None] + torch.arange(width, device=device)[None, :]
+
+
+def _pool_geometry(layer: dict, layout: str, name: str) -> tuple[int, int]:
+    """(slots a page, pages) of one pool or scale leaf."""
+    pool = layer[name]
+    return pool.shape[_SPAN_SLOT_AXIS[layout]], pool.shape[0]
+
+
+def snapshot_span(cache: Params, start, width: int) -> Params:
+    """Copies of every cache slot a mixed step writing positions
+    [start[b], start[b] + width) could touch: the rollback snapshot taken
+    before a speculative verify step (after page growth, so the block
+    tables already map the window).
+
+    Dense layouts gather along the sequence axis ([B, W, Hkv, D] and
+    [B, W, r]); paged layouts walk the block tables through
+    ``kernels.ref.paged_span_gather``, pool and scale leaves alike.  The
+    window's (page, slot) pairs are worked out once for all the leaves
+    that share a table (every paged layer holds the same one), so a leaf
+    costs one gather.  The result is ``{"layers": [...]}`` with one dict
+    per layer; recurrent (``state``) and ``xattn`` layers give an empty
+    one: a carry is whole-row (``lm.snapshot_state_rows``) and xattn
+    layers are not mixed-step servable.  Every leaf is a copy, so the
+    verify step's in-place writes leave the snapshot as it was.
+    """
+    from repro_torch.kernels import ref as kref
+
+    slots: dict = {}
+    out = []
+    for layer in cache["layers"]:
+        layout = layout_of(layer)
+        if layout in PAGED_LAYOUTS:
+            bt = layer["block_tables"]
+            snap = {}
+            for name in pool_leaves(layout):
+                ps, pages = _pool_geometry(layer, layout, name)
+                key = (id(bt), ps, pages)
+                if key not in slots:
+                    slots[key] = kref.paged_span_slots(
+                        bt, torch.as_tensor(start).to(bt.device), width, ps,
+                        pages)
+                snap[name] = kref.paged_span_gather(
+                    layer[name], bt, start, width,
+                    slot_axis=_SPAN_SLOT_AXIS[layout], slots=slots[key])
+            out.append(snap)
+        elif layout in ("dense", "dense_mla"):
+            snap = {}
+            for name, arr in layer.items():
+                key = (arr.shape[0], arr.shape[-2], arr.device)
+                if key not in slots:
+                    tpos = _span_positions(start, width, arr.device)
+                    bidx = torch.arange(arr.shape[0], device=arr.device
+                                        )[:, None].expand_as(tpos)
+                    slots[key] = bidx, tpos.clamp(0, arr.shape[-2] - 1)
+                bidx, spos = slots[key]
+                snap[name] = (arr[bidx, :, spos] if layout == "dense"
+                              else arr[bidx, spos])
+            out.append(snap)
+        else:
+            out.append({})
+    return {"layers": out}
+
+
+def restore_span(cache: Params, snap: Params, start, lo, hi) -> Params:
+    """Write ``snap`` (from :func:`snapshot_span` at the same ``start``)
+    back at positions in [lo[b], hi[b]), in place: the rejected-tail
+    rollback.  Returns ``cache``.
+
+    It must run against the block tables the snapshot saw, before the
+    host frees the tail's grown pages and pushes new tables.  Lanes
+    outside the window are dropped, so accepted positions keep the verify
+    step's writes bit for bit; rows with lo == hi are untouched.  The
+    lanes are worked out once for the leaves that share a table: one
+    device-to-host sync a table, not one a leaf.
+    """
+    from repro_torch.kernels import ref as kref
+
+    lanes: dict = {}
+    for layer, s in zip(cache["layers"], snap["layers"]):
+        if not s:
+            continue
+        layout = layout_of(layer)
+        if layout in PAGED_LAYOUTS:
+            bt = layer["block_tables"]
+            for name in pool_leaves(layout):
+                ps, pages = _pool_geometry(layer, layout, name)
+                key = (id(bt), ps, pages)
+                if key not in lanes:
+                    lanes[key] = kref.paged_span_lanes(
+                        bt, *(torch.as_tensor(x).to(bt.device)
+                              for x in (start, lo, hi)),
+                        s[name].shape[1], ps, pages)
+                kref.paged_span_restore(layer[name], s[name], bt, start, lo,
+                                        hi, slot_axis=_SPAN_SLOT_AXIS[layout],
+                                        lanes=lanes[key])
+            continue
+        for name, arr in layer.items():
+            key = (arr.shape[0], arr.shape[-2], arr.device)
+            if key not in lanes:
+                tpos = _span_positions(start, s[name].shape[1], arr.device)
+                lo_, hi_ = (torch.as_tensor(x).to(device=arr.device,
+                                                  dtype=torch.long)[:, None]
+                            for x in (lo, hi))
+                keep = ((tpos >= lo_) & (tpos < hi_)
+                        & (tpos < arr.shape[-2]))
+                b, w = keep.nonzero(as_tuple=True)
+                lanes[key] = b, w, tpos[b, w]
+            b, w, t = lanes[key]
+            vals = s[name][b, w].to(arr.dtype)
+            if layout == "dense":
+                arr[b, :, t] = vals
+            else:
+                arr[b, t] = vals
+    return cache

@@ -10,9 +10,10 @@ stacks each pattern slot's layers (and the encoder's) on a [G] axis for
 (``enc_frames`` on ``forward`` and ``prefill``) on ``flash_attention``.
 
 Entry points mirror ``repro.models.lm``: ``forward``, ``init_cache``,
-``prefill``, ``decode_step``, ``mixed_step`` and, for recurrent (``state``
-layout) layers, ``reset_state_rows``, ``snapshot_state_rows`` and
-``restore_state_rows``.  ``impl="kernel"`` runs the kernels where the
+``prefill``, ``decode_step``, ``mixed_step``, ``verify_step`` with
+``rollback_snapshot`` / ``rollback_restore`` (speculative decoding) and,
+for recurrent (``state`` layout) layers, ``reset_state_rows``,
+``snapshot_state_rows`` and ``restore_state_rows``.  ``impl="kernel"`` runs the kernels where the
 tensors live (the Hopper kernels on the card, the plain versions on the
 CPU); ``impl="ref"`` takes the plain versions.  Attention caches are
 updated in place; recurrent layers hand back new state tensors.
@@ -313,6 +314,32 @@ def mixed_step(p: Params, cfg: ModelConfig, tokens, cache: Params, start,
     return _final(p, cfg, x)[:, 0], cache
 
 
+def verify_step(p: Params, cfg: ModelConfig, tokens, cache: Params, start,
+                span, impl: str = "kernel"
+                ) -> tuple[torch.Tensor, torch.Tensor, Params]:
+    """Speculative-decoding verify: one all-logits mixed step plus per-row
+    greedy accept counts.
+
+    ``tokens[b] = [last_committed, d_1 .. d_m, pad]`` with ``span = 1 + m``
+    (plain decode and admission rows ride along with their usual spans and
+    count 0).  Returns (preds i32[B, C], the argmax after every span
+    position; accepted i32[B], the longest accepted draft prefix per
+    ``kernels.ref.speculative_accept``; cache).  The cache then holds the
+    whole span's writes: the caller commits up to its accept point and
+    rolls the rejected tail back with ``cache.snapshot_span`` /
+    ``restore_span`` (and ``restore_state_rows`` plus a replay of the
+    committed span for recurrent layers).
+    """
+    from repro_torch.kernels import ref as kref
+    logits, cache = mixed_step(p, cfg, tokens, cache, start, span, impl=impl,
+                               all_logits=True)
+    preds = torch.argmax(logits, dim=-1).to(torch.int32)
+    dev = preds.device
+    accepted = kref.speculative_accept(preds, _tokens(tokens, dev),
+                                       _tokens(span, dev))
+    return preds, accepted, cache
+
+
 # ---------------------------------------------------------------------------
 # Recurrent state rows (state-layout layers)
 # ---------------------------------------------------------------------------
@@ -368,3 +395,28 @@ def restore_state_rows(cfg: ModelConfig, cache: Params, snap: Params,
     for i in state_layers(cfg):
         layers[i] = _blend(mask, snap["layers"][i], layers[i])
     return dict(cache, layers=layers)
+
+
+def rollback_snapshot(cfg: ModelConfig, cache: Params, start,
+                      width: int) -> Params:
+    """The speculative-decoding rollback snapshot, taken before a verify
+    step: copies of the slots a span of ``width`` at ``start`` may write
+    (``cache.snapshot_span``) and, for recurrent layers, of the carries
+    (:func:`snapshot_state_rows`)."""
+    snap = {"spans": cache_mod.snapshot_span(cache, start, width)}
+    if state_layers(cfg):
+        snap["state"] = snapshot_state_rows(cfg, cache)
+    return snap
+
+
+def rollback_restore(cfg: ModelConfig, cache: Params, snap: Params, start,
+                     lo, hi, mask) -> Params:
+    """Roll a verify step's rejected tails back from ``snap``: positions
+    [lo[b], hi[b]) get their pre-verify bytes (``cache.restore_span``),
+    and the rows in ``mask`` their pre-verify carries; the caller replays
+    the committed tokens through the recurrent layers."""
+    cache = cache_mod.restore_span(cache, snap["spans"], start, lo, hi)
+    if "state" in snap:
+        cache = restore_state_rows(cfg, cache, snap["state"], mask)
+    return cache
+

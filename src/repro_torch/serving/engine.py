@@ -99,6 +99,23 @@ def make_mixed_step_fn(cfg: ModelConfig, *, impl: str = "kernel",
     return mixed_step
 
 
+def make_verify_step_fn(cfg: ModelConfig, *, impl: str = "kernel"):
+    """(params, cache, tokens [B, C], start [B], span [B])
+    -> (preds [B, C], accepted [B], cache).
+
+    The speculative-decoding verify step (greedy only: acceptance compares
+    argmax streams, so there is no generator): one all-logits mixed step
+    over each row's [last_committed, draft...] span plus the per-row
+    longest-accepted-prefix count.  ``preds[b, j]`` is the greedy token
+    after span position j, so a row that drafted nothing decodes as usual
+    by reading ``preds[b, span[b] - 1]``."""
+    def verify_step(params, cache, tokens, start, span):
+        return lm.verify_step(params, cfg, tokens, cache, start, span,
+                              impl=impl)
+
+    return verify_step
+
+
 def width_bucket(n: int, chunk: int) -> int:
     """Smallest power of two >= n, clamped to ``chunk``."""
     n = max(1, min(n, chunk))

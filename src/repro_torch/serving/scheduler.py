@@ -44,8 +44,19 @@ with recurrent (``state``) layers resets an admitted row's carry to fresh
 init, so a freed row's state never leaks into the next request; its
 windowed and recurrent layers hold no pool, and with ``paged=True`` the
 pages are accounted for all the same, as in the JAX package.
-Speculative decoding and the swap tier are not ported yet: their options
-raise NotImplementedError naming the ROADMAP.md item.
+
+Speculative decoding (``spec_decode="ngram"|"doc"`` or a ``drafter=``
+object, greedy only): after decode and admission are funded, a host-side
+drafter (``serving/draft.py``) widens decode rows from span 1 to 1 + k
+out of the leftover budget, and one verify step (``lm.verify_step``: the
+all-logits mixed step on the same kernels, then greedy acceptance) scores
+every row.  Each drafting row commits its longest accepted prefix plus the
+verifier's bonus token; the rejected tail's cache slots are written back
+bitwise from a snapshot taken just before the step
+(``cache.snapshot_span`` / ``restore_span``), its grown pages return to
+the pool, and recurrent carries are restored and advanced by replaying the
+committed tokens.  The swap tier is not ported yet: its option raises
+NotImplementedError naming the ROADMAP.md item.
 
 ``PageAllocator`` (refcounted), ``PrefixCache`` and ``PrefixPageMapper``
 also serve the agent trial (``agents/orchestrator.run_task``): each agent's
@@ -64,6 +75,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving import draft as draft_mod
 from repro_torch.serving import engine as engine_mod
 
 Params = Any
@@ -403,11 +415,10 @@ class ContinuousBatchingEngine:
                  prefix_cache: Optional[Any] = None,
                  max_queue: Optional[int] = None,
                  journal: Optional[Any] = None,
-                 spec_decode: str = "off", kv_quant: str = "off",
+                 spec_decode: str = "off", spec_k: int = 4,
+                 drafter: Optional[Any] = None, kv_quant: str = "off",
                  swap_tier_pages: int = 0, role: str = "mixed",
                  device=None):
-        if spec_decode != "off":
-            raise _later("spec_decode", "item 8 (speculative decoding)")
         if swap_tier_pages:
             raise _later("swap_tier_pages", "item 9 (the swap tier)")
         if kv_quant != "off" and not paged:
@@ -416,6 +427,13 @@ class ContinuousBatchingEngine:
         if role not in ("prefill", "decode", "mixed"):
             raise ValueError(f"role must be prefill/decode/mixed, "
                              f"got {role!r}")
+        if spec_decode not in ("off", "ngram", "doc"):
+            raise ValueError(f"spec_decode must be off/ngram/doc, got "
+                             f"{spec_decode!r}")
+        if spec_decode != "off" and temperature > 0.0:
+            raise ValueError(
+                "speculative decoding requires greedy decoding "
+                "(temperature 0): acceptance compares argmax streams")
         self.device = resolve_device(device)
         if params["embed"]["w"].device != self.device:
             raise ValueError(f"params live on {params['embed']['w'].device},"
@@ -475,6 +493,15 @@ class ContinuousBatchingEngine:
         self._mixed = engine_mod.make_mixed_step_fn(cfg, impl=impl,
                                                     temperature=temperature)
         self._has_state = bool(lm.state_layers(cfg))
+        self.spec_decode = spec_decode
+        self.spec_k = max(1, int(spec_k))
+        self.drafter = None
+        if spec_decode != "off":
+            self.drafter = (drafter if drafter is not None
+                            else draft_mod.make_drafter(spec_decode))
+            # Verify serves EVERY row while speculation is on: a row that
+            # drafted nothing reads preds at its last span position.
+            self._verify = engine_mod.make_verify_step_fn(cfg, impl=impl)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         # Positions are host-owned: the mixed step takes (start, span) as
         # inputs, so the one per-step sync is reading the sampled tokens.
@@ -501,6 +528,12 @@ class ContinuousBatchingEngine:
                       "expired_queued": 0, "retried": 0,
                       "preempt_for_pages": 0, "preempt_fenced": 0,
                       "preempt_recompute": 0,
+                      # Speculative decoding: drafts proposed, drafts
+                      # accepted, cache writes rolled back, steps that
+                      # carried >= 1 draft, steps that rolled anything back.
+                      "draft_tokens": 0, "accepted_tokens": 0,
+                      "rollback_tokens": 0, "spec_steps": 0,
+                      "spec_rollbacks": 0,
                       # Disaggregation: physical pages adopted from peer
                       # pools, prompt tokens those pages covered, and
                       # prefill chunk steps that adoption skipped.
@@ -953,6 +986,62 @@ class ContinuousBatchingEngine:
             budget -= take
         return spans
 
+    def _fund_drafts(self, spans: np.ndarray) -> dict[int, list[int]]:
+        """Widen decode rows with drafter proposals out of whatever token
+        budget decode and admission left over: drafts are funded last, so
+        speculation never displaces guaranteed work.  Mutates ``spans``
+        (row span 1 -> 1 + len(draft)) and returns {row: draft tokens}.
+
+        The per-row cap keeps the invariants of plain decoding: committed
+        tokens never pass the request's remaining budget (the bonus token
+        makes the cap ``remaining - 1``), and writes never pass
+        ``max_len - 1``.
+        """
+        drafts: dict[int, list[int]] = {}
+        budget = (self.token_budget if self.token_budget is not None
+                  else self.batch * self.chunk_size) - int(spans.sum())
+        if budget <= 0:
+            return drafts
+        rot = self.stats["steps"] % self.batch
+        for r in sorted(range(self.batch),
+                        key=lambda r: (r - rot) % self.batch):
+            if budget <= 0:
+                break
+            req = self.rows[r]
+            if req is None or spans[r] != 1 or req.admitting:
+                continue
+            cap = min(self.spec_k, budget,
+                      req.max_new_tokens - len(req.tokens) - 1,
+                      self.max_len - int(self.row_pos[r]) - 1)
+            if cap <= 0:
+                continue
+            d = self.drafter.propose(req.context, cap)[:cap]
+            if not d:
+                continue
+            drafts[r] = [int(t) for t in d]
+            spans[r] = 1 + len(d)
+            budget -= len(d)
+        return drafts
+
+    def _rollback_tail_pages(self, row: int, keep_pos: int,
+                             end_pos: int) -> None:
+        """Free the pages a rejected draft tail grew: every page wholly past
+        the committed cursor inside the step's write window.  Drafting rows
+        are past admission, so such pages were grown (or copied on write)
+        this step with refcount 1; the committed first token keeps its own
+        page, so a copied boundary page is never freed."""
+        ps = self.page_size
+        req = self.rows[row]
+        for widx in range(-(-keep_pos // ps),
+                          min(self.maxp, -(-end_pos // ps))):
+            page = int(self.host_bt[row, widx])
+            if page == self.trash_page:
+                continue
+            self.allocator.free([page], row=row)
+            req.pages.remove(page)
+            self.host_bt[row, widx] = self.trash_page
+            self._bt_dirty = True
+
     def _to_dev(self, name: str, arr: np.ndarray) -> torch.Tensor:
         """Upload ``arr`` unless it is unchanged since the last step."""
         memo = self._dev_memo.get(name)
@@ -977,13 +1066,19 @@ class ContinuousBatchingEngine:
                 return True
             return False
         spans = self._compose()
+        drafts = self._fund_drafts(spans) if self.drafter is not None else {}
         if self.paged:
             self._ensure_pages(spans)
+        # A mid-walk eviction zeroes the victim's span; drop its draft.
+        drafts = {r: d for r, d in drafts.items()
+                  if self.rows[r] is not None and spans[r] == 1 + len(d)}
         if not spans.any():
             self.stats["steps"] += 1           # budget 0: bookkeeping step
             return True
         clamp = (max(self.chunk_size, 1) if self.prefill_interleave
                  else self.max_len)
+        if self.drafter is not None:
+            clamp = max(clamp, 1 + self.spec_k)
         width = engine_mod.width_bucket(int(spans.max()), clamp)
         toks = np.zeros((self.batch, width), np.int64)
         for row in range(self.batch):
@@ -995,18 +1090,70 @@ class ContinuousBatchingEngine:
                 toks[row, :len(seg)] = seg
             else:
                 toks[row, 0] = self.token[row]
-        nxt, self.cache = self._mixed(
-            self.params, self.cache,
-            self._to_dev(f"tok{width}", toks.astype(np.int32)),
-            self._to_dev("start", self.row_pos.astype(np.int32)),
-            self._to_dev(f"span{width}", spans.astype(np.int32)), self.gen)
-        sampled = nxt.cpu().numpy()            # the one per-step sync
+                d = drafts.get(row)
+                if d:
+                    toks[row, 1:1 + len(d)] = d
+        toks_dev = self._to_dev(f"tok{width}", toks.astype(np.int32))
+        start_dev = self._to_dev("start", self.row_pos.astype(np.int32))
+        span_dev = self._to_dev(f"span{width}", spans.astype(np.int32))
+        if self.drafter is not None:
+            snap = (lm.rollback_snapshot(self.cfg, self.cache, start_dev,
+                                         width) if drafts else None)
+            preds_d, acc_d, self.cache = self._verify(
+                self.params, self.cache, toks_dev, start_dev, span_dev)
+            # preds and accept counts come back in one copy: the step's
+            # one sync.
+            both = torch.cat([preds_d, acc_d[:, None]], 1).cpu().numpy()
+            preds, acc = both[:, :-1], both[:, -1]
+            sampled = preds[np.arange(self.batch),
+                            np.clip(spans - 1, 0, width - 1)]
+        else:
+            nxt, self.cache = self._mixed(self.params, self.cache, toks_dev,
+                                          start_dev, span_dev, self.gen)
+            sampled = nxt.cpu().numpy()        # the one per-step sync
         self.stats["steps"] += 1
         chunks = 0
         freed = False
+        roll_lo = np.zeros((self.batch,), np.int64)
+        roll_hi = np.zeros((self.batch,), np.int64)   # lo == hi: no-op row
+        replay_spans = np.zeros((self.batch,), np.int64)
         for row in range(self.batch):
             req = self.rows[row]
             if req is None or spans[row] == 0:
+                continue
+            d = drafts.get(row)
+            if d is not None:
+                # Speculative row: commit the longest accepted prefix plus
+                # the verifier's bonus token, roll the rejected tail back.
+                pos0 = int(self.row_pos[row])
+                appended, a_dev = draft_mod.accept_tokens(
+                    d, acc[row], preds[row],
+                    req.max_new_tokens - len(req.tokens), req.eos_id)
+                n_app = len(appended)
+                self.stats["draft_tokens"] += len(d)
+                self.stats["accepted_tokens"] += min(n_app, a_dev)
+                n_roll = int(spans[row]) - n_app
+                self.row_pos[row] += n_app
+                for t in appended:
+                    req.tokens.append(int(t))
+                    if self._journal is not None:
+                        self._journal("gen", req)
+                self.stats["gen_tokens"] += n_app
+                self.token[row] = int(appended[-1])
+                if req.first_token_step < 0:
+                    req.first_token_step = self.stats["steps"]
+                if n_roll > 0:
+                    self.stats["rollback_tokens"] += n_roll
+                    roll_lo[row] = pos0 + n_app
+                    roll_hi[row] = pos0 + int(spans[row])
+                    replay_spans[row] = n_app
+                    if self.paged:
+                        self._rollback_tail_pages(row, pos0 + n_app,
+                                                  pos0 + int(spans[row]))
+                self._mark_filled(req, upto=int(self.row_pos[row]))
+                if self._done(req):
+                    self._free_row(row)
+                    freed = True
                 continue
             self.row_pos[row] += int(spans[row])
             if req.admitting:
@@ -1031,6 +1178,29 @@ class ContinuousBatchingEngine:
             if self._done(req):
                 self._free_row(row)
                 freed = True
+        if drafts:
+            self.stats["spec_steps"] += 1
+        if replay_spans.any():
+            # The rejected tails go back to their pre-verify bytes through
+            # the tables the cache still holds: the page frees above
+            # touched host_bt only, and the next step pushes it.
+            self.stats["spec_rollbacks"] += 1
+            self.cache = lm.rollback_restore(
+                self.cfg, self.cache, snap, start_dev,
+                torch.from_numpy(roll_lo), torch.from_numpy(roll_hi),
+                torch.from_numpy(replay_spans > 0))
+            if self._has_state:
+                # A carry folds every span token irreversibly: it was
+                # restored to its pre-verify value, so replay just the
+                # committed tokens (their attention writes land the same
+                # tokens at the same positions again).
+                w2 = engine_mod.width_bucket(int(replay_spans.max()), clamp)
+                _, _, self.cache = self._verify(
+                    self.params, self.cache,
+                    self._to_dev(f"rtok{w2}", toks[:, :w2].astype(np.int32)),
+                    start_dev,
+                    self._to_dev(f"rspan{w2}",
+                                 replay_spans.astype(np.int32)))
         if chunks:
             self.stats["prefill_chunks"] += chunks
             self.stats["prefills"] += 1        # steps that carried a chunk
@@ -1048,3 +1218,9 @@ class ContinuousBatchingEngine:
         else:
             raise RuntimeError("scheduler hit max_steps with work remaining")
         return requests
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Accepted drafts / proposed drafts (0.0 before any speculation)."""
+        return (self.stats["accepted_tokens"]
+                / max(1, self.stats["draft_tokens"]))

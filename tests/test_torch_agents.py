@@ -322,12 +322,14 @@ def test_evaluator_matches_jax(seed):
     assert jorch.count_conflicts(jd) == torch_orch.count_conflicts(td)
 
 
-def test_options_not_ported_raise(sim):
+def test_options_check_their_arguments(sim):
     *_, tcfg, tp = sim
     task = TTASKS["tic_tac_toe"]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # --spec-decode is ported (queue 1 item 8): it rides the mixed step,
+    # so without chunked prefill it raises JAX's guard.
+    with pytest.raises(ValueError, match="mixed serve step"):
         torch_orch.run_task(tcfg, tp, task, mode="parallel", kv="paged",
-                            prefill="chunked", spec_decode="ngram",
+                            prefill="replay", spec_decode="ngram",
                             device="cpu")
     # --replicas / --disaggregate are ported (queue 1 item 12): what is
     # left are their argument checks, as in JAX.

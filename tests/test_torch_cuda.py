@@ -1524,3 +1524,160 @@ def test_register_bank_kernels_never_fall_back(card, monkeypatch):
     got = ops.delta_apply(key, pay, idx, dk, pay[:1] * 3, impl="ref")
     assert got[0][3] == 99 and bool((got[1][3] == 3).all())
     assert ops.launch_counts() == before
+
+
+# -- speculative decoding: the verify step and the span rollback ---------
+
+def _fill_cache(cache, seed):
+    """Random bits for every pool / scale / K-V leaf of a CPU cache (scales
+    positive, fp8 finite), block tables left as they are."""
+    g = torch.Generator().manual_seed(seed)
+    for layer in cache["layers"]:
+        for name, t in layer.items():
+            if name == "block_tables":
+                continue
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      dtype=torch.int8))
+            elif name.endswith("scales"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.1)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
+    return cache
+
+
+def _spec_cfg(kind):
+    from repro_torch import configs
+    from repro_torch.launch import workload
+    if kind == "olmo":
+        return configs.get("olmo-1b").replace(num_layers=2, vocab_size=1024)
+    return workload.mla_config().replace(num_layers=2, vocab_size=1024)
+
+
+SPAN_LAYOUTS = [("olmo", False, "off"), ("olmo", True, "off"),
+                ("olmo", True, "int8"), ("olmo", True, "fp8"),
+                ("mla", False, "off"), ("mla", True, "off"),
+                ("mla", True, "int8"), ("mla", True, "fp8")]
+
+
+@pytest.mark.parametrize("kind,paged,quant", SPAN_LAYOUTS)
+def test_span_snapshot_restore_bitwise_on_card(card, kind, paged, quant):
+    """``snapshot_span`` / ``restore_span`` on card caches at the models'
+    head shapes give the same bits as on the CPU, pool and scale leaves
+    alike (the windows cross pages, end past the table and hit -1)."""
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import lm
+    cfg = _spec_cfg(kind)
+    b, max_len, ps = 3, 64, 16
+    kw = dict(paged=paged, page_size=ps, kv_quant=quant) if paged else {}
+    host = _fill_cache(lm.init_cache(cfg, b, max_len, device="cpu", **kw), 0)
+    other = _fill_cache(lm.init_cache(cfg, b, max_len, device="cpu", **kw),
+                        1)
+    if paged:
+        maxp = max_len // ps
+        bt = torch.randperm(b * maxp + 1, generator=torch.Generator()
+                            .manual_seed(2))[:b * maxp].view(b, maxp)
+        bt[2, -1] = -1
+        host = lm.set_block_tables(host, bt)
+        other = lm.set_block_tables(other, bt)
+
+    def to_card(c):
+        return {"layers": [{n: t.to(card) for n, t in layer.items()}
+                           for layer in c["layers"]]}
+    dev, dev_other = to_card(host), to_card(other)
+    start = torch.tensor([3, 30, 59], dtype=torch.int32)
+    lo = torch.tensor([5, 30, 60], dtype=torch.int32)
+    hi = torch.tensor([9, 30, 64], dtype=torch.int32)
+    want = cache_mod.snapshot_span(host, start, 8)
+    got = cache_mod.snapshot_span(dev, start.to(card), 8)
+    for lw, lg in zip(want["layers"], got["layers"]):
+        for name in lw:
+            assert _same_bits(lg[name].cpu(), lw[name]), name
+    cache_mod.restore_span(other, want, start, lo, hi)
+    cache_mod.restore_span(dev_other, got, start.to(card), lo.to(card),
+                           hi.to(card))
+    for lw, lg in zip(other["layers"], dev_other["layers"]):
+        for name in lw:
+            assert _same_bits(lg[name].cpu(), lw[name]), name
+
+
+@pytest.mark.parametrize("quant", ["off", "int8"])
+@pytest.mark.parametrize("kind", ["olmo", "mla"])
+def test_verify_step_kernels_match_plain(card, kind, quant):
+    """``lm.verify_step`` through the kernels against ``impl="ref"`` from
+    the same state, at OLMo-1B's and the MLA workload's head shapes (two
+    layers): all-position logits within the chip check's 0.25, preds equal
+    wherever the plain top-2 gap exceeds twice that, accept counts equal
+    where the preds are; then the rollback puts the rejected tail's pool
+    and scale bytes back bitwise."""
+    from repro_torch.models import attention, cache as cache_mod, lm
+    cfg = _spec_cfg(kind)
+    params = lm.init(cfg, seed=0, device=card)
+    b, max_len, ps, k = 4, 256, 16, 4
+    cache = lm.init_cache(cfg, b, max_len, paged=True, page_size=ps,
+                          kv_quant=quant, device=card)
+    cache = lm.set_block_tables(cache, attention.default_block_tables(
+        b, max_len, ps, card))
+    g = torch.Generator(device=card).manual_seed(3)
+    plen = torch.tensor([40, 17, 64, 5], dtype=torch.int32, device=card)
+    prompt = torch.randint(0, cfg.vocab_size, (b, 64), generator=g,
+                           device=card)
+    logits, cache = lm.mixed_step(params, cfg, prompt, cache,
+                                  torch.zeros_like(plen), plen)
+    t0 = logits.argmax(-1)
+    drafts = torch.randint(0, cfg.vocab_size, (b, k), generator=g,
+                           device=card)
+    toks = torch.cat([t0[:, None], drafts, torch.zeros_like(drafts[:, :3])],
+                     1)
+    span = torch.tensor([1 + k, 1, 3, 1 + k], dtype=torch.int32, device=card)
+    twin = {"layers": [{n: t.clone() for n, t in layer.items()}
+                       for layer in cache["layers"]]}
+    snap = cache_mod.snapshot_span(cache, plen, toks.shape[1])
+    pre = cache_mod.snapshot_span(cache, plen, toks.shape[1])
+    lk, _ = lm.mixed_step(params, cfg, toks, _clone_cache(cache), plen, span,
+                          all_logits=True)
+    lr, _ = lm.mixed_step(params, cfg, toks, _clone_cache(twin), plen, span,
+                          impl="ref", all_logits=True)
+    live = torch.arange(toks.shape[1], device=card)[None, :] < span[:, None]
+    assert float((lk - lr).abs()[live].max()) <= 0.25
+    pk, ak, cache = lm.verify_step(params, cfg, toks, cache, plen, span)
+    pr, ar, _ = lm.verify_step(params, cfg, toks, twin, plen, span,
+                               impl="ref")
+    top2 = lr.topk(2, dim=-1).values
+    clear = live & ((top2[..., 0] - top2[..., 1]) > 0.5)
+    assert torch.equal(pk[clear], pr[clear])
+    same = (pk == pr) | ~live
+    for row in range(b):
+        if bool(same[row].all()):
+            assert int(ak[row]) == int(ar[row])
+    n_app = ak.long() + 1
+    lo = (plen + n_app).to(torch.int32)
+    hi = (plen + span).to(torch.int32)
+    cache_mod.restore_span(cache, snap, plen, lo, hi)
+    post = cache_mod.snapshot_span(cache, plen, toks.shape[1])
+    for lp, lw in zip(post["layers"], pre["layers"]):
+        for name in lp:
+            for row in range(b):
+                a, z = int(n_app[row]), int(span[row])
+                assert _same_bits(lp[name][row, a:z], lw[name][row, a:z])
+
+
+def _clone_cache(cache):
+    return {"layers": [{n: t.clone() for n, t in layer.items()}
+                       for layer in cache["layers"]]}
+
+
+def test_decode_attention_at_the_sim_llm_shape(card):
+    """``decode_attention`` at the agent trials' sim LLM's shape (q
+    [4, 4, 16] over a 1024-key dense cache, ragged kv_len) against its
+    plain version, bf16 and float32."""
+    g = torch.Generator(device=card).manual_seed(16)
+    kv_len = torch.tensor([1024, 37, 1, 600], dtype=torch.int32,
+                          device=card)
+    for dtype in DTYPES:
+        q = torch.randn(4, 4, 16, generator=g, device=card).to(dtype)
+        kk, vv = (torch.randn(4, 4, 1024, 16, generator=g,
+                              device=card).to(dtype) for _ in range(2))
+        got = ops.decode_attention(q, kk, vv, kv_len, scale=0.25)
+        want = ref.decode_attention(q, kk, vv, kv_len, scale=0.25)
+        torch.testing.assert_close(got, want, **_tol(dtype))

@@ -146,10 +146,11 @@ def test_scheduler_streams_and_counters_match_jax(f32, scenario):
         assert teng.allocator.available == jeng.allocator.available
 
 
-# Options of JAX's scheduler: the first, fifth, sixth and seventh are
-# ported (queue 1 items 7 and 12) and construct; the others still raise,
-# naming their ROADMAP.md item.
-PORTED_OPTIONS = ("prefix_sharing", "max_queue", "journal", "role")
+# Options of JAX's scheduler: all but the swap tier are ported (queue 1
+# items 7, 8 and 12) and construct; swap_tier_pages still raises, naming
+# its ROADMAP.md item (item 9).
+PORTED_OPTIONS = ("prefix_sharing", "spec_decode", "max_queue", "journal",
+                  "role")
 
 
 @pytest.mark.parametrize("option", [
@@ -166,7 +167,7 @@ def test_scheduler_options_not_ported_name_their_roadmap_item(f32, option):
         held = {"journal": eng._journal}.get(name, getattr(eng, name, None))
         assert held == value
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
         tsched.ContinuousBatchingEngine(tcfg, tp, batch=1, max_len=16,
                                         page_size=8, device="cpu", **option)
 
