@@ -58,6 +58,12 @@
    at near-ties (the oracle run in fewer steps), with the snapshot's cost;
    and one captured int8 spec step (verify through the kernels against
    the plain path, the rolled-back tail bitwise its pre-verify bytes);
+   then the swap tier (``workload.SWAP``: the 16 requests over 96 pages,
+   swap off and a host tier of 256 pages): every request answered, no
+   page or slot leaked, swap off preempts by recompute and swap on by
+   swap in fewer steps, streams equal but at near-ties, and a 32-page
+   swap-out / clobber / swap-in round trip bitwise on every bf16 and int8
+   leaf, timed;
 4. runs the CodeCRDT agent trial (``agents/orchestrator.run_task``) on
    ``olmo-1b`` at full width, 4 agents on ``dashboard``: (a) parallel,
    paged, chunked, int8 pools, allgather merge; (b) as (a) with the delta
@@ -84,6 +90,17 @@
    latent caches, the first-step logits of the paged routes against the
    plain path, the scheduler with ``ngram`` speculation on bf16 and int8
    latent pools; then trial run (e), (a)'s configuration on that model;
+   then DeepSeek-V2-Lite at its repo config (``workload.MOE_ARCH``: 27
+   ``mla_moe`` layers, 64 routed experts top 6 and 2 shared, 16.2 B
+   parameters; the MLA model freed first): the scheduler on bf16 and on
+   int8 latent pools (``paged_mla_chunk``, ``_quant``; the MoE calls by
+   dispatch), ``Engine.generate`` on the paged latent cache
+   (``paged_mla_decode``), a decode and a chunk step through the kernels
+   against the plain path layer by layer under the routing rule
+   (``ROUTE_STEPS``) and end to end on the rows that route the same, and
+   a decode step's device time against the 9.2 ms floor of reading every
+   expert's weights; then deepseek-moe-16b (``moe``: MHA and the MoE FFN)
+   through the scheduler (``paged_chunk_attention``);
 6. serves ``recurrentgemma-2b`` at full width (``workload.RECURRENT_ARCH``,
    seeded random bf16 weights; the MLA model freed first): the scheduler
    through the kernels and through the plain versions, ``Engine.generate``
@@ -93,7 +110,11 @@
    against the plain path's), the scheduler with ``ngram`` speculation
    (its verify and committed-span replay on ``linear_scan``), then trial
    run (f), (a)'s configuration on that model without int8 (no layer of
-   it holds a pool to quantize);
+   it holds a pool to quantize); then xlstm-125m (``workload
+   .XLSTM_ARCH``): the scheduler (no swap pool for a state model),
+   ``Engine.generate`` on the dense cache, and a 64-token mixed step held
+   to 64 decode steps from the same state (states at the bf16 cache
+   tolerance, logits at the chip check's);
 7. serves ``whisper-tiny`` at full width (``workload.WHISPER``, seeded
    random bf16 weights and stub frames [8, 1500, 384]): ``Engine.generate``
    through the kernels (its encoder on ``flash_attention``, 4 launches a
@@ -1462,11 +1483,11 @@ def _state_layer_check(cfg, params, toks, start, span, cache) -> dict:
     h_err, h_diff, conv_equal, block_err = [], 0, True, 0.0
     for kind, lp, lc in zip(cache_mod.layer_kinds(cfg), params["layers"],
                             cache["layers"]):
-        xk, ak = blocks.block_apply(kind, lp, cfg, x, ctx,
-                                    {k: t.clone() for k, t in lc.items()})
-        xr, ar = blocks.block_apply(kind, lp, cfg, x,
-                                    ctx._replace(impl="ref"),
-                                    {k: t.clone() for k, t in lc.items()})
+        xk, ak, _ = blocks.block_apply(kind, lp, cfg, x, ctx,
+                                       {k: t.clone() for k, t in lc.items()})
+        xr, ar, _ = blocks.block_apply(kind, lp, cfg, x,
+                                       ctx._replace(impl="ref"),
+                                       {k: t.clone() for k, t in lc.items()})
         if kind == "rglru":
             err = float((ak["h"] - ar["h"]).abs().max())
             h_err.append(err)
@@ -1484,11 +1505,19 @@ def _state_layer_check(cfg, params, toks, start, span, cache) -> dict:
                 conv_bitwise=conv_equal, max_block_err=block_err)
 
 
-def _serve(cfg, params, impl, **kw):
+def _serve(cfg, params, impl, widths=None, **kw):
     """The workload's 16 requests through its scheduler; returns (engine,
-    requests, wall s, launch counts of this run)."""
+    requests, wall s, launch counts of this run).  ``widths``, a list,
+    gets each mixed step's width C."""
     from repro_torch.kernels import ops
     eng = workload.engine(cfg, params, impl=impl, device="cuda", **kw)
+    if widths is not None:
+        inner = eng._mixed
+
+        def probe(params_, cache, toks, *rest):
+            widths.append(int(toks.shape[1]))
+            return inner(params_, cache, toks, *rest)
+        eng._mixed = probe
     reqs = workload.requests(cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1965,9 +1994,9 @@ def _mid_trial_check(cfg, params, snap) -> dict:
                             cache["layers"]):
         ak = {k: t.clone() for k, t in lc.items()}
         ar = {k: t.clone() for k, t in lc.items()}
-        xk, ak = blocks.block_apply(kind, lp, cfg, x, ctx, ak)
-        xr, ar = blocks.block_apply(kind, lp, cfg, x, ctx._replace(impl="ref"),
-                                    ar)
+        xk, ak, _ = blocks.block_apply(kind, lp, cfg, x, ctx, ak)
+        xr, ar, _ = blocks.block_apply(kind, lp, cfg, x,
+                                       ctx._replace(impl="ref"), ar)
         for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
             bitwise &= _pools_equal(ak[name], ar[name], trash)
         block_err = max(block_err, float(
@@ -2435,6 +2464,469 @@ def spec_trial(cfg, params, a) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The swap tier at full width (OLMo-1B)
+# ---------------------------------------------------------------------------
+
+def _swap_round_trip(cfg, params, quant) -> dict:
+    """A swap-out / clobber / swap-in round trip of a 512-token context
+    (32 pages of row 3 of the workload's tables) on a prefilled paged
+    cache: every pool and scale leaf back bitwise, the mirror bitwise to
+    the pages; then the host ms (synchronized) of a swap-out and a swap-in
+    of those pages."""
+    from repro_torch.models import attention, cache as cache_mod, lm
+    cache = lm.init_cache(cfg, B, MAX_LEN, paged=True, page_size=PS,
+                          kv_quant=quant, device="cuda")
+    cache = lm.set_block_tables(cache, attention.default_block_tables(
+        B, MAX_LEN, PS, "cuda"))
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (B, 512)), device="cuda")
+    _, cache = lm.prefill(params, cfg, prompt, cache)
+    tier = workload.SWAP["swap_tier_pages"]
+    maxp = MAX_LEN // PS
+    pages = list(range(3 * maxp, 3 * maxp + 32))
+    free = list(range(tier))
+    slots = [free.pop() for _ in pages]        # as the scheduler hands out
+    pool = cache_mod.make_swap_pool(cache, tier)
+    leaves = [(path, layer, name)
+              for path, layout, layer in cache_mod.iter_layers(cache)
+              for name in cache_mod.pool_leaves(layout)]
+    idx = torch.as_tensor(pages, device="cuda")
+    before = [_bits(layer[name][idx]) for _, layer, name in leaves]
+    moved = cache_mod.swap_out_pages(cache, pool, pages, slots)
+    for _, layer, name in leaves:
+        layer[name][idx] = layer[name][idx + maxp]   # another row's bytes
+    clobbered = sum(not torch.equal(_bits(layer[name][idx]), b)
+                    for (_, layer, name), b in zip(leaves, before))
+    cache_mod.swap_in_pages(cache, pool, slots, pages)
+    torch.cuda.synchronize()
+    back = all(torch.equal(_bits(layer[name][idx]), b)
+               for (_, layer, name), b in zip(leaves, before))
+    mirror = all(torch.equal(_bits(pool[path][name][slots]), b.cpu())
+                 for (path, _, name), b in zip(leaves, before))
+    if not (back and mirror and clobbered):
+        fail(f"swap round trip ({quant}): back bitwise {back}, mirror "
+             f"bitwise {mirror}, leaves clobbered {clobbered}")
+    out_ms = host_ms(lambda: cache_mod.swap_out_pages(cache, pool, pages,
+                                                      slots), iters=10)
+    in_ms = host_ms(lambda: cache_mod.swap_in_pages(cache, pool, slots,
+                                                    pages), iters=10)
+    return dict(kv_quant=quant, leaves=len(leaves), pages=len(pages),
+                bytes=moved, leaves_bitwise=back, mirror_bitwise=mirror,
+                swap_out_host_ms=out_ms, swap_in_host_ms=in_ms,
+                swap_out_gb_per_s=moved / out_ms / 1e6,
+                swap_in_gb_per_s=moved / in_ms / 1e6)
+
+
+SWAP_COUNTERS = ("preemptions", "preempt_swap", "preempt_recompute",
+                 "swap_outs", "swap_ins")
+
+
+def swap_phase(cfg, params) -> dict:
+    """The swap workload (``workload.SWAP``: OLMo-1B's 16 requests over 96
+    pages): swap off, then a host tier of 256 pages; every request
+    answered, no page or slot leaked, swap off preempts by recompute and
+    swap on by swap in fewer steps, the streams equal but at near-ties
+    (recompute re-admits by chunks, which is not bitwise); then the bf16
+    and int8 round trips."""
+    out, done = {}, {}
+    page_bytes = 0
+    for name, tier in (("off", 0), ("on", workload.SWAP["swap_tier_pages"])):
+        eng, reqs, wall, counts = _serve(
+            cfg, params, "kernel", num_pages=workload.SWAP["num_pages"],
+            swap_tier_pages=tier)
+        _check_answered(cfg, eng, reqs, f"swap {name}")
+        if counts["paged_chunk_attention"] <= 0:
+            fail(f"swap {name} never launched paged_chunk_attention")
+        st = eng.stats
+        rep = dict(_serve_report(eng, wall, counts),
+                   **{k: st[k] for k in SWAP_COUNTERS})
+        if not (eng.allocator.available == eng.allocator.num_pages
+                and sorted(eng._swap_free) == list(range(tier))):
+            fail(f"swap {name} leaked: {eng.allocator.available} of "
+                 f"{eng.allocator.num_pages} pages free, slots "
+                 f"{len(eng._swap_free)} of {tier}")
+        if tier:
+            page_bytes = sum(t[0].numel() * t.element_size()
+                             for leaves in eng.swap_pool.values()
+                             for t in leaves.values())
+            rep["bytes_swapped_out"] = st["swap_outs"] * page_bytes
+        out[name], done[name] = rep, reqs
+        emit({"swap_run": name, **{k: v for k, v in rep.items()
+                                    if k != "launches"}})
+        del eng
+        gc.collect()
+    off, on = out["off"], out["on"]
+    if not (off["preempt_recompute"] > 0 and on["preempt_swap"] > 0
+            and on["swap_outs"] == on["swap_ins"] > 0
+            and on["steps"] < off["steps"]):
+        fail(f"swap runs: off {off}, on {on}")
+    out["page_bytes"] = page_bytes
+    out["streams_on_vs_off"] = _streams_tie_aware(cfg, params, done["on"],
+                                                  done["off"], "swap on/off")
+    out["round_trip"] = {q: _swap_round_trip(cfg, params, q)
+                         for q in ("off", "int8")}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The MoE family at full width: DeepSeek-V2-Lite and deepseek-moe-16b
+# ---------------------------------------------------------------------------
+
+class _Routes:
+    """Records every ``moe.route`` call made inside the ``with`` block: the
+    router logits (float32 of the bf16 product) and the expert ids.  With
+    ``pin`` (expert ids, one tensor a call in order) each call routes to
+    the pinned experts instead, its gates renormalised from its own
+    probabilities."""
+
+    def __init__(self, pin=None):
+        self.pin = None if pin is None else list(pin)
+
+    def __enter__(self):
+        from repro_torch.models import common, moe
+        self.calls, self._orig = [], moe.route
+
+        def route(p, cfg, xf):
+            probs, gates, idx = self._orig(p, cfg, xf)
+            if self.pin is not None:
+                idx = self.pin.pop(0)
+                gates = probs.gather(-1, idx)
+                gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+            self.calls.append((common.dense(p["router"], xf).float(), idx))
+            return probs, gates, idx
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._orig
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step (unit in the last place) at |x|."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+# The routing rule: a token's routed experts through the kernels may
+# differ from the plain path's only where the plain path's k-th and
+# (k+1)-th router logits are within two bf16 steps of the larger one:
+# the attention route moves the FFN input in its last bits, so each
+# logit may land one bf16 step away, and two logits one step apart each
+# way can swap.
+ROUTE_STEPS = 2
+
+
+def _route_diff(rk, rr, k) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tokens whose routed expert sets differ, whether each such token is
+    a near-tie by the routing rule on the plain logits)."""
+    (lk, ik), (lr, ir) = rk, rr
+    diff = (ik.sort(-1).values != ir.sort(-1).values).any(-1)
+    top = lr.topk(k + 1, dim=-1).values
+    gap = top[:, k - 1] - top[:, k]
+    tie = gap <= ROUTE_STEPS * _bf16_step(top[:, k - 1:k + 1].abs()
+                                          .max(-1).values)
+    return diff, tie
+
+
+def _moe_route_check(cfg, params) -> dict:
+    """The first steps through the kernels against the plain path on a
+    paged bf16 latent cache: a decode step (8 tokens: the dense dispatch)
+    and a mixed step (chunk 64: the gather dispatch).  Layer by layer from
+    the same inputs (the kernel path's hidden state): a token's routed
+    experts may differ only by the routing rule; each block's output is
+    reported on the rows that route the same.  End to end (each path its
+    own): the share of tokens routed differently in some layer, and the
+    logits as ``_compare_logits`` on the rows every token of which routes
+    the same in every layer; then the plain path again with every layer
+    pinned to the kernel path's experts, whose logits on every live row
+    must agree as ``_compare_logits`` (what is left is the attention
+    route's difference, as in the dense models' first-step check)."""
+    from repro_torch.models import attention, blocks, cache as cache_mod, lm
+    from repro_torch.models.blocks import BlockCtx
+    rng = np.random.default_rng(1)
+    k = cfg.moe.top_k
+    cache = lm.init_cache(cfg, B, MAX_LEN, paged=True, page_size=PS,
+                          device="cuda")
+    cache = lm.set_block_tables(cache, attention.default_block_tables(
+        B, MAX_LEN, PS, "cuda"))
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 128)),
+                             device="cuda")
+    logits, cache = lm.prefill(params, cfg, prompt, cache)
+    pos = torch.full((B,), 128, dtype=torch.int32, device="cuda")
+    span = torch.as_tensor([64, 33, 1, 1, 0, 64, 17, 2], dtype=torch.int32,
+                           device="cuda")
+    steps = {"decode": (logits.argmax(-1)[:, None], pos,
+                        torch.ones_like(span)),
+             "mixed": (torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (B, CHUNK)), device="cuda"), pos, span)}
+    out = {}
+    for name, (toks, start, sp) in steps.items():
+        c = toks.shape[1]
+        live = torch.arange(c, device="cuda")[None, :] < sp[:, None]
+        if name == "decode":
+            ctx = BlockCtx(positions=start[:, None], mask_full=None,
+                           mode="decode", pos=start, impl="kernel")
+        else:
+            ctx = BlockCtx(positions=start[:, None] + torch.arange(
+                c, dtype=start.dtype, device="cuda")[None, :],
+                mask_full=None, mode="mixed", pos=start, impl="kernel",
+                lengths=sp)
+        x = lm._embed(params, cfg, toks)
+        flips, near, block_err = 0, 0, 0.0
+        for kind, lp, lc in zip(cache_mod.layer_kinds(cfg),
+                                params["layers"], cache["layers"]):
+            with _Routes() as rk:
+                xk, _, _ = blocks.block_apply(
+                    kind, lp, cfg, x, ctx,
+                    {n: t.clone() for n, t in lc.items()})
+            with _Routes() as rr:
+                xr, _, _ = blocks.block_apply(
+                    kind, lp, cfg, x, ctx._replace(impl="ref"),
+                    {n: t.clone() for n, t in lc.items()})
+            diff, tie = _route_diff(rk.calls[0], rr.calls[0], k)
+            diff, tie = diff.reshape(B, c) & live, tie.reshape(B, c)
+            if bool((diff & ~tie).any()):
+                fail(f"MoE {name} step: a token routes differently through "
+                     f"the kernels where the plain path's top-{k} gap is "
+                     f"more than {ROUTE_STEPS} bf16 steps")
+            flips += int(diff.sum())
+            near += int((tie & live).sum())
+            same_rows = ~diff.any(-1)
+            rows = live & same_rows[:, None]
+            if bool(rows.any()):
+                block_err = max(block_err, float(
+                    (xk.float() - xr.float()).abs()[rows].max()))
+            x = xk
+        def run(impl, pin=None):
+            with _Routes(pin) as r:
+                if name == "decode":
+                    lg, _ = lm.decode_step(params, cfg, toks[:, 0],
+                                           _clone(cache), start, impl=impl)
+                else:
+                    lg, _ = lm.mixed_step(params, cfg, toks, _clone(cache),
+                                          start, sp, impl=impl)
+            return lg, r.calls
+
+        ends = {impl: run(impl) for impl in ("kernel", "ref")}
+        differ = torch.zeros((B, c), dtype=torch.bool, device="cuda")
+        for ck, cr in zip(ends["kernel"][1], ends["ref"][1]):
+            differ |= _route_diff(ck, cr, k)[0].reshape(B, c)
+        differ &= live
+        rows = live.any(-1) & ~differ.any(-1)
+        lk, lr = ends["kernel"][0], ends["ref"][0]
+        res = dict(layer_by_layer_flips=flips,
+                   layer_by_layer_near_ties=near,
+                   max_block_err_same_route_rows=block_err,
+                   end_to_end_tokens_routed_differently=int(differ.sum()),
+                   end_to_end_share_routed_differently=float(
+                       differ.sum() / live.sum()),
+                   rows_checked=int(rows.sum()),
+                   all_rows_max_abs_err=float(
+                       (lk - lr).abs()[live.any(-1)].max()))
+        if bool(rows.any()):
+            res.update(_compare_logits(lk[rows], lr[rows]))
+            if not (np.isfinite(res["max_abs_err"])
+                    and res["max_abs_err"] <= LOGITS_ATOL
+                    and res["clear_rows_agree"]):
+                fail(f"MoE {name} step logits on rows that route the same: "
+                     f"{res}")
+        lp, _ = run("ref", pin=[i for _, i in ends["kernel"][1]])
+        res["pinned"] = _compare_logits(lk[live.any(-1)], lp[live.any(-1)])
+        if not (np.isfinite(res["pinned"]["max_abs_err"])
+                and res["pinned"]["max_abs_err"] <= LOGITS_ATOL
+                and res["pinned"]["clear_rows_agree"]):
+            fail(f"MoE {name} step logits, the plain path pinned to the "
+                 f"kernel path's experts: {res['pinned']}")
+        out[name] = res
+    return out
+
+
+def _moe_step_device(cfg, params) -> dict:
+    """Device time of one decode-only step (8 rows at 128 on paged bf16
+    latent pools; the dense dispatch) against the floor of reading every
+    expert's weights once, and of one MoE FFN alone at that step's shape
+    and at a chunk step's (the gather dispatch), times the layers."""
+    from repro_torch.models import attention, lm, moe
+    m = cfg.moe
+    expert_bytes = (cfg.num_layers * (m.num_experts + m.num_shared) * 3
+                    * cfg.d_model * m.d_expert * 2)
+    cache = lm.init_cache(cfg, B, MAX_LEN, paged=True, page_size=PS,
+                          device="cuda")
+    cache = lm.set_block_tables(cache, attention.default_block_tables(
+        B, MAX_LEN, PS, "cuda"))
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, 128)), device="cuda")
+    logits, cache = lm.prefill(params, cfg, prompt, cache)
+    tok = logits.argmax(-1)
+    pos = torch.full((B,), 128, dtype=torch.int32, device="cuda")
+    step_us = device_kernel_us(lambda: lm.decode_step(params, cfg, tok,
+                                                      cache, pos), iters=5)
+    ffn = params["layers"][0]["ffn"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    moe_ms = {}
+    for tag, c in (("decode", 1), ("chunk", CHUNK)):
+        x = torch.randn((B, c, cfg.d_model), generator=gen,
+                        device="cuda").bfloat16()
+        moe_ms[tag] = sum(device_kernel_us(lambda x=x: moe.forward(
+            ffn, cfg, x), iters=5).values()) / 1e3
+    step_ms = sum(step_us.values()) / 1e3
+    floor_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    gemm_ms = sum(us for n, us in step_us.items()
+                  if any(w in n.lower() for w in ("gemm", "xmma", "cutlass",
+                                                  "nvjet"))) / 1e3
+    return dict(decode_step_device_ms=step_ms,
+                decode_step_host_ms=host_ms(lambda: lm.decode_step(
+                    params, cfg, tok, cache, pos), iters=5),
+                expert_weight_bytes=expert_bytes,
+                expert_read_floor_ms=floor_ms,
+                step_over_floor=step_ms / floor_ms,
+                gemm_device_ms=gemm_ms,
+                moe_ffn_decode_device_ms_per_layer=moe_ms["decode"],
+                moe_ffn_decode_device_ms_all_layers=(moe_ms["decode"]
+                                                     * cfg.num_layers),
+                moe_ffn_chunk_device_ms_per_layer=moe_ms["chunk"],
+                moe_ffn_chunk_device_ms_all_layers=(moe_ms["chunk"]
+                                                    * cfg.num_layers),
+                kernels=len(step_us))
+
+
+def _dispatch_split(cfg, widths) -> dict:
+    """MoE calls of a run by dispatch: a step of width C runs the dense
+    path in every MoE layer when B·C <= E, else the gather path."""
+    layers = cfg.num_layers
+    dense = sum(1 for c in widths if B * c <= cfg.moe.num_experts) * layers
+    total = len(widths) * layers
+    return dict(moe_calls=total, dense_calls=dense,
+                gather_calls=total - dense,
+                dense_share=dense / max(total, 1))
+
+
+def moe_phase():
+    """DeepSeek-V2-Lite at its repo config (``workload.MOE_ARCH``: 27
+    ``mla_moe`` layers, 64 routed experts top 6 and 2 shared), seeded
+    random bf16 weights: the scheduler on bf16 and on int8 latent pools,
+    ``Engine.generate`` on the paged latent cache, the first steps under
+    the routing rule, and the device time of a decode step."""
+    from repro_torch import configs
+    cfg = configs.get(workload.MOE_ARCH)
+    params, init_s = _init_params(cfg)
+    results = {}
+    for quant, kernel, name in (("off", "paged_mla_chunk", "scheduler"),
+                                ("int8", "paged_mla_chunk_quant",
+                                 "scheduler_int8")):
+        widths = []
+        eng, reqs, wall, counts = _serve(cfg, params, "kernel",
+                                         widths=widths, kv_quant=quant)
+        if counts[kernel] <= 0:
+            fail(f"the MoE {name} never launched {kernel}")
+        _check_answered(cfg, eng, reqs, f"MoE {name}")
+        results[name] = dict(_serve_report(eng, wall, counts),
+                             **_dispatch_split(cfg, widths))
+        del eng
+    results["engine_paged"] = _engine_generate(cfg, params, True,
+                                               "paged_mla_decode")
+    results["first_steps"] = _moe_route_check(cfg, params)
+    results["step_device"] = _moe_step_device(cfg, params)
+    results["init_s"] = init_s
+    results["params"] = sum(t.numel() for t in _leaves(params))
+    del params
+    return results
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def dense_moe_phase():
+    """deepseek-moe-16b (``workload.DENSE_MOE_ARCH``: 28 ``moe`` layers,
+    MHA and the MoE FFN), seeded random bf16 weights: the scheduler on
+    bf16 pools, which must launch ``paged_chunk_attention``."""
+    from repro_torch import configs
+    cfg = configs.get(workload.DENSE_MOE_ARCH)
+    params, init_s = _init_params(cfg)
+    widths = []
+    eng, reqs, wall, counts = _serve(cfg, params, "kernel", widths=widths)
+    if counts["paged_chunk_attention"] <= 0:
+        fail("the deepseek-moe-16b scheduler never launched "
+             "paged_chunk_attention")
+    _check_answered(cfg, eng, reqs, "deepseek-moe-16b scheduler")
+    out = dict(_serve_report(eng, wall, counts),
+               **_dispatch_split(cfg, widths), init_s=init_s,
+               params=sum(t.numel() for t in _leaves(params)))
+    del eng, params
+    return {"scheduler": out}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM at full width
+# ---------------------------------------------------------------------------
+
+def _states_close(got: dict, want: dict) -> tuple[float, bool]:
+    """A recurrent state against another at the bf16 cache tolerance
+    (0.0625 + 0.05·|x| an element, PERF.md's parity table)."""
+    err, ok = 0.0, True
+    for name, w in want.items():
+        d = (got[name].float() - w.float()).abs()
+        err = max(err, float(d.max()))
+        ok &= bool((d <= 0.0625 + 0.05 * w.float().abs()).all())
+    return err, ok
+
+
+def xlstm_phase():
+    """xlstm-125m (``workload.XLSTM_ARCH``), seeded random bf16 weights:
+    the scheduler (its states reset at admission, no swap tier),
+    ``Engine.generate`` on the dense cache, and one 64-token mixed step
+    held to 64 decode steps from the same state: every layer's state and
+    the last logits at the model tolerance."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get(workload.XLSTM_ARCH)
+    params, init_s = _init_params(cfg)
+    eng, reqs, wall, counts = _serve(cfg, params, "kernel",
+                                     swap_tier_pages=8)
+    _check_answered(cfg, eng, reqs, "xLSTM scheduler")
+    if eng.swap_pool is not None:
+        fail("the xLSTM scheduler built a swap pool")
+    results = {"scheduler": _serve_report(eng, wall, counts)}
+    del eng
+    results["engine_dense"] = _engine_generate(cfg, params, False, None)
+    rng = np.random.default_rng(4)
+    cache = lm.init_cache(cfg, B, MAX_LEN, device="cuda")
+    _, cache = lm.prefill(params, cfg, torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, 32)), device="cuda"), cache)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, CHUNK)),
+                           device="cuda")
+    start = torch.full((B,), 32, dtype=torch.int32, device="cuda")
+    lm_mixed, mixed = lm.mixed_step(params, cfg, toks, _clone(cache), start,
+                                    torch.full_like(start, CHUNK))
+    stepped = _clone(cache)
+    for i in range(CHUNK):
+        lm_dec, stepped = lm.decode_step(params, cfg, toks[:, i], stepped,
+                                         start + i)
+    errs, ok = [], True
+    for lw, lt in zip(stepped["layers"], mixed["layers"]):
+        e, good = _states_close(lt, lw)
+        errs.append(e)
+        ok &= good
+    res = dict(_compare_logits(lm_mixed, lm_dec),
+               state_max_abs_err_per_layer=errs, states_close=ok)
+    if not (ok and res["max_abs_err"] <= LOGITS_ATOL
+            and res["clear_rows_agree"]):
+        fail(f"xLSTM mixed step against {CHUNK} decode steps: {res}")
+    results["mixed_vs_decode"] = res
+    results["init_s"] = init_s
+    return results
+
+
 def _path_launches(results, name: str) -> list[int]:
     """Kernel ``name``'s count in every launch-count dict that the paths'
     results hold (under a ``launches`` key, at any depth)."""
@@ -2497,6 +2989,12 @@ def main() -> int:
     olmo_spec = olmo_spec_phase(cfg, params, serving, streams)
     emit({"olmo_spec": olmo_spec, "card": card})
     added_s += time.perf_counter() - t_added
+    t_new = time.perf_counter()
+    swap = swap_phase(cfg, params)
+    swap["phase_s"] = time.perf_counter() - t_new
+    emit({"swap": {k: v for k, v in swap.items() if k not in ("on", "off")},
+          "card": card})
+    new_s = swap["phase_s"]
     trial, trial_counts = trial_phase(cfg, params)
     emit({"trial_mid_step": trial["mid_trial_step"], "card": card})
     t_added = time.perf_counter()
@@ -2515,8 +3013,19 @@ def main() -> int:
     emit({"mla_spec": mla_spec, "card": card})
     added_s += time.perf_counter() - t_added
     trial_e = mla_trial(mla_cfg, mla_params)
-    del mla_params              # the recurrent model takes the card next
+    del mla_params              # the MoE models take the card next
+    gc.collect()
     torch.cuda.empty_cache()
+    phases = {}
+    for name, phase in (("moe", moe_phase), ("dense_moe", dense_moe_phase)):
+        t_new = time.perf_counter()
+        phases[name] = phase()
+        phases[name]["phase_s"] = time.perf_counter() - t_new
+        new_s += phases[name]["phase_s"]
+        emit({f"{name}_serving": phases[name], "card": card})
+        gc.collect()            # one 16 B-parameter model at a time
+        torch.cuda.empty_cache()
+    moe, dense_moe = phases["moe"], phases["dense_moe"]
     rec_cfg, rec_params, rec_serving, streams = recurrent_serving_phase()
     emit({"recurrent_serving": rec_serving, "card": card})
     t_added = time.perf_counter()
@@ -2527,6 +3036,13 @@ def main() -> int:
     del streams
     trial_f = recurrent_trial(rec_cfg, rec_params)
     del rec_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    xlstm = xlstm_phase()
+    xlstm["phase_s"] = time.perf_counter() - t_new
+    new_s += xlstm["phase_s"]
+    emit({"xlstm_serving": xlstm, "card": card})
     gc.collect()                # so the peak memory read is whisper's own
     torch.cuda.empty_cache()
     whisper = whisper_phase()
@@ -2537,9 +3053,9 @@ def main() -> int:
     # flash_attention on the whisper Engine, delta_apply on bench_merge,
     # each path's counts read right after its run.  lww_merge has no path:
     # its count is summed over every path's counts, and must be 0.
-    paths = [bench, paper, serving, olmo_spec, trial, trial_h, disagg,
-             trial_g, mla_serving, mla_spec, trial_e, rec_serving, rec_spec,
-             trial_f, whisper]
+    paths = [bench, paper, serving, olmo_spec, swap, trial, trial_h, disagg,
+             trial_g, mla_serving, mla_spec, trial_e, moe, dense_moe,
+             rec_serving, rec_spec, trial_f, xlstm, whisper]
     lww = _path_launches(paths, "lww_merge")
     if sum(lww) != 0:
         fail(f"a path launched lww_merge, which none calls: {lww}")
@@ -2578,6 +3094,21 @@ def main() -> int:
         "paged_mla_chunk_quant": mla_spec["int8_ngram"]["launches"]
         ["paged_mla_chunk_quant"],
         "linear_scan": rec_spec["ngram"]["launches"]["linear_scan"]}
+    # The MoE, xLSTM and swap paths (PR 25): DeepSeek-V2-Lite's scheduler
+    # (bf16 / int8 latent pools) and paged Engine, deepseek-moe-16b's
+    # scheduler, OLMo's swap-on run.
+    new_paths = {
+        "paged_mla_chunk": {"moe_launches": moe["scheduler"]["launches"]
+                            ["paged_mla_chunk"]},
+        "paged_mla_chunk_quant": {"moe_launches": moe["scheduler_int8"]
+                                  ["launches"]["paged_mla_chunk_quant"]},
+        "paged_mla_decode": {"moe_launches": moe["engine_paged"]["launches"]
+                             ["paged_mla_decode"]},
+        "paged_chunk_attention": {
+            "dense_moe_launches": dense_moe["scheduler"]["launches"]
+            ["paged_chunk_attention"],
+            "swap_launches": swap["on"]["launches"]
+            ["paged_chunk_attention"]}}
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] == "decode_attention":
@@ -2592,9 +3123,11 @@ def main() -> int:
         if row["name"] in spec_paths:
             # The speculative runs' verify steps, at their span widths.
             row["spec_launches"] = spec_paths[row["name"]]
+        row.update(new_paths.get(row["name"], {}))
         row["kernel_ms"] = row["ms"]
         emit({"kernel": row["name"], **row})
-    emit({"added_phases_s": added_s, "total_s": time.perf_counter() - t0})
+    emit({"added_phases_s": added_s, "moe_xlstm_swap_phases_s": new_s,
+          "total_s": time.perf_counter() - t0})
     emit({"card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

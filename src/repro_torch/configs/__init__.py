@@ -2,21 +2,22 @@
 
 Each module exports ``CONFIG`` (the full-size config).  Only the families
 the port serves are registered; the other architectures of ``repro.configs``
-join as their block kinds are ported (ROADMAP.md, queue 1).
+join with their own copies (ROADMAP.md, queue 1 item 11c).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (deepseek_v2_lite_16b, olmo_1b,
-                                 recurrentgemma_2b, whisper_tiny)
+from repro_torch.configs import (deepseek_moe_16b, deepseek_v2_lite_16b,
+                                 olmo_1b, recurrentgemma_2b, whisper_tiny,
+                                 xlstm_125m)
 from repro_torch.models.config import (EncoderConfig, MLAConfig, ModelConfig,
                                        MoEConfig)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (olmo_1b, deepseek_v2_lite_16b, recurrentgemma_2b,
-              whisper_tiny)}
+    for m in (olmo_1b, deepseek_v2_lite_16b, deepseek_moe_16b,
+              recurrentgemma_2b, whisper_tiny, xlstm_125m)}
 
 
 def get(name: str) -> ModelConfig:

@@ -1,8 +1,8 @@
 """deepseek-v2-lite-16b [moe] — MLA kv_lora=512 + 2 shared/64 routed top-6
-(arXiv:2405.04434).  The port's copy of ``repro.configs``' entry; its
-``mla_moe`` blocks wait for the MoE FFN (ROADMAP.md queue 1 item 11), and
-``launch/workload.py`` serves the same model with dense FFNs (``mla``
-blocks)."""
+(arXiv:2405.04434).  The port's copy of ``repro.configs``' entry: 27
+``mla_moe`` blocks, latent attention and the MoE FFN (``models/moe.py``).
+``launch/workload.py`` serves it as it is (``MOE_ARCH``), and also with
+dense FFNs (``mla_config()``, the MLA kernel rows' workload)."""
 from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(

@@ -5,7 +5,10 @@ JAX side; this module imports no JAX).  bfloat16 leaves (ml_dtypes) move
 through a 16-bit integer view and float8_e4m3fn leaves (quantized page
 pools) through a uint8 view, so every bit arrives as it left; int8 pools
 and their f32 scales move as they are, as do the float32 leaves of the
-recurrent layers (``log_lambda``, the state ``h``).  The JAX
+recurrent layers (``log_lambda``, the states: RG-LRU's ``h``, xLSTM's
+``c`` / ``n`` / ``m`` / ``h`` and ``C``).  A layer's leaves keep their own
+axes under the [G] one (an MoE layer's expert banks [E, d, h], sLSTM's
+``r`` [H, dh, 4dh]).  The JAX
 trees stack the layers of each block-pattern slot on a leading [G] axis
 (``jax.vmap`` in ``lm.init``, the scan in ``lm.init_cache``), and an
 encoder-decoder model's encoder blocks on [E]; the port keeps one dict per

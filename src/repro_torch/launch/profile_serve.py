@@ -2,15 +2,18 @@
 
 Runs a serving workload of ``launch/workload.py`` (the ones
 ``chip_smoke.py`` checks: ``--model olmo``, OLMo-1B, ``--model mla``,
-DeepSeek-V2-Lite with dense FFNs, or ``--model recurrent``,
-RecurrentGemma-2B) once to warm up, once unprofiled, then
+DeepSeek-V2-Lite with dense FFNs, ``--model moe``, DeepSeek-V2-Lite with
+its MoE FFNs, ``--model recurrent``, RecurrentGemma-2B, or ``--model
+xlstm``, xLSTM-125M) once to warm up, once unprofiled, then
 once under ``torch.profiler``, and prints one JSON object: wall time with
 and without the profiler, device-busy time (kernel time summed over the
-profiled run) and its share of the unprofiled wall time, and device time
-by kernel.
+profiled run) and its share of the unprofiled wall time, device time by
+kernel, and device time by the PyTorch op that launched it (an op's own
+kernels only; the port's kernels, launched through ctypes, have no op and
+show only by kernel).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--model olmo|mla|recurrent] [--top 15]
+        [--model olmo|mla|moe|recurrent|xlstm] [--top 15]
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from repro_torch.serving.scheduler import ContinuousBatchingEngine
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="olmo",
-                    choices=["olmo", "mla", "recurrent"])
+                    choices=["olmo", "mla", "moe", "recurrent", "xlstm"])
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -41,7 +44,9 @@ def main() -> None:
     build.build()
     cfg = {"olmo": lambda: configs.get(workload.ARCH),
            "mla": workload.mla_config,
+           "moe": lambda: configs.get(workload.MOE_ARCH),
            "recurrent": lambda: configs.get(workload.RECURRENT_ARCH),
+           "xlstm": lambda: configs.get(workload.XLSTM_ARCH),
            }[args.model]()
     params = lm.init(cfg, seed=args.seed, device=dev)
 
@@ -66,6 +71,10 @@ def main() -> None:
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_us = sum(t for t, _, _ in rows)
+    ops = sorted(((e.self_device_time_total, e.key, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), reverse=True)
     print(json.dumps({
         "card": torch.cuda.get_device_name(dev), "model": cfg.name,
         "steps": eng.stats["steps"], "gen_tokens": eng.stats["gen_tokens"],
@@ -75,7 +84,10 @@ def main() -> None:
         "device_busy_share": busy_us / 1e6 / wall_plain,
         "by_kernel": [{"kernel": k[:120], "device_ms": t / 1e3,
                        "share_of_busy": t / busy_us, "calls": n}
-                      for t, k, n in rows[:args.top]]}))
+                      for t, k, n in rows[:args.top]],
+        "by_op": [{"op": k, "device_ms": t / 1e3,
+                   "share_of_busy": t / busy_us, "calls": n}
+                  for t, k, n in ops[:args.top]]}))
 
 
 if __name__ == "__main__":

@@ -12,8 +12,20 @@ long, with 32 new tokens each, on
   64-wide RoPE key; arXiv:2405.04434, deepseek-ai/DeepSeek-V2-Lite
   ``config.json``) with every layer dense: MLA attention and the model's
   own dense FFN width, ``intermediate_size`` 10944 (its first layer,
-  ``first_k_dense_replace: 1``), in place of the MoE FFN the port does not
-  run yet (ROADMAP.md queue 1 item 11).  About 2.6 B parameters;
+  ``first_k_dense_replace: 1``).  About 2.6 B parameters.  The MoE FFN is
+  ported (``MOE_ARCH`` below); this dense-FFN model stays the workload of
+  the MLA kernel rows and of trial (e);
+* ``deepseek-v2-lite-16b`` (``MOE_ARCH``): the repo's config as it is,
+  27 ``mla_moe`` layers, each MLA attention and an MoE FFN of 64 routed
+  experts (top 6) and 2 shared ones, of width 1408.  16.2 B parameters; a
+  step reads every expert's weights, 27 × 66 × 3 × 2048 × 1408 × 2 B ≈
+  30.8 GB;
+* ``deepseek-moe-16b`` (``DENSE_MOE_ARCH``, arXiv:2401.06066): 28 ``moe``
+  layers, full MHA attention (16 heads of 128) and the same MoE FFN.
+  16.9 B parameters;
+* ``xlstm-125m`` (``XLSTM_ARCH``, arXiv:2405.04517): 12 layers alternating
+  sLSTM and mLSTM, d_model 768, 4 heads, vocabulary 50304.  Its layers
+  hold recurrent states only, so ``paged=True`` pages nothing;
 * ``recurrentgemma-2b`` (``RECURRENT_ARCH``, arXiv:2402.19427, the repo's
   own config at full width): 26 layers, 8 × (rglru, rglru, local) and a
   tail of (rglru, rglru), d_model 2560, 10 query heads on 1 KV head of
@@ -21,6 +33,11 @@ long, with 32 new tokens each, on
   layers keep a dense cache and its recurrent layers a state, so
   ``paged=True`` pages no layer: the scheduler only keeps its page
   accounting.
+
+The swap workload (``SWAP``) serves OLMo-1B's 16 requests from a pool of
+96 pages (about 2 MB a bf16 page: 16 layers' K and V of 16 tokens), far
+below the 512 the 8 rows could hold, so growth preempts; a host swap tier
+of 256 pages takes the victims' pages instead of recomputing them.
 
 The whisper workload (``WHISPER``) serves ``whisper-tiny`` at full width
 (arXiv:2212.04356, the repo's config: a 4-layer encoder over 1500 stub
@@ -53,15 +70,23 @@ from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 ARCH = "olmo-1b"
 MLA_BASE = "deepseek-v2-lite-16b"
 MLA_DENSE_FFN = 10944               # DeepSeek-V2-Lite intermediate_size
+MOE_ARCH = "deepseek-v2-lite-16b"
+DENSE_MOE_ARCH = "deepseek-moe-16b"
 RECURRENT_ARCH = "recurrentgemma-2b"
+XLSTM_ARCH = "xlstm-125m"
 ENGINE = dict(batch=8, max_len=1024, page_size=16, chunk_size=64)
 N_REQUESTS = 16
 PROMPT_LENS = (32, 512)             # inclusive
 NEW_TOKENS = 32
 
 
+SWAP = dict(num_pages=96, swap_tier_pages=256)
+
+
 def mla_config() -> ModelConfig:
-    """``deepseek-v2-lite-16b`` with dense FFNs in every layer."""
+    """``deepseek-v2-lite-16b`` with dense FFNs in every layer: the MLA
+    kernel rows' workload (the MoE FFN is ported; ``MOE_ARCH`` serves the
+    model as it is)."""
     return configs.get(MLA_BASE).replace(
         name="deepseek-v2-lite-mla-dense", block_pattern=("mla",), moe=None,
         d_ff=MLA_DENSE_FFN)

@@ -1,13 +1,19 @@
-"""Block assembly: pre-norm residual wiring of the ported block kinds.
+"""Block assembly: pre-norm residual wiring of every block kind.
 
 The port runs layers in a Python loop (``lm._run_blocks``) where the JAX
-package scans over stacked groups.  Ported so far: dense attention
-(``attn``), sliding-window attention (``local``: the ``attn`` wiring with
-the config's window kept), latent attention with a dense FFN (``mla``),
-Griffin's recurrent block (``rglru``: RG-LRU, then the FFN) and the whisper
-decoder block (``xattn``: causal self-attention, cross-attention over the
-encoder output, then the FFN).  Every other kind raises
-NotImplementedError naming its ROADMAP.md queue 1 item.
+package scans over stacked groups.  The kinds (``PORTED_KINDS``, all of
+the JAX package's):
+  attn / local     attention (+FFN), full or sliding-window (``local``
+                   keeps the config's window)
+  moe              full attention + the MoE FFN (``models/moe.py``)
+  mla / mla_moe    latent attention + the dense or the MoE FFN
+  rglru            Griffin's recurrent block (RG-LRU, then the FFN)
+  slstm / mlstm    xLSTM blocks (``models/xlstm.py``; no extra FFN)
+  xattn            the whisper decoder block: causal self-attention,
+                   cross-attention over the encoder output, then the FFN
+``block_apply`` returns each layer's aux loss beside its output: the MoE
+kinds' load-balancing loss, None for the rest.  A recurrent kind's mixed
+step is a ragged forward over the rows' spans.
 """
 from __future__ import annotations
 
@@ -15,8 +21,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import attention, common, ffn, mla, rglru
-from repro_torch.models import cache as cache_mod
+from repro_torch.models import attention, common, ffn, mla, moe, rglru, xlstm
 from repro_torch.models.config import ModelConfig
 
 Params = Any
@@ -35,13 +40,15 @@ class BlockCtx(NamedTuple):
     causal: bool = True                   # mask-free attention (encoder: no)
 
 
-PORTED_KINDS = ("attn", "local", "mla", "rglru", "xattn")
+PORTED_KINDS = ("attn", "local", "moe", "mla", "mla_moe", "rglru", "slstm",
+                "mlstm", "xattn")
+MOE_KINDS = ("moe", "mla_moe")
 
 
 def check_kind(kind: str) -> None:
-    """Raise for a block kind the port does not run (yet)."""
+    """Raise for a block kind the port does not know."""
     if kind not in PORTED_KINDS:
-        cache_mod.layout_for(kind, None, paged=False)   # names the item
+        raise ValueError(f"unknown block kind {kind}")
 
 
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -54,18 +61,23 @@ def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
                 "xattn": attention.init(gen, cfg),
                 "norm2": common.norm_init(d, cfg.norm_type, gen.device),
                 "ffn": ffn.init(gen, cfg)}
-    if kind in ("mla", "rglru"):
-        mixer = ({"attn": mla.init(gen, cfg)} if kind == "mla"
-                 else {"rec": rglru.init(gen, cfg)})
+    if kind in ("slstm", "mlstm"):
+        cell = (xlstm.slstm_init if kind == "slstm" else xlstm.mlstm_init)
+        return {"norm1": common.norm_init(d, cfg.norm_type, gen.device),
+                "cell": cell(gen, cfg)}
+    ffn_init = moe.init if kind in MOE_KINDS else ffn.init
+    if kind in ("mla", "mla_moe", "rglru"):
+        mixer = ({"rec": rglru.init(gen, cfg)} if kind == "rglru"
+                 else {"attn": mla.init(gen, cfg)})
         return {"norm1": common.norm_init(d, cfg.norm_type, gen.device),
                 **mixer,
                 "norm2": common.norm_init(d, cfg.norm_type, gen.device),
-                "ffn": ffn.init(gen, cfg)}
+                "ffn": ffn_init(gen, cfg)}
     p = {"norm1": common.norm_init(d, cfg.norm_type, gen.device),
          "attn": attention.init(gen, cfg)}
     if not cfg.parallel_block:
         p["norm2"] = common.norm_init(d, cfg.norm_type, gen.device)
-    p["ffn"] = ffn.init(gen, cfg)
+    p["ffn"] = ffn_init(gen, cfg)
     return p
 
 
@@ -73,18 +85,30 @@ def _norm(p, cfg, x):
     return common.apply_norm(p, x, cfg.norm_type, cfg.norm_eps)
 
 
+def _ffn(kind: str, p: Params, cfg: ModelConfig, h: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's FFN on ``h``: (output, the MoE aux loss or None)."""
+    if kind in MOE_KINDS:
+        return moe.forward(p, cfg, h)
+    return ffn.forward(p, cfg, h), None
+
+
 def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
                 ctx: BlockCtx, cache: Params | None
-                ) -> tuple[torch.Tensor, Params | None]:
-    """Returns (x, cache).  The window applies to ``local`` layers only."""
+                ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
+    """Returns (x, cache, aux): aux is the MoE kinds' load-balancing loss,
+    None for the other kinds.  The window applies to ``local`` layers
+    only."""
     check_kind(kind)
     h = _norm(p["norm1"], cfg, x)
-    if kind == "mla":
-        return _mla_apply(p, cfg, x, h, ctx, cache)
+    if kind in ("mla", "mla_moe"):
+        return _mla_apply(kind, p, cfg, x, h, ctx, cache)
     if kind == "rglru":
-        return _rglru_apply(p, cfg, x, h, ctx, cache)
+        return _rglru_apply(p, cfg, x, h, ctx, cache) + (None,)
+    if kind in ("slstm", "mlstm"):
+        return _xlstm_apply(kind, p, cfg, x, h, ctx, cache) + (None,)
     if kind == "xattn":
-        return _xattn_apply(p, cfg, x, h, ctx, cache)
+        return _xattn_apply(p, cfg, x, h, ctx, cache) + (None,)
     mask = ctx.mask_local if kind == "local" else ctx.mask_full
     local_cfg = cfg if kind == "local" else cfg.replace(window=None)
     if ctx.mode == "mixed":
@@ -101,17 +125,18 @@ def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
         a = attention.forward(p["attn"], local_cfg, h, mask, ctx.positions,
                               ctx.impl, causal=ctx.causal)
     if cfg.parallel_block:
-        return x + a + ffn.forward(p["ffn"], cfg, h), cache
+        f, aux = _ffn(kind, p["ffn"], cfg, h)
+        return x + a + f, cache, aux
     x = x + a
-    f = ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x))
-    return x + f, cache
+    f, aux = _ffn(kind, p["ffn"], cfg, _norm(p["norm2"], cfg, x))
+    return x + f, cache, aux
 
 
-def _mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+def _mla_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
                h: torch.Tensor, ctx: BlockCtx, cache: Params | None
-               ) -> tuple[torch.Tensor, Params | None]:
-    """The ``mla`` kind: latent attention, then the dense FFN (never in
-    parallel, as in the JAX package)."""
+               ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
+    """The ``mla`` / ``mla_moe`` kinds: latent attention, then the dense
+    or the MoE FFN (never in parallel, as in the JAX package)."""
     if ctx.mode == "mixed":
         a, cache = mla.mixed_step(p["attn"], cfg, h, cache, ctx.pos,
                                   ctx.lengths, ctx.positions, ctx.impl)
@@ -124,7 +149,8 @@ def _mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         a = mla.forward(p["attn"], cfg, h, ctx.mask_full, ctx.positions)
     x = x + a
-    return x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)), cache
+    f, aux = _ffn(kind, p["ffn"], cfg, _norm(p["norm2"], cfg, x))
+    return x + f, cache, aux
 
 
 def _rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -140,6 +166,23 @@ def _rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                                  lengths=ctx.lengths)
     x = x + r
     return x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)), cache
+
+
+def _xlstm_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 h: torch.Tensor, ctx: BlockCtx, cache: Params | None
+                 ) -> tuple[torch.Tensor, Params | None]:
+    """The ``slstm`` / ``mlstm`` kinds: the cell on the normed input, added
+    to the residual (no FFN).  Every mode but decode is a forward, ragged
+    over ``ctx.lengths`` where given (a mixed step: the rows' spans)."""
+    if kind == "slstm":
+        step, fwd = xlstm.slstm_decode, xlstm.slstm_forward
+    else:
+        step, fwd = xlstm.mlstm_decode, xlstm.mlstm_forward
+    if ctx.mode == "decode":
+        y, cache = step(p["cell"], cfg, h, cache)
+    else:
+        y, cache = fwd(p["cell"], cfg, h, cache, lengths=ctx.lengths)
+    return x + y, cache
 
 
 def _cross_kv(p: Params, cfg: ModelConfig, enc_out: torch.Tensor):

@@ -21,8 +21,11 @@ Layouts ported so far:
   paged_mla      latent pool [P, ps, pad128(r + rd)] + block_tables
   paged_mla_q8   int8 latent pool + f32 latent_scales [P, ps] (fill 1.0)
   paged_mla_fp8  the same with a float8_e4m3fn pool
-  state          the ``rglru`` kind's recurrent carry: h float32 [B, W] and
-                 conv [B, cw-1, W] in the cache dtype; never paged
+  state          a recurrent carry, never paged: the ``rglru`` kind's h
+                 float32 [B, W] and conv [B, cw-1, W] in the cache dtype;
+                 ``slstm``'s c / n / m / h float32 [B, d]; ``mlstm``'s C
+                 [B, H, dh, dh], n [B, H, dh] and m [B, H], float32 (m, the
+                 stabiliser, fills with -10)
   xattn          the whisper decoder's dense self-KV k / v [B, Hkv, S, D]
                  plus the cross-KV xk / xv [B, Hkv, Te, D] filled once at
                  prefill from the encoder output; never paged
@@ -36,8 +39,12 @@ rejected tail back from that copy (``restore_span``).
 The latent pool's feature axis is padded to a multiple of 128 as in the
 JAX package (whose TPU kernels need the lane width), so caches carry across
 leaf for leaf; ``CacheSpec.latent_width`` records the live r + rd.  The
-MoE and xLSTM-state layouts of ``repro.models.cache`` raise
-NotImplementedError naming their ROADMAP.md queue 1 item.
+``moe`` kind takes ``attn``'s layouts and ``mla_moe`` takes ``mla``'s.
+
+The swap tier keeps a host mirror of every pool and scale leaf
+(``make_swap_pool``: pinned CPU tensors with the page axis replaced by
+swap slots); ``swap_out_pages`` / ``swap_in_pages`` move pages between
+the tiers bitwise, one gather and one copy a leaf.
 """
 from __future__ import annotations
 
@@ -57,13 +64,6 @@ ROLE_STATE = "state"
 KV_QUANT_MODES = ("off", "int8", "fp8")
 SCALE_LEAF = {"k_pages": "k_scales", "v_pages": "v_scales",
               "latent_pages": "latent_scales"}
-
-# Not yet ported: layout family -> ROADMAP.md queue 1 item.
-_LATER = {"moe": "item 11 (remaining families)",
-          "mla_moe": "item 11 (remaining families)",
-          "slstm": "item 11 (remaining families)",
-          "mlstm": "item 11 (remaining families)"}
-
 
 def pad128(n: int) -> int:
     return -(-n // 128) * 128
@@ -174,12 +174,18 @@ def _xattn(kind, cfg, batch, max_len, dtype, **_) -> CacheSpec:
 
 @register_layout("state")
 def _state(kind, cfg, batch, max_len, dtype, **_) -> CacheSpec:
-    """The ``rglru`` carry: ``models.rglru.init_cache``'s leaves, read off
-    a meta-device init (no memory)."""
-    from repro_torch.models import rglru
-    tree = rglru.init_cache(cfg, batch, dtype, device="meta")
+    """A recurrent carry: the leaves of its module's init (``rglru
+    .init_cache``, ``xlstm.slstm_state`` / ``mlstm_state``), read off a
+    meta-device init (no memory), with the module's non-zero fills."""
+    from repro_torch.models import rglru, xlstm
+    if kind == "rglru":
+        tree, fills = rglru.init_cache(cfg, batch, dtype, device="meta"), {}
+    else:
+        init = {"slstm": xlstm.slstm_state, "mlstm": xlstm.mlstm_state}[kind]
+        tree, fills = init(cfg, batch, device="meta"), xlstm.STATE_FILLS
     return CacheSpec(kind, "state", tuple(
-        Leaf(name, tuple(t.shape), t.dtype, ROLE_STATE)
+        Leaf(name, tuple(t.shape), t.dtype, ROLE_STATE,
+             fill=fills.get(name, 0.0))
         for name, t in tree.items()))
 
 
@@ -239,21 +245,17 @@ def layer_kinds(cfg) -> list[str]:
 
 def layout_for(kind: str, cfg, *, paged: bool) -> str:
     """Which layout a block kind uses under the requested paging mode."""
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         return "paged_mha" if paged else "dense"
     if kind == "local":
         # Windowed layers stay dense: already bounded by the window.
         return "dense"
-    if kind == "mla":
+    if kind in ("mla", "mla_moe"):
         return "paged_mla" if paged else "dense_mla"
-    if kind == "rglru":
+    if kind in ("rglru", "slstm", "mlstm"):
         return "state"
     if kind == "xattn":
         return "xattn"
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"the {kind!r} cache layout is not ported yet: ROADMAP.md "
-            f"queue 1 {_LATER[kind]}")
     raise ValueError(f"unknown block kind {kind}")
 
 
@@ -308,6 +310,8 @@ _LEAFSETS: dict[frozenset, str] = {
     frozenset({"latent_pages", "latent_scales",
                "block_tables"}): "paged_mla_q8",
     frozenset({"h", "conv"}): "state",
+    frozenset({"c", "n", "m", "h"}): "state",
+    frozenset({"C", "n", "m"}): "state",
     frozenset({"k", "v", "xk", "xv"}): "xattn",
 }
 
@@ -733,4 +737,91 @@ def restore_span(cache: Params, snap: Params, start, lo, hi) -> Params:
                 arr[b, :, t] = vals
             else:
                 arr[b, t] = vals
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Tiered page memory: the host swap pool
+# ---------------------------------------------------------------------------
+
+def make_swap_pool(cache: Params, n_slots: int) -> dict[tuple, dict]:
+    """Host mirror of every paged layer's pool and scale leaves:
+    ``{layer_path: {leaf: tensor [n_slots, ...row]}}``, each leaf its
+    device shape with the page axis replaced by ``n_slots`` swap slots, in
+    pinned memory when the pool lives on the card.  Quantized layouts
+    swap their int8 / fp8 codes and f32 scales as they are, so a swapped
+    page costs its resident bytes and a swap-in is bitwise."""
+    pool: dict[tuple, dict] = {}
+    for path, layout, layer in iter_layers(cache):
+        if layout not in PAGED_LAYOUTS:
+            continue
+        leaves = {}
+        for name in pool_leaves(layout):
+            arr = layer[name]
+            leaves[name] = torch.zeros(
+                (n_slots,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                pin_memory=arr.device.type == "cuda")
+        pool[path] = leaves
+    return pool
+
+
+def _slot_runs(slots) -> tuple[torch.Tensor, list[tuple[int, int, int]]]:
+    """The lanes' order by slot, and the runs of consecutive slots in that
+    order: [(first slot, count, first lane in the order)].  A run is one
+    slice of the mirror, so it moves in one copy (the scheduler's free
+    list hands out consecutive slots, so a swap is as a rule one run)."""
+    s = torch.as_tensor(slots, dtype=torch.long).reshape(-1)
+    order = torch.argsort(s, stable=True)
+    ss = s[order].tolist()
+    runs, a = [], 0
+    for i in range(1, len(ss) + 1):
+        if i == len(ss) or ss[i] != ss[i - 1] + 1:
+            runs.append((ss[a], i - a, a))
+            a = i
+    return order, runs
+
+
+def swap_out_pages(cache: Params, swap_pool: dict, pages, slots) -> int:
+    """Copy device pool pages to host swap slots (``pages[i] ->
+    slots[i]``), every pool and scale leaf of every paged layer: one
+    gather on the pool's device a leaf, then one copy into the mirror a
+    run of consecutive slots.  Returns the bytes moved (JAX's count).  On
+    the card the copies are asynchronous: a later swap-in of the same
+    slots on the stream is ordered after them, but reading the mirror on
+    the host needs a sync first."""
+    order, runs = _slot_runs(slots)
+    ids = _Ids(torch.as_tensor(pages, dtype=torch.long).reshape(-1)[order])
+    moved = 0
+    for path, layout, layer in iter_layers(cache):
+        if layout not in PAGED_LAYOUTS:
+            continue
+        host = swap_pool[path]
+        for name in pool_leaves(layout):
+            arr = layer[name]
+            rows = arr[ids.on(arr.device)]
+            for lo, n, at in runs:
+                host[name][lo:lo + n].copy_(rows[at:at + n],
+                                            non_blocking=True)
+            moved += rows.numel() * rows.element_size()
+    return moved
+
+
+def swap_in_pages(cache: Params, swap_pool: dict, slots, pages) -> Params:
+    """Copy host swap slots back into device pool pages (``slots[i] ->
+    pages[i]``), in place, values and scales bitwise, so a swapped-in
+    request resumes from the cache it was preempted with: one copy to the
+    device a run of consecutive slots, one scatter a leaf.  Never reads
+    the mirror on the host.  Returns ``cache``."""
+    order, runs = _slot_runs(slots)
+    ids = _Ids(torch.as_tensor(pages, dtype=torch.long).reshape(-1)[order])
+    for path, layout, layer in iter_layers(cache):
+        if layout not in PAGED_LAYOUTS:
+            continue
+        host = swap_pool[path]
+        for name in pool_leaves(layout):
+            arr = layer[name]
+            parts = [host[name][lo:lo + n].to(arr.device, non_blocking=True)
+                     for lo, n, _ in runs]
+            arr[ids.on(arr.device)] = (parts[0] if len(parts) == 1
+                                       else torch.cat(parts))
     return cache

@@ -41,7 +41,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.num_prefix_tokens:
         raise NotImplementedError(
             "prefix-LM models are not ported yet: ROADMAP.md queue 1 item "
-            "11 (remaining families)")
+            "11c (PaliGemma)")
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +113,7 @@ def _encode(p: Params, cfg: ModelConfig, enc_frames: torch.Tensor,
                    mask_full=None, mode="full", impl=impl, causal=False)
     ecfg = cfg.replace(window=None)
     for bp in e["blocks"]:
-        x, _ = blocks.block_apply("attn", bp, ecfg, x, ctx, None)
+        x, _, _ = blocks.block_apply("attn", bp, ecfg, x, ctx, None)
     return common.apply_norm(e["norm"], x, cfg.norm_type, cfg.norm_eps)
 
 
@@ -153,16 +153,21 @@ def _make_ctx(cfg: ModelConfig, t: int, device,
 
 def _run_blocks(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 ctx: BlockCtx, cache: Params | None
-                ) -> tuple[torch.Tensor, Params | None]:
+                ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """Every layer in order: (x, the new cache or None, the layers' aux
+    losses summed, a float32 scalar: 0 without an MoE layer)."""
     kinds = cache_mod.layer_kinds(cfg)
     layers = cache["layers"] if cache is not None else [None] * len(kinds)
     new_layers = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp, lc in zip(kinds, p["layers"], layers):
-        x, lc = blocks.block_apply(kind, lp, cfg, x, ctx, lc)
+        x, lc, a = blocks.block_apply(kind, lp, cfg, x, ctx, lc)
         new_layers.append(lc)
+        if a is not None:
+            aux = aux + a
     if cache is None:
-        return x, None
-    return x, dict(cache, layers=new_layers)
+        return x, None, aux
+    return x, dict(cache, layers=new_layers), aux
 
 
 def _final(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -176,7 +181,8 @@ def _final(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(p: Params, cfg: ModelConfig, tokens, enc_frames=None,
             impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, T] -> (logits [B, T, V] float32, aux loss 0).
+    """tokens: [B, T] -> (logits [B, T, V] float32, aux loss: the MoE
+    layers' load-balancing losses summed, 0 without one).
     ``enc_frames`` [B, Te, d]: an encoder-decoder model's encoder input."""
     _check_supported(cfg)
     dev = p["embed"]["w"].device
@@ -184,8 +190,8 @@ def forward(p: Params, cfg: ModelConfig, tokens, enc_frames=None,
     x = _embed(p, cfg, tokens)
     ctx = _make_ctx(cfg, x.shape[1], dev)._replace(
         impl=impl, enc_out=_enc_out(p, cfg, enc_frames, impl, dev))
-    x, _ = _run_blocks(p, cfg, x, ctx, None)
-    return _final(p, cfg, x), torch.zeros((), device=dev)
+    x, _, aux = _run_blocks(p, cfg, x, ctx, None)
+    return _final(p, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +257,7 @@ def prefill(p: Params, cfg: ModelConfig, tokens, cache: Params,
     ctx = _make_ctx(cfg, x.shape[1], dev, lengths=lengths)
     ctx = ctx._replace(mode="prefill", impl=impl,
                        enc_out=_enc_out(p, cfg, enc_frames, impl, dev))
-    x, cache = _run_blocks(p, cfg, x, ctx, cache)
+    x, cache, _ = _run_blocks(p, cfg, x, ctx, cache)
     if lengths is not None:
         last = (lengths.long() - 1).clamp(min=0)
         x = x[torch.arange(x.shape[0], device=dev), last][:, None]
@@ -269,7 +275,7 @@ def decode_step(p: Params, cfg: ModelConfig, token, cache: Params, pos,
     x = _embed(p, cfg, token[:, None])
     ctx = BlockCtx(positions=pos[:, None], mask_full=None, mode="decode",
                    pos=pos, impl=impl)
-    x, cache = _run_blocks(p, cfg, x, ctx, cache)
+    x, cache, _ = _run_blocks(p, cfg, x, ctx, cache)
     return _final(p, cfg, x)[:, 0], cache
 
 
@@ -306,7 +312,7 @@ def mixed_step(p: Params, cfg: ModelConfig, tokens, cache: Params, start,
                                               device=dev)[None, :]
     ctx = BlockCtx(positions=positions, mask_full=None, mode="mixed",
                    pos=start, impl=impl, lengths=span)
-    x, cache = _run_blocks(p, cfg, x, ctx, cache)
+    x, cache, _ = _run_blocks(p, cfg, x, ctx, cache)
     if all_logits:
         return _final(p, cfg, x), cache
     last = (span.long() - 1).clamp(min=0)
@@ -361,8 +367,8 @@ def _blend(mask: torch.Tensor, new: dict, old: dict) -> dict:
 
 def reset_state_rows(cfg: ModelConfig, cache: Params, mask) -> Params:
     """Reset recurrent (state-layout) layers to fresh init for rows where
-    ``mask`` is True: a freed row must not leak its h / conv state into the
-    next admitted request.  Attention caches need no reset: their writes
+    ``mask`` is True: a freed row must not leak its carry into the next
+    admitted request.  Attention caches need no reset: their writes
     overwrite and their reads are position-bounded."""
     mask = torch.as_tensor(mask, dtype=torch.bool)
     batch = int(mask.shape[0])
@@ -370,7 +376,7 @@ def reset_state_rows(cfg: ModelConfig, cache: Params, mask) -> Params:
     for i in state_layers(cfg):
         kind = cache_mod.layer_kinds(cfg)[i]
         fresh = cache_mod.spec_for(kind, cfg, batch, 1).init(
-            layers[i]["h"].device)
+            next(iter(layers[i].values())).device)
         layers[i] = _blend(mask, fresh, layers[i])
     return dict(cache, layers=layers)
 

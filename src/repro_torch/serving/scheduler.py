@@ -17,6 +17,16 @@ pool empty, the least-recently-allocating other row is preempted: its pages
 are released and it is re-queued at the front with its generated tokens
 folded into its context (preemption by recompute).
 
+The swap tier (``swap_tier_pages > 0``): a host mirror of the pools with
+that many page slots (``cache.make_swap_pool``).  A victim whose cached
+context reaches ``swap_min_tokens`` (default two pages: below it,
+recomputing is cheaper than a fixed cost a page), whose covering pages are
+all its own, and for which enough slots are free, copies its pages to the
+host before they are released (preemption by swap).  On re-admission its
+pages come back, bitwise, into freshly reserved pages and admission
+streams only the tail past the saved cursor.  Models with recurrent
+(``state``) layers always recompute: a swap restores pages, not carries.
+
 Unallocated table slots point at one extra *trash* page: idle rows ride the
 batched step with span 0 and write nothing, but a row's writes can never
 reach a live page through an unmapped slot.  Several rows may write the
@@ -55,8 +65,7 @@ verifier's bonus token; the rejected tail's cache slots are written back
 bitwise from a snapshot taken just before the step
 (``cache.snapshot_span`` / ``restore_span``), its grown pages return to
 the pool, and recurrent carries are restored and advanced by replaying the
-committed tokens.  The swap tier is not ported yet: its option raises
-NotImplementedError naming the ROADMAP.md item.
+committed tokens.
 
 ``PageAllocator`` (refcounted), ``PrefixCache`` and ``PrefixPageMapper``
 also serve the agent trial (``agents/orchestrator.run_task``): each agent's
@@ -73,6 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import cache as cache_mod
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import draft as draft_mod
@@ -91,11 +101,6 @@ FAILED = "failed"
 SHED = "shed"
 EXPIRED = "expired"
 COMPLETED = "completed"
-
-
-def _later(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet: ROADMAP.md queue 1 {item}")
 
 
 class Reservation:
@@ -384,6 +389,9 @@ class Request:
     retries: int = 0                  # failover re-admissions so far
     max_retries: int = 2
     retry_at: int = 0                 # earliest step admission may bind this
+    # -- tiered page memory -------------------------------------------------
+    swap_slots: list[int] = field(default_factory=list)  # held host slots
+    swap_tokens: int = 0              # context tokens the swapped pages cover
 
     @property
     def context(self) -> list[int]:
@@ -417,10 +425,9 @@ class ContinuousBatchingEngine:
                  journal: Optional[Any] = None,
                  spec_decode: str = "off", spec_k: int = 4,
                  drafter: Optional[Any] = None, kv_quant: str = "off",
-                 swap_tier_pages: int = 0, role: str = "mixed",
+                 swap_tier_pages: int = 0,
+                 swap_min_tokens: Optional[int] = None, role: str = "mixed",
                  device=None):
-        if swap_tier_pages:
-            raise _later("swap_tier_pages", "item 9 (the swap tier)")
         if kv_quant != "off" and not paged:
             raise ValueError("kv_quant requires paged=True (quantized "
                              "layouts are page-pool layouts)")
@@ -493,6 +500,19 @@ class ContinuousBatchingEngine:
         self._mixed = engine_mod.make_mixed_step_fn(cfg, impl=impl,
                                                     temperature=temperature)
         self._has_state = bool(lm.state_layers(cfg))
+        # The swap tier: host slots for preempted pages (paged, stateless
+        # models only), and the break-even context below which a victim
+        # recomputes.
+        self.swap_tier_pages = int(swap_tier_pages)
+        if paged and self.swap_tier_pages > 0 and not self._has_state:
+            self.swap_pool = cache_mod.make_swap_pool(self.cache,
+                                                      self.swap_tier_pages)
+            self._swap_free = list(range(self.swap_tier_pages))
+        else:
+            self.swap_pool = None
+            self._swap_free = []
+        self.swap_min_tokens = (2 * page_size if swap_min_tokens is None
+                                else int(swap_min_tokens))
         self.spec_decode = spec_decode
         self.spec_k = max(1, int(spec_k))
         self.drafter = None
@@ -527,7 +547,10 @@ class ContinuousBatchingEngine:
                       "expired": 0, "expired_ttft": 0, "expired_deadline": 0,
                       "expired_queued": 0, "retried": 0,
                       "preempt_for_pages": 0, "preempt_fenced": 0,
-                      "preempt_recompute": 0,
+                      # Tiered page memory: pages moved across tiers, and
+                      # how each preemption resolved.
+                      "swap_outs": 0, "swap_ins": 0,
+                      "preempt_swap": 0, "preempt_recompute": 0,
                       # Speculative decoding: drafts proposed, drafts
                       # accepted, cache writes rolled back, steps that
                       # carried >= 1 draft, steps that rolled anything back.
@@ -574,8 +597,17 @@ class ContinuousBatchingEngine:
             self._shed(victim, "shed_queue_full")
         self.queue.append(req)
 
+    def _drop_swap(self, req: Request) -> None:
+        """Return a terminal request's swap slots to the free list: its
+        saved pages will never come back."""
+        if req.swap_slots:
+            self._swap_free.extend(req.swap_slots)
+            req.swap_slots = []
+            req.swap_tokens = 0
+
     def _terminate(self, req: Request, status: str, kind: str,
                    cause: str) -> None:
+        self._drop_swap(req)
         req.status = status
         req.finished_step = self.stats["steps"]
         self.stats[kind] += 1
@@ -710,8 +742,26 @@ class ContinuousBatchingEngine:
                 break                          # every queued request backs off
             req = self.queue[cand]
             ctx = req.context
+            swapped = bool(req.swap_slots)
             covered = 0
-            if self.paged:
+            if self.paged and swapped:
+                # A swapped-out victim: its saved pages come back from the
+                # host into fresh pages, and it resumes at the saved cursor.
+                res = self.allocator.reserve(len(req.swap_slots))
+                if res is None:
+                    break                      # wait for completions
+                pages = res.take()
+                cache_mod.swap_in_pages(self.cache, self.swap_pool,
+                                        req.swap_slots, pages)
+                self._swap_free.extend(req.swap_slots)
+                self.stats["swap_ins"] += len(pages)
+                req.pages = pages
+                req.safe_upto = 0
+                self.host_bt[row, :] = self.trash_page
+                self.host_bt[row, :len(pages)] = pages
+                self._bt_dirty = True
+                self._last_alloc[row] = self.stats["steps"]
+            elif self.paged:
                 first = (min(self.chunk_size, len(ctx))
                          if self.prefill_interleave else len(ctx))
                 shared: list[int] = []
@@ -769,7 +819,15 @@ class ContinuousBatchingEngine:
             req.admit_len = len(ctx)
             req.admitted_step = self.stats["steps"]
             self.row_pos[row] = 0
-            if covered:
+            if swapped:
+                # The swapped-in pages hold positions [0, swap_tokens):
+                # admission streams only the tail.
+                req.filled = req.swap_tokens
+                self.row_pos[row] = req.swap_tokens
+                req.swap_slots = []
+                req.swap_tokens = 0
+                self._mark_filled(req)
+            elif covered:
                 # Adopted / filled shared pages already hold positions
                 # [0, covered): admission streams only the tail.
                 req.filled = covered
@@ -796,12 +854,44 @@ class ContinuousBatchingEngine:
 
     # -- incremental growth / COW / preemption ------------------------------
 
-    def _evict_row(self, victim: int, spans: np.ndarray, cause: str) -> None:
-        """Release ``victim``'s pages and re-queue it at the front; it
-        recomputes its context on re-admission.  Per-cause counters stay
-        distinct."""
+    def _try_swap_out(self, victim: int) -> bool:
+        """Swap ``victim``'s cached pages to the host tier if that beats
+        recomputing them: a swap tier exists, the cached context reaches
+        ``swap_min_tokens``, every covering page is the victim's own (a
+        shared prefix page stays resident for re-share, and recomputing
+        it is nearly free) and none is the trash page, and enough slots
+        are free.  Returns True with ``swap_slots`` / ``swap_tokens`` set
+        on the request."""
+        if self.swap_pool is None:
+            return False
         req = self.rows[victim]
-        self.stats["preempt_recompute"] += 1
+        n_tokens = int(self.row_pos[victim])
+        if n_tokens < self.swap_min_tokens:
+            return False
+        npages = self._chunk_pages(n_tokens)
+        if npages > len(self._swap_free):
+            return False
+        pages = [int(self.host_bt[victim, w]) for w in range(npages)]
+        if any(p == self.trash_page or self.allocator.refcount(p) != 1
+               for p in pages):
+            return False
+        slots = [self._swap_free.pop() for _ in range(npages)]
+        cache_mod.swap_out_pages(self.cache, self.swap_pool, pages, slots)
+        req.swap_slots = slots
+        req.swap_tokens = n_tokens
+        self.stats["swap_outs"] += npages
+        return True
+
+    def _evict_row(self, victim: int, spans: np.ndarray, cause: str) -> None:
+        """Release ``victim``'s pages and re-queue it at the front; a
+        long-context victim swaps its pages to the host tier first
+        (preemption by swap), the rest recompute on re-admission.
+        Per-cause counters stay distinct."""
+        req = self.rows[victim]
+        if self._try_swap_out(victim):
+            self.stats["preempt_swap"] += 1
+        else:
+            self.stats["preempt_recompute"] += 1
         # A COW copy queued this step whose destination dies with the
         # victim is dropped: the freed page can be handed out again in this
         # same pass, and two copies into one page would race.

@@ -1681,3 +1681,153 @@ def test_decode_attention_at_the_sim_llm_shape(card):
         got = ops.decode_attention(q, kk, vv, kv_len, scale=0.25)
         want = ref.decode_attention(q, kk, vv, kv_len, scale=0.25)
         torch.testing.assert_close(got, want, **_tol(dtype))
+
+
+def test_stable_top_k_on_card_matches_cpu(card):
+    """``moe.top_k`` on the card gives the CPU's indices (equal values,
+    lowest index first: ``jax.lax.top_k``'s order) on inputs full of exact
+    ties, at the router's widths (64 experts, top 6) and wider."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(21)
+    for n, e, k in ((4096, 64, 6), (512, 64, 64), (300, 160, 6)):
+        probs = torch.randint(0, 5, (n, e), generator=g).float() / 8
+        want_v, want_i = moe.top_k(probs, k)
+        got_v, got_i = moe.top_k(probs.to(card), k)
+        assert torch.equal(got_i.cpu(), want_i)
+        assert torch.equal(got_v.cpu(), want_v)
+
+
+@pytest.mark.parametrize("quant", ["off", "int8", "fp8"])
+def test_swap_round_trip_bitwise_on_card(card, quant):
+    """``swap_out_pages`` into the pinned mirror and ``swap_in_pages``
+    back, at OLMo-1B's head shapes (two layers): slots in runs and out of
+    order, the mirror bitwise to the CPU's swap of the same cache, and
+    every pool and scale leaf back bitwise after a clobber."""
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import lm
+    cfg = _spec_cfg("olmo")
+    host = _fill_cache(lm.init_cache(cfg, 3, 64, paged=True, page_size=16,
+                                     kv_quant=quant, device="cpu"), 4)
+    dev = {"layers": [{n: t.to(card) for n, t in layer.items()}
+                      for layer in host["layers"]]}
+    pages, slots = [3, 0, 7, 8, 11], [9, 8, 7, 2, 4]
+    want_pool = cache_mod.make_swap_pool(host, 12)
+    got_pool = cache_mod.make_swap_pool(dev, 12)
+    moved = cache_mod.swap_out_pages(dev, got_pool, pages, slots)
+    assert moved == cache_mod.swap_out_pages(host, want_pool, pages, slots)
+    torch.cuda.synchronize()
+    for path, leaves in want_pool.items():
+        for name, t in leaves.items():
+            assert got_pool[path][name].is_pinned()
+            assert _same_bits(got_pool[path][name], t), (path, name)
+    before = _clone_cache(dev)
+    idx = torch.as_tensor(pages, device=card)
+    for layer in dev["layers"]:
+        for name in cache_mod.pool_leaves(cache_mod.layout_of(layer)):
+            layer[name][idx] = layer[name][(idx + 1) % layer[name].shape[0]]
+    cache_mod.swap_in_pages(dev, got_pool, slots, pages)
+    for lb, la in zip(before["layers"], dev["layers"]):
+        for name in lb:
+            assert _same_bits(la[name].cpu(), lb[name].cpu()), name
+
+
+class _Routes:
+    """Records the router logits and expert ids of every ``moe.route``
+    call made inside the ``with`` block."""
+
+    def __enter__(self):
+        from repro_torch.models import common, moe
+        self.calls, self._orig = [], moe.route
+
+        def route(p, cfg, xf):
+            out = self._orig(p, cfg, xf)
+            self.calls.append((common.dense(p["router"], xf).float(),
+                               out[2]))
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._orig
+
+
+def _routed_apart(ck, cr, k):
+    """(tokens whose expert sets differ, whether the plain path's k-th and
+    (k+1)-th logits are within two bf16 steps of the larger one)."""
+    (_, ik), (lr, ir) = ck, cr
+    diff = (ik.sort(-1).values != ir.sort(-1).values).any(-1)
+    top = lr.topk(k + 1, dim=-1).values
+    larger = top[:, k - 1:k + 1].abs().max(-1).values
+    near = (top[:, k - 1] - top[:, k]) <= 2 * torch.exp2(
+        torch.floor(torch.log2(larger)) - 7)
+    return diff, near
+
+
+@pytest.mark.parametrize("quant", ["off", "int8"])
+def test_moe_model_kernel_route_follows_the_routing_rule(card, quant):
+    """DeepSeek-V2-Lite's widths (two ``mla_moe`` layers, 64 experts top
+    6): a mixed step (chunk 64: the gather dispatch) and then a decode
+    step (8 rows: the dense dispatch) through the kernels launch rows 6 /
+    7 and 8; layer by layer from the same inputs a token routes
+    differently from the plain path only where the plain path's k-th and
+    (k+1)-th router logits are within two bf16 steps (each may land one
+    step away); end to end, the decode logits of rows that route the same
+    in both layers are within the chip check's 0.25."""
+    from repro_torch import configs
+    from repro_torch.models import attention, blocks, lm
+    from repro_torch.models.blocks import BlockCtx
+    cfg = configs.get("deepseek-v2-lite-16b").replace(num_layers=2,
+                                                      vocab_size=1024)
+    params = lm.init(cfg, seed=0, device=card)
+    b, max_len, ps, c, k = 8, 256, 16, 64, cfg.moe.top_k
+    suffix = "_quant" if quant != "off" else ""
+    cache = lm.init_cache(cfg, b, max_len, paged=True, page_size=ps,
+                          kv_quant=quant, device=card)
+    cache = lm.set_block_tables(cache, attention.default_block_tables(
+        b, max_len, ps, card))
+    g = torch.Generator(device=card).manual_seed(5)
+    start = torch.zeros(b, dtype=torch.int32, device=card)
+    span = torch.tensor([64, 33, 1, 64, 0, 64, 17, 2], dtype=torch.int32,
+                        device=card)
+    toks = torch.randint(0, cfg.vocab_size, (b, c), generator=g, device=card)
+
+    def layer_by_layer(x_toks, ctx, live, kernel):
+        x = lm._embed(params, cfg, x_toks)
+        for lp, lc in zip(params["layers"], cache["layers"]):
+            ops.reset_launch_counts()
+            with _Routes() as rk:
+                xk, _, _ = blocks.block_apply(
+                    "mla_moe", lp, cfg, x, ctx,
+                    {n: t.clone() for n, t in lc.items()})
+            assert ops.launch_counts()[kernel] > 0
+            with _Routes() as rr:
+                blocks.block_apply("mla_moe", lp, cfg, x,
+                                   ctx._replace(impl="ref"),
+                                   {n: t.clone() for n, t in lc.items()})
+            diff, near = _routed_apart(rk.calls[0], rr.calls[0], k)
+            assert not bool((diff & ~near & live.reshape(-1)).any())
+            x = xk
+
+    live = torch.arange(c, device=card)[None] < span[:, None]
+    layer_by_layer(toks, BlockCtx(
+        positions=start[:, None] + torch.arange(c, dtype=start.dtype,
+                                                device=card)[None, :],
+        mask_full=None, mode="mixed", pos=start, impl="kernel",
+        lengths=span), live, "paged_mla_chunk" + suffix)
+    logits, cache = lm.mixed_step(params, cfg, toks, cache, start, span)
+    tok, pos = logits.argmax(-1), span.clone()
+    layer_by_layer(tok[:, None], BlockCtx(
+        positions=pos[:, None], mask_full=None, mode="decode", pos=pos,
+        impl="kernel"), torch.ones((b, 1), dtype=torch.bool, device=card),
+        "paged_mla_decode" + suffix)
+    with _Routes() as rk:
+        lk, _ = lm.decode_step(params, cfg, tok, _clone_cache(cache), pos)
+    with _Routes() as rr:
+        lr, _ = lm.decode_step(params, cfg, tok, _clone_cache(cache), pos,
+                               impl="ref")
+    same = torch.ones(b, dtype=torch.bool, device=card)
+    for ck, cr in zip(rk.calls, rr.calls):
+        same &= ~_routed_apart(ck, cr, k)[0]
+    if bool(same.any()):
+        assert float((lk - lr).abs()[same].max()) <= 0.25

@@ -436,8 +436,8 @@ def test_mla_chunked_admission_matches_jax(models, dtype, layout, chunk):
 @pytest.mark.parametrize("qname", sorted(QDTYPES))
 def test_mla_cache_layouts_match_jax(qname):
     """The latent layouts' leaves (names, shapes, dtypes, fills) equal
-    JAX's; page copies move scales with their pages; ``mla_moe`` names
-    its ROADMAP item."""
+    JAX's; page copies move scales with their pages; ``mla_moe`` takes
+    the same layouts."""
     jcfg, tcfg = _mla_cfg(jconfigs), _mla_cfg(tconfigs)
     for paged, quant in ((False, "off"), (True, "off"), (True, qname)):
         jc = jlm.init_cache(jcfg, 2, 16, paged=paged, page_size=8,
@@ -465,5 +465,9 @@ def test_mla_cache_layouts_match_jax(qname):
     tlm.copy_pages(tc, torch.tensor([0, 3]), torch.tensor([4, -1]))
     assert bool((tc["layers"][0]["latent_scales"][4] == 2.5).all())
     moe_cfg = tcfg.replace(block_pattern=("mla_moe",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tlm.init_cache(moe_cfg, 1, 16, device="cpu")
+    for paged, quant in ((False, "off"), (True, "off"), (True, qname)):
+        got, want = (tlm.cache_specs(c, 2, 16, paged=paged, page_size=8,
+                                     num_pages=5, kv_quant=quant)
+                     for c in (moe_cfg, tcfg))
+        assert [(s.layout, s.leaves) for s in got["layers"]] == [
+            (s.layout, s.leaves) for s in want["layers"]]

@@ -435,7 +435,8 @@ def test_state_rows_match_jax(models):
 def test_cache_layouts_match_jax():
     """The state and windowed layouts: leaf names, shapes, dtypes and
     fills equal JAX's, paged or not (no layer of the model pages); the
-    ring sizing under ``ring_local_cache``; xLSTM still names its item."""
+    ring sizing under ``ring_local_cache``; the xLSTM kinds' state layouts
+    (with their stabiliser's fill) equal JAX's too."""
     jcfg, tcfg = _cfgs()
     for paged in (False, True):
         jc = jlm.init_cache(jcfg, 2, 24, paged=paged, page_size=8)
@@ -454,9 +455,17 @@ def test_cache_layouts_match_jax():
         "state", "state", "dense", "state", "state"]
     assert spec["layers"][2].leaves[0].shape == (2, 1, 16, 16)
     for kind in ("slstm", "mlstm"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            tlm.init_cache(tcfg.replace(block_pattern=(kind,)), 1, 16,
-                           device="cpu")
+        jc = jlm.init_cache(jcfg.replace(block_pattern=(kind,)), 1, 16)
+        tc = tlm.init_cache(tcfg.replace(block_pattern=(kind,)), 1, 16,
+                            device="cpu")
+        want = convert.cache_from_jax(jax.tree.map(np.asarray, jc),
+                                      tcfg.replace(block_pattern=(kind,)),
+                                      device="cpu")
+        for lw, lt in zip(want["layers"], tc["layers"]):
+            assert tcache.layout_of(lt) == "state"
+            assert lw.keys() == lt.keys()
+            for name in lw:
+                assert torch.equal(lw[name], lt[name]), (kind, name)
 
 
 @pytest.fixture(scope="module")

@@ -146,11 +146,9 @@ def test_scheduler_streams_and_counters_match_jax(f32, scenario):
         assert teng.allocator.available == jeng.allocator.available
 
 
-# Options of JAX's scheduler: all but the swap tier are ported (queue 1
-# items 7, 8 and 12) and construct; swap_tier_pages still raises, naming
-# its ROADMAP.md item (item 9).
-PORTED_OPTIONS = ("prefix_sharing", "spec_decode", "max_queue", "journal",
-                  "role")
+# Options of JAX's scheduler: all are ported now (queue 1 items 7, 8, 9
+# and 12), so none names a ROADMAP.md item: each constructs and holds the
+# value asked for.
 
 
 @pytest.mark.parametrize("option", [
@@ -160,16 +158,10 @@ PORTED_OPTIONS = ("prefix_sharing", "spec_decode", "max_queue", "journal",
 def test_scheduler_options_not_ported_name_their_roadmap_item(f32, option):
     _, _, tcfg, tp = f32
     (name, value), = option.items()
-    if name in PORTED_OPTIONS:
-        eng = tsched.ContinuousBatchingEngine(tcfg, tp, batch=1, max_len=16,
-                                              page_size=8, device="cpu",
-                                              **option)
-        held = {"journal": eng._journal}.get(name, getattr(eng, name, None))
-        assert held == value
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        tsched.ContinuousBatchingEngine(tcfg, tp, batch=1, max_len=16,
-                                        page_size=8, device="cpu", **option)
+    eng = tsched.ContinuousBatchingEngine(tcfg, tp, batch=1, max_len=16,
+                                          page_size=8, device="cpu", **option)
+    held = {"journal": eng._journal}.get(name, getattr(eng, name, None))
+    assert held == value
 
 
 def test_prefix_sharing_cow_matches_jax(f32):
