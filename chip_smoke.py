@@ -121,7 +121,28 @@
    prefill, its decoder on ``decode_attention`` at head_dim 64, 4 a step)
    and through the plain versions; the encoder output, the prefill logits
    and the first decode step's logits of the kernel path against the plain
-   path's from the same state.
+   path's from the same state;
+8. serves ``paligemma-3b`` at full width (``workload.PALIGEMMA``: the
+   prefix-LM, 18 layers, 8 heads on 1 KV head of 256, vocabulary 257216;
+   seeded random bf16 weights and stub patch embeddings [8, 256, 2048]):
+   ``Engine.generate`` on a dense cache (``decode_attention`` at head_dim
+   256) and on pages of 16 (``paged_decode_attention`` at head_dim 256)
+   through the kernels and through the plain versions, one launch a layer
+   a decode step; from the prefill's state the first decode step and one
+   after 16 more through the kernels against the plain path (logits), and
+   one decode step's device time;
+9. prefills ``olmo-1b`` with one prompt of 16,384 tokens
+   (``workload.LONG``, past ``lm.CHUNKED_THRESHOLD``: the blockwise
+   attention path) and decodes on a dense cache through the kernels and
+   the plain versions, the first decode step's logits compared; before
+   it, ``attention._sdpa_chunked`` against the masked ``_sdpa`` on one
+   layer's q / k / v of 9,216 tokens (bf16 under the bf16 rule, float32
+   within 1e-5).
+
+The kernel phase also holds ``paged_decode_attention`` at PaliGemma's
+paged shape (head_dim 256, ``d256_`` keys), at granite-34b's group of 48
+on one KV head (``g48_``) and starcoder2-15b's group of 12 (``g12_``), and
+``decode_attention`` at PaliGemma's dense shape (``pg_``).
 
 The trials hash (task, TODO) pairs into their prompts, so the script runs
 itself again under ``PYTHONHASHSEED=0`` when the variable is not ``0``:
@@ -588,6 +609,72 @@ def mla_kernel_rows(rng):
     return rows
 
 
+def paged_decode_case(tag, label, hq, hkv, d, ps, max_len, pos, gen,
+                      rng) -> dict:
+    """``paged_decode_attention`` (bf16 pools) at another main path's shape,
+    keys prefixed by ``tag``: 8 rows at positions ``pos`` over tables of
+    shuffled live pages (the rest on a trash page), held to the plain
+    version under the bf16 rule with the pools bitwise; timed by events
+    (kernel and plain) and, with the walk's plan and kernel names, by the
+    profiler (``walk_fields``).  The bound counts the rows' cached K/V,
+    the new token's K/V read and written, q and out, and the live table
+    entries."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_decode_attention as kpdec
+    from repro_torch.kernels.decode_attention import sm_count
+    from repro_torch.kernels.paged_chunk_attention_quant import (
+        decode_split_plan)
+    b, maxp = len(pos), max_len // ps
+    trash = b * maxp
+    perm = rng.permutation(trash)
+    tables = np.full((b, maxp), trash, np.int32)
+    used = 0
+    for i, n in enumerate(pos + 1):
+        k = -(-int(n) // ps)
+        tables[i, :k] = perm[used:used + k]
+        used += k
+    bt = torch.as_tensor(tables, device="cuda")
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    kp, vp = rand(trash + 1, hkv, ps, d), rand(trash + 1, hkv, ps, d)
+    q, kn, vn = rand(b, hq, d), rand(b, hkv, d), rand(b, hkv, d)
+    ps_ = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    kp2, vp2 = kp.clone(), vp.clone()
+    o1, _, _ = ops.paged_decode_attention(q, kp, vp, bt, ps_, kn, vn,
+                                          scale=scale)
+    o2, _, _ = ref.paged_decode_attention(q, kp2, vp2, bt, ps_, kn, vn,
+                                          scale=scale)
+    err, ok = close(o1, o2)
+    bitwise = _pools_equal(kp, kp2, trash) and _pools_equal(vp, vp2, trash)
+    if not (ok and bitwise):
+        fail(f"paged_decode_attention ({label}) disagrees: max_abs_err "
+             f"{err}, pools bitwise {bitwise}")
+    share = float(((o1.float() - o2.float()).abs()
+                   / (KERNEL_ATOL + KERNEL_RTOL * o2.float().abs())).max())
+    pages = int(sum(-(-int(n) // ps) for n in pos + 1))
+    nbytes = (2 * int(pos.sum()) * hkv * d * 2 + 2 * 2 * b * hkv * d * 2
+              + 2 * q.numel() * 2 + pages * 4 + b * 4)
+    bms, by = bound(nbytes, 4 * int((pos + 1).sum()) * hq * d)
+
+    def dec():
+        return kpdec.paged_decode_attention(q, kp, vp, bt, ps_, kn, vn,
+                                            scale=scale)
+    return {f"{tag}shapes": f"q[{b},{hq},{d}] bf16, pools[{trash + 1},"
+                            f"{hkv},{ps},{d}], pos {pos.tolist()}",
+            f"{tag}max_abs_err": err, f"{tag}rule_share": share,
+            f"{tag}pools_bitwise": bitwise, f"{tag}ms": cuda_ms(dec),
+            f"{tag}plain_ms": cuda_ms(lambda: ref.paged_decode_attention(
+                q, kp2, vp2, bt, ps_, kn, vn, scale=scale)),
+            f"{tag}bound_ms": bms, f"{tag}bound_by": by,
+            f"{tag}library_ms": None,
+            **walk_fields(dec, decode_split_plan(b, hkv, maxp * ps,
+                                                 sm_count(0), d),
+                          "chunk_mma", ("decode_attend", "attend_kv"),
+                          prefix=tag)}
+
+
 def kernel_phase():
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_chunk_attention as kchunk
@@ -691,6 +778,23 @@ def kernel_phase():
         bound_ms=bms, bound_by=by, library_ms=None,
         **walk_fields(dec, decode_split_plan(B, H, MAX_LEN, sm_count(0)),
                       "chunk_mma", ("decode_attend", "attend_kv"))))
+    # PaliGemma's paged Engine (workload.PALIGEMMA: head_dim 256, a group
+    # of 8 on one KV head, pages of 16 over 512 slots, positions up to
+    # 319), and the widest groups of the configs at head_dim 128: granite's
+    # 48 on one KV head, starcoder2's 12 (48 heads on 4); their own seeded
+    # draws, so the rows above keep theirs.
+    xgen = torch.Generator(device="cuda").manual_seed(16)
+    xrng = np.random.default_rng(16)
+    rows[-1].update(paged_decode_case(
+        "d256_", "PaliGemma, head_dim 256", 8, 1, 256,
+        workload.PALIGEMMA["page_size"], workload.PALIGEMMA["max_len"],
+        np.array([319, 0, 31, 255, 256, 288, 300, 100]), xgen, xrng))
+    rows[-1].update(paged_decode_case(
+        "g48_", "granite-34b, group 48", 48, 1, D, PS, MAX_LEN, pos, xgen,
+        xrng))
+    rows[-1].update(paged_decode_case(
+        "g12_", "starcoder2-15b, group 12", 48, 4, D, PS, MAX_LEN, pos,
+        xgen, xrng))
 
     # decode_attention: dense [B, H, 1024, D] cache, ragged kv_len.
     kv_len = np.array([1024, 18, 301, 512, 641, 6, 1000, 129])
@@ -719,6 +823,12 @@ def kernel_phase():
         "sim_", "head_dim 16, sim LLM", *_decode_inputs(
             SIM_B, SIM_H, SIM_H, MAX_LEN, SIM_D, dgen),
         np.array([1024, 37, 300, 641])))
+    # PaliGemma's dense Engine: 8 heads on 1 KV head of 256 over its
+    # max_len 512 cache, kv_len up to 320.
+    row.update(decode_attention_case(
+        "pg_", "head_dim 256, PaliGemma", *_decode_inputs(
+            B, 8, 1, workload.PALIGEMMA["max_len"], 256, dgen),
+        np.array([320, 1, 32, 256, 257, 289, 301, 101])))
     rows.append(row)
     rows += quant_kernel_rows(rng)
     rows += mla_kernel_rows(rng)
@@ -1763,6 +1873,224 @@ def whisper_phase():
             fail(f"whisper first-step logits ({name}): kernel path against "
                  f"the plain path {c}")
     results.update(encoder_max_abs_err=enc_err, first_step_logits=first)
+    return results
+
+
+def _step_pair(params, cfg, cache, tok, pos) -> dict:
+    """One decode step through the kernels and one through the plain
+    versions, from clones of ``cache``: their logits compared."""
+    from repro_torch.models import lm
+    twin = _clone(cache)
+    lk, _ = lm.decode_step(params, cfg, tok, _clone(cache), pos,
+                           impl="kernel")
+    lr, _ = lm.decode_step(params, cfg, tok, twin, pos, impl="ref")
+    return _compare_logits(lk, lr)
+
+
+def _logits_hold(label, checks) -> None:
+    for name, c in checks.items():
+        if not (np.isfinite(c["max_abs_err"])
+                and c["max_abs_err"] <= LOGITS_ATOL
+                and c["clear_rows_agree"]):
+            fail(f"{label} logits ({name}): kernel path against the plain "
+                 f"path {c}")
+
+
+def paligemma_phase():
+    """The PaliGemma workload (``workload.PALIGEMMA``, full width): on a
+    dense and on a paged cache, ``Engine.generate`` with the stub patch
+    embeddings through the kernels (``decode_attention`` /
+    ``paged_decode_attention`` at head_dim 256, one launch a layer a
+    decode step) and through the plain versions; tokens in range, the
+    greedy streams' agreement; then, from the prefill's state, the first
+    decode step and a mid-run one (after 16 kernel-path steps) through the
+    kernels against the plain path, and the device time of one decode
+    step."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, lm
+    cfg = configs.get(workload.PALIGEMMA_ARCH)
+    params, init_s = _init_params(cfg)
+    tokens, prefix = workload.paligemma_inputs(cfg, device="cuda")
+    b, new = workload.PALIGEMMA["batch"], workload.PALIGEMMA_NEW
+    fill = workload.PALIGEMMA_PROMPT + cfg.num_prefix_tokens
+    results = {"init_s": init_s, "params": cfg.param_count(),
+               "prefix": list(prefix.shape)}
+    for paged, kernel in ((False, "decode_attention"),
+                          (True, "paged_decode_attention")):
+        key = "paged" if paged else "dense"
+        streams, runs = {}, {}
+        for impl in ("kernel", "ref"):
+            eng = workload.paligemma_engine(cfg, params, paged=paged,
+                                            impl=impl, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            out = eng.generate(tokens, new, prefix_embeds=prefix)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = ops.launch_counts()
+            streams[impl] = out.cpu().numpy()
+            if streams[impl].shape != (b, new) or not (
+                    (streams[impl] >= 0)
+                    & (streams[impl] < cfg.vocab_size)).all():
+                fail(f"PaliGemma Engine(paged={paged}, {impl}) gave "
+                     f"{streams[impl].shape} tokens out of range")
+            if int(eng.pos.max()) != fill + new - 1:
+                fail(f"PaliGemma Engine(paged={paged}) ended at pos "
+                     f"{int(eng.pos.max())}, not {fill + new - 1}")
+            runs[impl] = dict(
+                rows=b, prefix_len=cfg.num_prefix_tokens,
+                prompt_len=workload.PALIGEMMA_PROMPT, steps=new,
+                wall_s=wall, tokens_per_s=b * new / wall,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches=counts)
+            del eng
+        want = cfg.num_layers * (new - 1)
+        if (runs["kernel"]["launches"][kernel] != want
+                or any(runs["ref"]["launches"].values())):
+            fail(f"PaliGemma Engine(paged={paged}) launched {kernel} "
+                 f"{runs['kernel']['launches'][kernel]} times, expected "
+                 f"{want} (the plain run: {runs['ref']['launches']})")
+        runs["greedy_agree_share"] = _agree_share(streams["kernel"],
+                                                  streams["ref"])
+        # Kernel path against the plain path from one state: the first
+        # decode step after the prefill, and one after 16 more steps.
+        cache = lm.init_cache(cfg, b, workload.PALIGEMMA["max_len"],
+                              paged=paged,
+                              page_size=workload.PALIGEMMA["page_size"],
+                              device="cuda")
+        if paged:
+            cache = lm.set_block_tables(cache, attention.default_block_tables(
+                b, workload.PALIGEMMA["max_len"],
+                workload.PALIGEMMA["page_size"], "cuda"))
+        logits, cache = lm.prefill(params, cfg, tokens, cache,
+                                   prefix_embeds=prefix)
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = torch.full((b,), fill, dtype=torch.int32, device="cuda")
+        checks = {"first_step": _step_pair(params, cfg, cache, tok, pos)}
+        for _ in range(16):
+            logits, cache = lm.decode_step(params, cfg, tok, cache, pos)
+            tok, pos = logits.argmax(-1).to(torch.int32), pos + 1
+        checks["mid_run"] = _step_pair(params, cfg, cache, tok, pos)
+        _logits_hold(f"PaliGemma Engine(paged={paged})", checks)
+        runs["logits"] = checks
+        # One decode step's device time (it rewrites slot pos each call),
+        # and its attention's: the kernel, with its write on pages.
+        step = _clone(cache)
+        us = device_kernel_us(
+            lambda: lm.decode_step(params, cfg, tok, step, pos), iters=5)
+        attn = ("dense_attend", "chunk_mma", "chunk_combine", "write_tokens")
+        runs["decode_step_device_ms"] = sum(us.values()) / 1e3
+        runs["decode_step_attention_device_ms"] = sum(
+            v for n, v in us.items() if any(a in n for a in attn)) / 1e3
+        runs["decode_step_top_kernels"] = [
+            [n[:80], v / 1e3] for n, v in sorted(
+                us.items(), key=lambda kv: -kv[1])[:5]]
+        results[key] = runs
+    return results
+
+
+def long_prompt_phase():
+    """The long-prompt workload (``workload.LONG``): OLMo-1B prefills one
+    prompt of 16,384 tokens through the blockwise path (past
+    ``lm.CHUNKED_THRESHOLD``) and decodes ``LONG_NEW`` tokens on a dense
+    cache through the kernels and through the plain versions; the first
+    decode step through the kernels against the plain path from the
+    prefill's state.  Before it, on one layer's q / k / v of a 9,216-token
+    prompt (past the threshold, and short enough for the masked path's
+    float32 scores, 5.4 GB), ``attention._sdpa_chunked`` against the
+    masked ``attention._sdpa``: bf16 under the bf16 rule, float32 within
+    1e-5."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, common, lm
+    from repro_torch.serving.engine import Engine
+    cfg = configs.get(workload.ARCH)
+    params, init_s = _init_params(cfg)
+    results = {"init_s": init_s}
+    t = 9216
+    if lm._make_ctx(cfg, t, "cuda").chunked is not True:
+        fail(f"a {t}-token prompt does not take the blockwise path")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, t)), device="cuda")
+    layer = params["layers"][0]
+    h = common.apply_norm(layer["norm1"], lm._embed(params, cfg, toks),
+                          cfg.norm_type, cfg.norm_eps)
+    q, k, v = attention._qkv(layer["attn"], cfg, h,
+                             torch.arange(t, device="cuda"))
+    scale = cfg.head_dim ** -0.5
+    mask = common.make_mask(t, t, causal=True, device="cuda")
+    sdpa = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = attention._sdpa_chunked(qd, kd, vd, scale)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        want = attention._sdpa(qd, kd, vd, mask, scale)
+        err = float((got.float() - want.float()).abs().max())
+        share = float(((got.float() - want.float()).abs()
+                       / (KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+                          if dtype == torch.bfloat16 else
+                          1e-5 + 1e-5 * want.float().abs())).max())
+        if not share <= 1:
+            fail(f"_sdpa_chunked against the masked _sdpa ({dtype}): "
+                 f"max_abs_err {err}, {share} of the rule")
+        sdpa[str(dtype).split(".")[1]] = dict(
+            max_abs_err=err, rule_share=share, chunked_s=chunked_s)
+        del got, want, qd, kd, vd
+        torch.cuda.empty_cache()
+    results["sdpa_chunked_vs_masked"] = dict(tokens=t, **sdpa)
+    del q, k, v, h, mask
+    torch.cuda.empty_cache()
+
+    prompt = workload.long_prompt(cfg.vocab_size)
+    new = workload.LONG_NEW
+    streams = {}
+    for impl in ("kernel", "ref"):
+        eng = Engine(cfg, params, **workload.LONG, impl=impl, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs = [eng.token]
+        t0 = time.perf_counter()
+        for _ in range(new - 1):
+            outs.append(eng.step())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        streams[impl] = torch.stack(outs, 1).cpu().numpy()
+        results[impl] = dict(
+            prompt_len=workload.LONG_PROMPT, steps=new, prefill_s=prefill_s,
+            prefill_tokens_per_s=workload.LONG_PROMPT / prefill_s,
+            decode_s=decode_s, decode_tokens_per_s=(new - 1) / decode_s,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            launches=ops.launch_counts())
+        if impl == "kernel":
+            cache, tok, pos = _clone(eng.cache), outs[0], torch.full(
+                (1,), workload.LONG_PROMPT, dtype=torch.int32,
+                device="cuda")
+        del eng
+    want = cfg.num_layers * (new - 1)
+    if (results["kernel"]["launches"]["decode_attention"] != want
+            or any(results["ref"]["launches"].values())):
+        fail(f"the long prompt's decode launched decode_attention "
+             f"{results['kernel']['launches']['decode_attention']} times, "
+             f"expected {want} (the plain run: "
+             f"{results['ref']['launches']})")
+    if (streams["kernel"][:, 0] != streams["ref"][:, 0]).any():
+        fail("the long prompt's prefill gave two first tokens")
+    results["greedy_agree_share"] = _agree_share(streams["kernel"],
+                                                 streams["ref"])
+    first = {"first_step": _step_pair(params, cfg, cache, tok, pos)}
+    _logits_hold("long prompt", first)
+    results["logits"] = first
     return results
 
 
@@ -3047,6 +3375,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = whisper_phase()
     emit({"whisper_serving": whisper, "card": card})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    paligemma = paligemma_phase()
+    emit({"paligemma_serving": paligemma, "card": card})
+    gc.collect()
+    torch.cuda.empty_cache()
+    long = long_prompt_phase()
+    emit({"long_prompt": long, "card": card})
+    pg_long_s = time.perf_counter() - t_new
     # Launches: the float kernels and linear_scan on the serving
     # workloads, the quantized kernels on trials (a) and (e),
     # page_transfer on the disaggregated run with adoption on,
@@ -3055,7 +3393,8 @@ def main() -> int:
     # its count is summed over every path's counts, and must be 0.
     paths = [bench, paper, serving, olmo_spec, swap, trial, trial_h, disagg,
              trial_g, mla_serving, mla_spec, trial_e, moe, dense_moe,
-             rec_serving, rec_spec, trial_f, xlstm, whisper]
+             rec_serving, rec_spec, trial_f, xlstm, whisper, paligemma,
+             long]
     lww = _path_launches(paths, "lww_merge")
     if sum(lww) != 0:
         fail(f"a path launched lww_merge, which none calls: {lww}")
@@ -3120,6 +3459,16 @@ def main() -> int:
                                    ["decode_attention"])
             # Its fourth: the tables' sim-LLM trials, head_dim 16.
             row["sim_launches"] = paper["launches"]["decode_attention"]
+            # Its fifth and sixth: PaliGemma's dense Engine at
+            # head_dim 256, and the long prompt's decode past 16k keys.
+            row["pg_launches"] = (paligemma["dense"]["kernel"]["launches"]
+                                  ["decode_attention"])
+            row["long_launches"] = (long["kernel"]["launches"]
+                                    ["decode_attention"])
+        if row["name"] == "paged_decode_attention":
+            # PaliGemma's paged Engine at head_dim 256.
+            row["d256_launches"] = (paligemma["paged"]["kernel"]["launches"]
+                                    ["paged_decode_attention"])
         if row["name"] in spec_paths:
             # The speculative runs' verify steps, at their span widths.
             row["spec_launches"] = spec_paths[row["name"]]
@@ -3127,6 +3476,7 @@ def main() -> int:
         row["kernel_ms"] = row["ms"]
         emit({"kernel": row["name"], **row})
     emit({"added_phases_s": added_s, "moe_xlstm_swap_phases_s": new_s,
+          "paligemma_long_phases_s": pg_long_s,
           "total_s": time.perf_counter() - t0})
     emit({"card": card})
     emit({"kernels": kernels})

@@ -1,23 +1,25 @@
 """Architecture registry of the PyTorch port: ``get(name)`` and ``reduced``.
 
-Each module exports ``CONFIG`` (the full-size config).  Only the families
-the port serves are registered; the other architectures of ``repro.configs``
-join with their own copies (ROADMAP.md, queue 1 item 11c).
+Each module exports ``CONFIG`` (the full-size config); every architecture
+of ``repro.configs`` has its own copy here.  ``shapes`` holds the
+input-shape sets and their applicability.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (deepseek_moe_16b, deepseek_v2_lite_16b,
-                                 olmo_1b, recurrentgemma_2b, whisper_tiny,
-                                 xlstm_125m)
+from repro_torch.configs import (command_r_plus_104b, deepseek_moe_16b,
+                                 deepseek_v2_lite_16b, granite_34b, olmo_1b,
+                                 paligemma_3b, recurrentgemma_2b, shapes,
+                                 starcoder2_15b, whisper_tiny, xlstm_125m)
 from repro_torch.models.config import (EncoderConfig, MLAConfig, ModelConfig,
                                        MoEConfig)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (olmo_1b, deepseek_v2_lite_16b, deepseek_moe_16b,
-              recurrentgemma_2b, whisper_tiny, xlstm_125m)}
+    for m in (xlstm_125m, paligemma_3b, granite_34b, olmo_1b,
+              command_r_plus_104b, starcoder2_15b, whisper_tiny,
+              recurrentgemma_2b, deepseek_moe_16b, deepseek_v2_lite_16b)}
 
 
 def get(name: str) -> ModelConfig:
@@ -58,5 +60,5 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None,
     return cfg.replace(**kw)
 
 
-__all__ = ["ARCHS", "get", "reduced", "ModelConfig", "MoEConfig",
+__all__ = ["ARCHS", "get", "reduced", "shapes", "ModelConfig", "MoEConfig",
            "MLAConfig", "EncoderConfig"]

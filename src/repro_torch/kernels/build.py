@@ -112,8 +112,11 @@ def open_lib(path, name: str, argtypes: list) -> ctypes.CDLL:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-# decode_attention also takes 256 (its tiles move to dynamic shared memory).
-DENSE_HEAD_DIMS = HEAD_DIMS + (256,)
+# decode_attention and the bf16 / float32 paged MHA kernels also take 256
+# (the tensor-core walk on its Bf16Pool256 policy, the FMA walks on dynamic
+# shared memory); the int8 / fp8 walks do not (ROADMAP.md queue 2, item
+# 20).
+HEAD_DIMS_256 = HEAD_DIMS + (256,)
 PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -159,8 +162,11 @@ def check_dims(kernel: str, dtype: torch.dtype, head_dim: int,
     """The kernel's dtype code; raises on a dtype or head_dim it lacks."""
     code = dtype_code(kernel, dtype)
     if head_dim not in head_dims:
+        why = (": the int8 / fp8 walks are not built at head_dim 256 "
+               "(ROADMAP.md queue 2, item 20)"
+               if head_dim == 256 and head_dims == HEAD_DIMS else "")
         raise ValueError(f"{kernel}: head_dim {head_dim} is not supported "
-                         f"{head_dims}")
+                         f"{head_dims}{why}")
     return code
 
 

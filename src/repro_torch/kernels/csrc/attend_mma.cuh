@@ -61,13 +61,20 @@
 //     past pos, or all below the window) writes m = -inf, l = 0, O = 0,
 //     which the combine weighs 0 — and chunk_combine (a second launch)
 //     forms out; longer rows are walked whole by block 0.
+//   - head_dim 256 (PaliGemma's one KV head of 256): bf16 pools only, on
+//     the Bf16Pool256 policy (PoolAt below).  q and a 3-stage ring of 32
+//     keys would come to 135,168 B, one block an SM; 2 stages hold 101,376
+//     B, two an SM, and still hold the key parts' merge (67,584 B of ring
+//     against 66,048).  A warp's O is 16 x 256 float32, 128 registers a
+//     lane.  CodePool at head_dim 256 is not built (float32 q would need
+//     274,944 B): the wrappers refuse it (ROADMAP.md queue 2, item 20).
 // Footprint (ptxas -v, sm_90a; PERF.md, kernel table rows 1, 2, 4 and 5),
 // head_dim 128, P in two terms: Bf16Pool, bf16 q: 168 registers (its cap
 // at 3 blocks an SM; 158 with P in one term), no spill, q 17,408 B + a
 // 3-stage ring of 32 keys 52,224 B = 69,632 B of dynamic shared memory,
 // 3 blocks an SM.  CodePool, bf16 q: 183 registers (167-168 before), no
 // spill, 109,056 B, 2 blocks an SM; float32 q (the tests' route) 190,
-// 143,872 B, 1.
+// 143,872 B, 1.  head_dim 256, Bf16Pool256: PERF.md, kernel table row 2.
 #pragma once
 
 #include "mma_common.cuh"
@@ -104,6 +111,24 @@ struct Bf16Pool {
   static constexpr int KT = 32;
   static constexpr int NST = 3;
   static constexpr int BLOCKS = 3;
+};
+// Bf16Pool at head_dim 256: 2 stages of 32 keys (101,376 B), 2 blocks an
+// SM.
+struct Bf16Pool256 {
+  static constexpr bool SCALED = false;
+  static constexpr int ELEM = 2;
+  static constexpr int KT = 32;
+  static constexpr int NST = 2;
+  static constexpr int BLOCKS = 2;
+};
+// The policy the walk runs at head_dim D for pool P.
+template <class P, int D>
+struct PoolAt {
+  using type = P;
+};
+template <>
+struct PoolAt<Bf16Pool, 256> {
+  using type = Bf16Pool256;
 };
 
 // bf16 terms of q and of p · s_v by the query dtype.
@@ -535,8 +560,9 @@ __global__ void __launch_bounds__(NT, P::BLOCKS)
 // out of the rows whose keys were split: grid (B·Hkv, ceil(C·group / 4)),
 // a warp a row: out = sum 2^(m_i - M)·O_i / sum 2^(m_i - M)·l_i over the
 // splits with a live key, M = max m_i (0 where none has one).  span ==
-// nullptr: the decode form (C 1), grid (B·Hkv, ceil(group / 4)).
-template <typename T>
+// nullptr: the decode form (C 1), grid (B·Hkv, ceil(group / 4)).  CPL:
+// the columns a lane takes, d <= 32·CPL.
+template <typename T, int CPL>
 __global__ void __launch_bounds__(NT)
     chunk_combine(T* __restrict__ out, const float* __restrict__ part_o,
                   const float* __restrict__ part_ml,
@@ -558,7 +584,6 @@ __global__ void __launch_bounds__(NT)
   T* dst = out + ((static_cast<size_t>(b) * hq + kvh * group + m % group) *
                       c + m / group) * d;
   // Each lane's columns lane + 32k; the loads of 8 splits in flight.
-  constexpr int CPL = 128 / 32;            // columns a lane at most
   float acc[CPL] = {};
   for (int s0 = 0; s0 < nsplit; s0 += 8) {
     float v[8][CPL];
@@ -584,13 +609,36 @@ __global__ void __launch_bounds__(NT)
     if (lane + 32 * k < d) dst[lane + 32 * k] = rt::from_f<T>(acc[k] * inv);
 }
 
+// One launch of the walk at head_dim D on policy P (its dynamic shared
+// memory opted into first); returns the CUDA status.
+template <typename T, class P, int D>
+cudaError_t walk(const void* q, void* out, const void* kp, const void* vp,
+                 const float* ks, const float* vs, const int* bt,
+                 const int* start, const int* span, float* part_o,
+                 float* part_ml, int b, int hq, int hkv, int c, int ps,
+                 int maxp, float scale, int window, int nsplit,
+                 int split_len, cudaStream_t stream) {
+  if (split_len % P::KT) return cudaErrorInvalidValue;
+  constexpr int bytes = Smem<D, Terms<T>::Q, P>::bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      chunk_mma<T, P, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  chunk_mma<T, P, D><<<dim3(b, hkv, nsplit), NT, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<T*>(out),
+      static_cast<const uint8_t*>(kp), static_cast<const uint8_t*>(vp), ks,
+      vs, bt, start, span, hq, hkv, c, ps, maxp, scale * LOG2E, window,
+      part_o, part_ml, nsplit, split_len);
+  return cudaGetLastError();
+}
+
 // The walk (and, with several splits, the combine) over pools of policy P
 // for query dtype T; returns the CUDA status.  ks / vs: the row scales of a
 // CodePool (a Bf16Pool takes none).  start / span: i32[B]; span ==
 // nullptr is the decode form (c == 1, start = pos).  part: float32 scratch
 // of B·Hkv·nsplit·C·group·(D + 2) when nsplit > 1 (O partials, then (m, l)
 // pairs); the split (nsplit ranges of split_len keys, whole key tiles) is
-// the caller's plan's.
+// the caller's plan's.  head_dim 16-128, and 256 on a Bf16Pool.
 template <typename T, class P>
 int attend(const void* q, void* out, const void* kp, const void* vp,
            const float* ks, const float* vs, const int* bt, const int* start,
@@ -598,39 +646,43 @@ int attend(const void* q, void* out, const void* kp, const void* vp,
            int ps, int maxp, float scale, int window, int nsplit,
            int split_len, cudaStream_t stream) {
   if (nsplit < 1 || nsplit > 32 || (nsplit > 1 && part == nullptr) ||
-      split_len % P::KT || (span == nullptr && c != 1))
+      (span == nullptr && c != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t nrows = static_cast<size_t>(c) * (hq / hkv);
   float* part_o = part;
   float* part_ml =
       part == nullptr ? nullptr
                       : part + static_cast<size_t>(b) * hkv * nsplit * nrows * d;
+  cudaError_t err;
   switch (d) {
-#define AM_CASE(HD)                                                         \
-  case HD: {                                                                \
-    constexpr int bytes = Smem<HD, Terms<T>::Q, P>::bytes;                  \
-    const cudaError_t err = cudaFuncSetAttribute(                           \
-        chunk_mma<T, P, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
-        bytes);                                                             \
-    if (err != cudaSuccess) return static_cast<int>(err);                   \
-    chunk_mma<T, P, HD><<<dim3(b, hkv, nsplit), NT, bytes, stream>>>(       \
-        static_cast<const T*>(q), static_cast<T*>(out),                     \
-        static_cast<const uint8_t*>(kp), static_cast<const uint8_t*>(vp),   \
-        ks, vs, bt, start, span, hq, hkv, c, ps, maxp, scale * LOG2E,       \
-        window, part_o, part_ml, nsplit, split_len);                        \
-    break;                                                                  \
-  }
+#define AM_CASE(HD)                                                        \
+  case HD:                                                                 \
+    err = walk<T, typename PoolAt<P, HD>::type, HD>(                       \
+        q, out, kp, vp, ks, vs, bt, start, span, part_o, part_ml, b, hq,   \
+        hkv, c, ps, maxp, scale, window, nsplit, split_len, stream);       \
+    break;
     AM_CASE(16) AM_CASE(32) AM_CASE(64) AM_CASE(128)
 #undef AM_CASE
+    case 256:
+      if constexpr (P::SCALED) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        err = walk<T, typename PoolAt<P, 256>::type, 256>(
+            q, out, kp, vp, ks, vs, bt, start, span, part_o, part_ml, b, hq,
+            hkv, c, ps, maxp, scale, window, nsplit, split_len, stream);
+      }
+      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
-  chunk_combine<T><<<dim3(b * hkv, static_cast<unsigned>((nrows + NW - 1) /
-                                                         NW)),
-                     NT, 0, stream>>>(static_cast<T*>(out), part_o, part_ml,
-                                      span, hq, hkv, c, d, nsplit);
+  const dim3 grid(b * hkv, static_cast<unsigned>((nrows + NW - 1) / NW));
+  if (d > 128)
+    chunk_combine<T, 8><<<grid, NT, 0, stream>>>(
+        static_cast<T*>(out), part_o, part_ml, span, hq, hkv, c, d, nsplit);
+  else
+    chunk_combine<T, 4><<<grid, NT, 0, stream>>>(
+        static_cast<T*>(out), part_o, part_ml, span, hq, hkv, c, d, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,8 @@
 //   4. accumulate P·V in registers, QR·D/NT accumulators per thread.
 // The tiles live in static shared memory up to head_dim 128 (42 KB); at
 // head_dim 256 (82 KB, past the 48 KB static limit) they move to dynamic
-// shared memory, which the launch must opt into (dynamic_smem<D>()).
+// shared memory, which the launch must opt into (opt_in<D>, then
+// dynamic_smem<D>() bytes).
 // Nothing of the walk is split across blocks, so no cross-block reduction
 // is needed.  The span / token writes of the paged kernels are their own
 // launch (write_tokens), ordered before the walk on the stream: every key a
@@ -129,6 +130,17 @@ constexpr size_t STATIC_SMEM = 48 * 1024;  // static shared memory limit
 template <int D>
 __host__ __device__ constexpr size_t dynamic_smem() {
   return sizeof(Tiles<D>) <= STATIC_SMEM ? 0 : sizeof(Tiles<D>);
+}
+
+// Opt ``kernel`` (a walk over head_dim D) into its dynamic shared memory;
+// a no-op where the tiles are static.
+template <int D, class K>
+cudaError_t opt_in(K kernel) {
+  if constexpr (dynamic_smem<D>() == 0) return cudaSuccess;
+  else
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dynamic_smem<D>()));
 }
 
 template <int D>
@@ -327,12 +339,14 @@ extern "C" const char* rt_error_string(int err) {
 }
 
 // Dispatch a head_dim known at run time onto the templated kernels (16 to
-// 128: the paged kernels' static tiles; decode_attention adds 256 itself).
+// 128 on static tiles, 256 on dynamic shared memory: launch with
+// rt::dynamic_smem<HD>() after rt::opt_in<HD>).
 #define RT_DISPATCH_D(D, ...)                     \
   switch (D) {                                    \
     case 16: { constexpr int HD = 16; __VA_ARGS__; } break;  \
     case 32: { constexpr int HD = 32; __VA_ARGS__; } break;  \
     case 64: { constexpr int HD = 64; __VA_ARGS__; } break;  \
     case 128: { constexpr int HD = 128; __VA_ARGS__; } break; \
+    case 256: { constexpr int HD = 256; __VA_ARGS__; } break; \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }

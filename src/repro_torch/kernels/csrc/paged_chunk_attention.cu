@@ -25,6 +25,10 @@
 //   - float32 pools (the CPU-shaped tests' route): chunk_attend, the FMA
 //     walk of rt::attend, one block per (row, KV head, tile of 16 query
 //     rows), float32 throughout.
+//   - head_dim 256: the walk's Bf16Pool256 policy on bf16 pools (2 blocks
+//     an SM; split_plan aims at them), the float32 walk's tiles in dynamic
+//     shared memory.  No path runs it yet: the mixed step refuses a
+//     prefix-LM, as JAX's does.
 //
 // ptxas -v (sm_90a, -O3; build.FLAGS passes it): see PERF.md's kernel
 // table, row 1.
@@ -104,7 +108,9 @@ extern "C" int paged_chunk_attention(int dtype, const void* q, void* out,
                                start, span, b, hkv, c, d, ps, maxp, s);
   if (err) return err;
   const dim3 grid(b, hkv, (hq / hkv * c + rt::QR - 1) / rt::QR);
-  RT_DISPATCH_D(d, chunk_attend<HD><<<grid, rt::NT, 0, s>>>(
+  RT_DISPATCH_D(d, const cudaError_t e = rt::opt_in<HD>(chunk_attend<HD>);
+                if (e != cudaSuccess) return static_cast<int>(e);
+                chunk_attend<HD><<<grid, rt::NT, rt::dynamic_smem<HD>(), s>>>(
                        static_cast<const float*>(q), static_cast<float*>(out),
                        static_cast<const float*>(k_pages),
                        static_cast<const float*>(v_pages), block_tables,

@@ -23,6 +23,10 @@
 //   - float32 pools (the CPU-shaped tests' route): decode_attend, the FMA
 //     walk of rt::attend, one block a (row, KV head, 16 group heads),
 //     float32 throughout.
+//   - head_dim 256 (PaliGemma's one KV head of 256, a group of 8): the
+//     walk's Bf16Pool256 policy (2 stages of 32 keys, 101,376 B of shared
+//     memory, 2 blocks an SM; attend_mma.cuh) on bf16 pools, the float32
+//     walk's tiles in dynamic shared memory on float32 pools.
 //
 // ptxas -v (sm_90a, -O3; build.FLAGS passes it): see PERF.md's kernel
 // table, row 2.
@@ -97,7 +101,9 @@ extern "C" int paged_decode_attention(int dtype, const void* q, void* out,
                                pos, b, hkv, d, ps, maxp, s);
   if (err) return err;
   const dim3 grid(b, hkv, (hq / hkv + rt::QR - 1) / rt::QR);
-  RT_DISPATCH_D(d, decode_attend<HD><<<grid, rt::NT, 0, s>>>(
+  RT_DISPATCH_D(d, const cudaError_t e = rt::opt_in<HD>(decode_attend<HD>);
+                if (e != cudaSuccess) return static_cast<int>(e);
+                decode_attend<HD><<<grid, rt::NT, rt::dynamic_smem<HD>(), s>>>(
                        static_cast<const float*>(q), static_cast<float*>(out),
                        static_cast<const float*>(k_pages),
                        static_cast<const float*>(v_pages), block_tables, pos,

@@ -77,7 +77,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
     dev = q.device
-    code = _b.check_dims(NAME, q.dtype, d, _b.DENSE_HEAD_DIMS)
+    code = _b.check_dims(NAME, q.dtype, d, _b.HEAD_DIMS_256)
     if hq % hkv or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} does not fit the "
                          f"cache {tuple(k.shape)}")

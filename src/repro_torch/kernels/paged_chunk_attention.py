@@ -30,17 +30,21 @@ _ARGTYPES = ([_b.INT] + [_b.PTR] * 10 + [_b.INT] * 7
 
 KEY_TILE = 32            # keys a tile of the bf16 walk (Bf16Pool)
 BLOCKS_PER_SM = 3        # of its blocks fit an SM: the plan aims at them
+BLOCKS_PER_SM_D256 = 2   # at head_dim 256 (Bf16Pool256)
 
 launches = 0            # kernel launches through this wrapper
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
+def split_plan(b: int, hkv: int, cap: int, sms: int,
+               d: int = 128) -> SplitPlan:
     """The split of the keys [0, cap) (cap = the table's maxp·ps) over the
     bf16 walk's blocks, from shapes alone: the quantized walk's
     ``plan_splits`` (ranges of whole 64-key runs, so whole tiles here too)
-    at this walk's ``BLOCKS_PER_SM``.  The grid is (b, hkv, nsplit)."""
-    return plan_splits(b, hkv, cap, sms, BLOCKS_PER_SM)
+    at this walk's ``BLOCKS_PER_SM`` (``BLOCKS_PER_SM_D256`` at head_dim
+    ``d`` 256).  The grid is (b, hkv, nsplit)."""
+    return plan_splits(b, hkv, cap, sms,
+                       BLOCKS_PER_SM_D256 if d > 128 else BLOCKS_PER_SM)
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -59,14 +63,14 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _, hkv, ps, _ = k_pages.shape
     maxp = block_tables.shape[1]
     dev = q.device
-    code = _b.check_dims(NAME, q.dtype, d)
+    code = _b.check_dims(NAME, q.dtype, d, _b.HEAD_DIMS_256)
     if hq % hkv or k_pages.shape[3] != d:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pages.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"{NAME}: window must be >= 1, got {window}")
     out = torch.empty_like(q)
-    plan = (split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0))
+    plan = (split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0), d)
             if q.dtype == torch.bfloat16 else None)
     part = scratch(plan, c * (hq // hkv), d, dev)
     args = [_b.ptr(NAME, "q", q, dev, dtype=q.dtype),

@@ -33,9 +33,11 @@ MAX_SPLITS = 16          # and at most this many splits a row
 BLOCKS_PER_SM = 2        # the plan aims at this many blocks an SM
 # The decode kernels' plan (``decode_split_plan``, both pools): ranges of
 # at least 128 keys (two of CodePool's tiles, four of Bf16Pool's), aiming
-# at 6 blocks an SM.
+# at 6 blocks an SM, twice the 3 of the bf16 walk at head_dim 128; at
+# head_dim 256 (Bf16Pool256: 2 blocks an SM fit) twice 2.
 DECODE_MIN_SPLIT_LEN = 128
 DECODE_BLOCKS_PER_SM = 6
+DECODE_BLOCKS_PER_SM_D256 = 4
 
 launches = 0            # kernel launches through this wrapper
 
@@ -56,7 +58,8 @@ def split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def decode_split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
+def decode_split_plan(b: int, hkv: int, cap: int, sms: int,
+                      d: int = 128) -> SplitPlan:
     """The key split of the two MHA decode kernels (the walk at span 1,
     start = pos, either pool), from shapes alone: ``plan_splits`` aiming
     at ``DECODE_BLOCKS_PER_SM`` blocks an SM with ranges of at least
@@ -67,10 +70,11 @@ def decode_split_plan(b: int, hkv: int, cap: int, sms: int) -> SplitPlan:
     partial and ends.  Against the chunk plans (256 / 320 keys at 8 rows)
     this measured 8-12 % off the Engine's decode step and 1-10 % onto the
     kernel phase's step (positions up to 1023); runs of 64 lost at both
-    but the Engine's bf16 step (PERF.md).  The chunk kernels keep
-    ``split_plan``."""
-    return plan_splits(b, hkv, cap, sms, DECODE_BLOCKS_PER_SM,
-                       DECODE_MIN_SPLIT_LEN)
+    but the Engine's bf16 step (PERF.md).  At head_dim ``d`` 256 (bf16
+    pools only) the plan aims at ``DECODE_BLOCKS_PER_SM_D256``.  The chunk
+    kernels keep ``split_plan``."""
+    per_sm = DECODE_BLOCKS_PER_SM_D256 if d > 128 else DECODE_BLOCKS_PER_SM
+    return plan_splits(b, hkv, cap, sms, per_sm, DECODE_MIN_SPLIT_LEN)
 
 
 def plan_splits(b: int, hkv: int, cap: int, sms: int, blocks_per_sm: int,

@@ -10,7 +10,9 @@ contract and sends CPU tensors to ``ref``.
 
 On bf16 pools the row's keys are split over blocks by
 ``paged_chunk_attention_quant.decode_split_plan``, which reads shapes
-only: ``pos`` stays on the card.
+only: ``pos`` stays on the card.  head_dim 16-128 and 256 (PaliGemma's:
+the walk's ``Bf16Pool256`` policy on bf16 pools, dynamic shared memory for
+the float32 walk).
 """
 from __future__ import annotations
 
@@ -43,14 +45,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _, hkv, ps, _ = k_pages.shape
     maxp = block_tables.shape[1]
     dev = q.device
-    code = _b.check_dims(NAME, q.dtype, d)
+    code = _b.check_dims(NAME, q.dtype, d, _b.HEAD_DIMS_256)
     if hq % hkv or k_pages.shape[3] != d:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pages.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"{NAME}: window must be >= 1, got {window}")
     out = torch.empty_like(q)
-    plan = (decode_split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0))
+    plan = (decode_split_plan(b, hkv, maxp * ps, sm_count(dev.index or 0),
+                              d)
             if q.dtype == torch.bfloat16 else None)
     part = scratch(plan, hq // hkv, d, dev)
     args = [_b.ptr(NAME, "q", q, dev, dtype=q.dtype),

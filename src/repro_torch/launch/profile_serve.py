@@ -12,6 +12,13 @@ kernel, and device time by the PyTorch op that launched it (an op's own
 kernels only; the port's kernels, launched through ctypes, have no op and
 show only by kernel).
 
+The card's profiler can lose kernel records (``launch/device_trace.py``):
+the profiled run is taken again while its trace lacks the record of any
+launch (``device_trace.profile_whole``), and the JSON gives the launches,
+the lost records and their share, and the lost records of each attempt.
+When every attempt lost more than ``device_trace.MAX_LOST_SHARE`` of its
+launches the script raises (non-zero exit) and prints no busy share.
+
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--model olmo|mla|moe|recurrent|xlstm] [--top 15]
 """
@@ -23,11 +30,10 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs, resolve_device
 from repro_torch.kernels import build
-from repro_torch.launch import workload
+from repro_torch.launch import device_trace, workload
 from repro_torch.models import lm
 from repro_torch.serving.scheduler import ContinuousBatchingEngine
 
@@ -60,9 +66,8 @@ def main() -> None:
 
     run()                                          # warm-up
     _, wall_plain = run()                          # unprofiled wall time
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng, wall = run()
+    prof, (eng, wall), launches, lost, lost_by = (
+        device_trace.profile_whole(run))
     # Kernels only: a CPU op's row repeats the device time of the kernels
     # it launched, and the port's ctypes launches have no CPU op at all.
     rows = [(e.self_device_time_total, e.key, e.count)
@@ -80,6 +85,8 @@ def main() -> None:
         "steps": eng.stats["steps"], "gen_tokens": eng.stats["gen_tokens"],
         "prefill_tokens": eng.stats["prefill_tokens"],
         "wall_s": wall_plain, "wall_s_profiled": wall,
+        "launches": launches, "lost_records": lost,
+        "lost_share": lost / launches, "lost_by_attempt": lost_by,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall_plain,
         "by_kernel": [{"kernel": k[:120], "device_ms": t / 1e3,

@@ -48,6 +48,22 @@ prompts and 32 new tokens.  Its prefill runs the encoder on
 ``flash_attention`` and its decode steps ``decode_attention`` at head_dim
 64.
 
+The PaliGemma workload (``PALIGEMMA``) serves ``paligemma-3b`` at full
+width (arXiv:2407.07726, the repo's config: 18 layers, d_model 2048, 8
+query heads on 1 KV head of 256, a GeGLU FFN of 16384, vocabulary 257216,
+tied and scaled embeddings; about 2.5 B parameters, 5 GB in bf16) through
+``Engine(batch=8, max_len=512)`` on a dense cache and on pages of 16:
+seeded random bf16 weights and seeded bf16 stub patch embeddings
+[8, 256, 2048] (the SigLIP tower is a stub, as in JAX), 32-token prompts
+and 32 new tokens.  Its prefill is the prefix-LM's masked attention over
+288 positions; its decode steps run ``decode_attention`` (dense) or
+``paged_decode_attention`` (paged) at head_dim 256, a group of 8.
+
+The long-prompt workload (``LONG``) prefills ``olmo-1b`` with one prompt
+of 16,384 tokens, past ``lm.CHUNKED_THRESHOLD`` (8192), through a dense
+``Engine(batch=1)``: the blockwise attention path, then decode steps on
+``decode_attention`` over more than 16k keys.
+
 The disaggregated workload (``DISAGG``) serves ``olmo-1b`` from two
 engines on one replicated page table, one prefill and one decode replica
 (``serving/replicated.MultiEngineServer``): 8 requests over two seeded
@@ -129,6 +145,42 @@ def whisper_inputs(cfg: ModelConfig, seed: int = 0, device=None
 def whisper_engine(cfg: ModelConfig, params, **kw) -> Engine:
     """The whisper workload's engine; ``kw`` adds ``impl``, ``device``."""
     return Engine(cfg, params, **WHISPER, **kw)
+
+
+PALIGEMMA_ARCH = "paligemma-3b"
+PALIGEMMA = dict(batch=8, max_len=512, page_size=16)
+PALIGEMMA_PROMPT = 32
+PALIGEMMA_NEW = 32
+
+
+def paligemma_inputs(cfg: ModelConfig, seed: int = 0, device=None
+                     ) -> tuple[np.ndarray, torch.Tensor]:
+    """Seeded prompts [batch, PALIGEMMA_PROMPT] and bf16 stub patch
+    embeddings [batch, num_prefix_tokens, d_model] on ``device`` (the card
+    unless ``"cpu"``)."""
+    rng = np.random.default_rng(seed)
+    b = PALIGEMMA["batch"]
+    tokens = rng.integers(0, cfg.vocab_size, (b, PALIGEMMA_PROMPT))
+    prefix = rng.standard_normal((b, cfg.num_prefix_tokens, cfg.d_model),
+                                 dtype=np.float32)
+    return tokens, torch.from_numpy(prefix).to(
+        resolve_device(device)).bfloat16()
+
+
+def paligemma_engine(cfg: ModelConfig, params, **kw) -> Engine:
+    """The PaliGemma workload's engine; ``kw`` adds ``paged``, ``impl``,
+    ``device``."""
+    return Engine(cfg, params, **PALIGEMMA, **kw)
+
+
+LONG_PROMPT = 16_384
+LONG_NEW = 8
+LONG = dict(batch=1, max_len=LONG_PROMPT + LONG_NEW)
+
+
+def long_prompt(vocab: int, seed: int = 0) -> np.ndarray:
+    """The long-prompt workload's one prompt [1, LONG_PROMPT]."""
+    return np.random.default_rng(seed).integers(0, vocab, (1, LONG_PROMPT))
 
 
 DISAGG = dict(batch=4, max_len=1024, page_size=16, chunk_size=16,

@@ -73,16 +73,79 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _block_mask(rows: torch.Tensor, cols: torch.Tensor, *, tk_true: int,
+                causal: bool, window, prefix_len: int) -> torch.Tensor:
+    """The mask of a (rows × cols) tile of absolute query and key
+    positions, built where it is used: ``common.make_mask``'s rule."""
+    r = rows[:, None]
+    c = cols[None, :]
+    mask = c < tk_true
+    if causal:
+        cm = c <= r
+        if prefix_len > 0:
+            cm = cm | (c < prefix_len)
+        mask = mask & cm
+    if window is not None:
+        wm = c >= r - window + 1
+        if prefix_len > 0:
+            wm = wm | (c < prefix_len)
+        mask = mask & wm
+    return mask
+
+
+def _sdpa_chunked(q, k, v, scale, *, causal: bool = True, window=None,
+                  prefix_len: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """Blockwise online-softmax attention, the path of prompts past
+    ``lm.CHUNKED_THRESHOLD``: a loop over KV chunks of ``chunk`` keys
+    carries (m, l, acc) in float32, so no [Tq, Tk] mask or score tensor
+    exists (at 32k they would be GiB a head row).  Plain PyTorch, as JAX's
+    is plain XLA (a ``lax.scan``).  q: [B, Hq, Tq, D]; k: [B, Hkv, Tk, D];
+    v: [B, Hkv, Tk, Dv] (Dv may differ from D: MLA).  Query rows are
+    end-aligned with the keys; the output is in q's dtype."""
+    b, hq, tq, _ = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    dev = q.device
+    rows = torch.arange(tq, device=dev) + (tk - tq)
+    qf = q.float()
+    m = torch.full((b, hq, tq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hq, tq, v.shape[-1]), dtype=torch.float32,
+                      device=dev)
+    for start in range(0, tk, chunk):
+        kb = torch.repeat_interleave(k[:, :, start:start + chunk], group,
+                                     dim=1).float()
+        vb = torch.repeat_interleave(v[:, :, start:start + chunk], group,
+                                     dim=1).float()
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        cols = start + torch.arange(kb.shape[2], device=dev)
+        mask = _block_mask(rows, cols, tk_true=tk, causal=causal,
+                           window=window, prefix_len=prefix_len)
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, vb)
+        m = m_new
+    return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+
 def _sdpa(q, k, v, mask, scale, impl: str = "ref", window=None,
-          causal: bool = True):
+          causal: bool = True, chunked: bool = False, prefix_len: int = 0):
     """q: [B,H,Tq,D]; k,v: [B,Hkv,Tk,D]; mask: bool[Tq,Tk] / [B,Tq,Tk] /
-    None.  Without a mask and unless ``impl="ref"``, the ``flash_attention``
-    kernel's route (JAX's ``impl="pallas"`` route), with ``causal`` and
-    ``window``.  Otherwise plain matmul + softmax as the JAX reference's
-    ``_sdpa``: logits in float32, probabilities cast back to q's dtype, and
-    no mask at all where ``mask`` is None.  A 3-D mask carries per-row
-    validity (ragged prefill); rows with no valid key give NaN, which
-    callers discard."""
+    None.  ``chunked`` (a prompt past ``lm.CHUNKED_THRESHOLD``, which has
+    no mask either): ``_sdpa_chunked`` with ``causal``, ``window`` and
+    ``prefix_len``, tested first as JAX does.  Without a mask and unless
+    ``impl="ref"``, the ``flash_attention`` kernel's route (JAX's
+    ``impl="pallas"`` route), with ``causal`` and ``window``.  Otherwise
+    plain matmul + softmax as the JAX reference's ``_sdpa``: logits in
+    float32, probabilities cast back to q's dtype, and no mask at all where
+    ``mask`` is None.  A 3-D mask carries per-row validity (ragged
+    prefill); rows with no valid key give NaN, which callers discard."""
+    if chunked:
+        return _sdpa_chunked(q, k, v, scale, causal=causal, window=window,
+                             prefix_len=prefix_len)
     if impl != "ref" and mask is None:
         return kops.flash_attention(q, k, v, causal=causal, scale=scale,
                                     window=window, impl=impl)
@@ -102,13 +165,17 @@ def _sdpa(q, k, v, mask, scale, impl: str = "ref", window=None,
 
 def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
             mask: Optional[torch.Tensor], positions: torch.Tensor,
-            impl: str = "kernel", causal: bool = True) -> torch.Tensor:
+            impl: str = "kernel", causal: bool = True,
+            chunked: bool = False, prefix_len: int = 0) -> torch.Tensor:
     """Full-sequence path (prefill without a cache).  With no mask (the
     whisper encoder) the attention runs on ``flash_attention`` unless
-    ``impl="ref"``; ``causal=False`` keeps it bidirectional."""
+    ``impl="ref"``; ``causal=False`` keeps it bidirectional.  ``chunked``:
+    the blockwise path, with the ``prefix_len`` keys a bidirectional
+    prefix."""
     q, k, v = _qkv(p, cfg, x, positions)
     out = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5, impl,
-                window=cfg.window, causal=causal)
+                window=cfg.window, causal=causal, chunked=chunked,
+                prefix_len=prefix_len)
     return common.dense(p["wo"], _merge_heads(out))
 
 
@@ -168,6 +235,7 @@ def _paged_prefill_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
 
 def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
             mask: Optional[torch.Tensor], positions: torch.Tensor,
+            chunked: bool = False, prefix_len: int = 0,
             lengths: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, Params]:
     """Full-prompt forward that also fills cache positions [0, T).
@@ -175,10 +243,12 @@ def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     ``lengths`` (i32[B]) marks a ragged right-padded batch: attention over
     padding is masked by the caller's 3-D mask and cache writes beyond each
     row's length are dropped, so rows with ``lengths[b] == 0`` keep their
-    cache bit for bit.
+    cache bit for bit.  ``chunked`` (no mask): the blockwise path, with
+    the ``prefix_len`` keys a bidirectional prefix.
     """
     q, k, v = _qkv(p, cfg, x, positions)
-    out = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5)
+    out = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5, window=cfg.window,
+                chunked=chunked, prefix_len=prefix_len)
     proj = common.dense(p["wo"], _merge_heads(out))
     layout = cache_mod.layout_of(cache)
     if layout in cache_mod.PAGED_LAYOUTS:

@@ -38,6 +38,8 @@ class BlockCtx(NamedTuple):
     mask_local: Optional[torch.Tensor] = None  # mask_full within the window
     enc_out: Optional[torch.Tensor] = None  # [B, Te, d] (whisper decoder)
     causal: bool = True                   # mask-free attention (encoder: no)
+    chunked: bool = False                 # blockwise attention (long T)
+    prefix_len: int = 0                   # bidirectional prefix (VLM)
 
 
 PORTED_KINDS = ("attn", "local", "moe", "mla", "mla_moe", "rglru", "slstm",
@@ -120,10 +122,14 @@ def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
                                          ctx.pos, ctx.impl)
     elif cache is not None:
         a, cache = attention.prefill(p["attn"], local_cfg, h, cache, mask,
-                                     ctx.positions, lengths=ctx.lengths)
+                                     ctx.positions, chunked=ctx.chunked,
+                                     prefix_len=ctx.prefix_len,
+                                     lengths=ctx.lengths)
     else:
         a = attention.forward(p["attn"], local_cfg, h, mask, ctx.positions,
-                              ctx.impl, causal=ctx.causal)
+                              ctx.impl, causal=ctx.causal,
+                              chunked=ctx.chunked,
+                              prefix_len=ctx.prefix_len)
     if cfg.parallel_block:
         f, aux = _ffn(kind, p["ffn"], cfg, h)
         return x + a + f, cache, aux
@@ -145,9 +151,12 @@ def _mla_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
                                    ctx.impl)
     elif cache is not None:
         a, cache = mla.prefill(p["attn"], cfg, h, cache, ctx.mask_full,
-                               ctx.positions, lengths=ctx.lengths)
+                               ctx.positions, chunked=ctx.chunked,
+                               prefix_len=ctx.prefix_len,
+                               lengths=ctx.lengths)
     else:
-        a = mla.forward(p["attn"], cfg, h, ctx.mask_full, ctx.positions)
+        a = mla.forward(p["attn"], cfg, h, ctx.mask_full, ctx.positions,
+                        chunked=ctx.chunked, prefix_len=ctx.prefix_len)
     x = x + a
     f, aux = _ffn(kind, p["ffn"], cfg, _norm(p["norm2"], cfg, x))
     return x + f, cache, aux
@@ -220,14 +229,16 @@ def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         if cache is not None:
             a, _ = attention.prefill(p["attn"], cfg, h,
                                      {"k": cache["k"], "v": cache["v"]},
-                                     ctx.mask_full, ctx.positions)
+                                     ctx.mask_full, ctx.positions,
+                                     chunked=ctx.chunked)
             xk, xv = _cross_kv(p["xattn"], cfg, ctx.enc_out)
             cache["xk"].copy_(xk.to(cache["xk"].dtype))
             cache["xv"].copy_(xv.to(cache["xv"].dtype))
             xk, xv = cache["xk"], cache["xv"]
         else:
             a = attention.forward(p["attn"], cfg, h, ctx.mask_full,
-                                  ctx.positions, ctx.impl)
+                                  ctx.positions, ctx.impl,
+                                  chunked=ctx.chunked)
             xk, xv = _cross_kv(p["xattn"], cfg, ctx.enc_out)
         hx = _norm(p["norm_x"], cfg, x + a)
         c = _cross_attend(p["xattn"], cfg, hx, xk.to(x.dtype),

@@ -88,8 +88,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def make_mask(tq: int, tk: int, *, causal: bool = True,
-              window: int | None = None, device=None) -> torch.Tensor:
-    """bool[Tq, Tk] — True = attend.  Query rows end-aligned with keys."""
+              window: int | None = None, prefix_len: int = 0,
+              device=None) -> torch.Tensor:
+    """bool[Tq, Tk] — True = attend.  Query rows end-aligned with keys.
+    ``prefix_len`` > 0: the first ``prefix_len`` keys are a bidirectional
+    prefix (PaliGemma's): prefix queries see the whole prefix, and every
+    query sees it, whatever the causal and window masks say."""
     qi = torch.arange(tq, device=device)[:, None] + (tk - tq)
     ki = torch.arange(tk, device=device)[None, :]
     mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
@@ -97,6 +101,9 @@ def make_mask(tq: int, tk: int, *, causal: bool = True,
         mask &= ki <= qi
     if window is not None:
         mask &= ki >= qi - window + 1
+    if prefix_len > 0:
+        mask |= (ki < prefix_len) & (qi < prefix_len)
+        mask |= (qi >= prefix_len) & (ki < prefix_len)
     return mask
 
 

@@ -8,6 +8,11 @@ stacks each pattern slot's layers (and the encoder's) on a [G] axis for
 (``convert.params_from_jax`` unstacks a JAX tree).  Encoder-decoder models
 (whisper) run a bidirectional encoder over stub frame embeddings
 (``enc_frames`` on ``forward`` and ``prefill``) on ``flash_attention``.
+Prefix-LM models (PaliGemma, ``num_prefix_tokens``) take stub patch
+embeddings (``prefix_embeds`` [B, P, d]) ahead of the text: the prefix
+attends bidirectionally, the text causally and to the whole prefix.
+Prompts past ``CHUNKED_THRESHOLD`` tokens run the blockwise attention path
+(``attention._sdpa_chunked``), as JAX's do.
 
 Entry points mirror ``repro.models.lm``: ``forward``, ``init_cache``,
 ``prefill``, ``decode_step``, ``mixed_step``, ``verify_step`` with
@@ -38,10 +43,6 @@ CHUNKED_THRESHOLD = 8192
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in set(cache_mod.layer_kinds(cfg)):
         blocks.check_kind(kind)
-    if cfg.num_prefix_tokens:
-        raise NotImplementedError(
-            "prefix-LM models are not ported yet: ROADMAP.md queue 1 item "
-            "11c (PaliGemma)")
 
 
 # ---------------------------------------------------------------------------
@@ -129,16 +130,21 @@ def _enc_out(p: Params, cfg: ModelConfig, enc_frames, impl: str, device
     return _encode(p, cfg, torch.as_tensor(enc_frames, device=device), impl)
 
 
-def _make_ctx(cfg: ModelConfig, t: int, device,
+def _make_ctx(cfg: ModelConfig, t: int, device, prefix_len: int = 0,
               lengths: Optional[torch.Tensor] = None) -> BlockCtx:
     if t > CHUNKED_THRESHOLD:
-        raise NotImplementedError(
-            f"prompts longer than {CHUNKED_THRESHOLD} tokens need the "
-            "blockwise attention path, not ported yet: ROADMAP.md queue 1 "
-            "(item 3's blockwise prefill)")
-    mask_full = common.make_mask(t, t, causal=True, device=device)
+        if lengths is not None:
+            raise NotImplementedError(
+                "ragged prefill above the chunked-attention threshold")
+        # Long sequences: masks built a tile at a time inside the blockwise
+        # online-softmax attention (T×T masks and scores would be GiB).
+        return BlockCtx(positions=torch.arange(t, device=device),
+                        mask_full=None, mode="full", chunked=True,
+                        prefix_len=prefix_len)
+    mask_full = common.make_mask(t, t, causal=True, prefix_len=prefix_len,
+                                 device=device)
     mask_local = (common.make_mask(t, t, causal=True, window=cfg.window,
-                                   device=device)
+                                   prefix_len=prefix_len, device=device)
                   if "local" in cfg.block_pattern else None)
     if lengths is not None:
         valid = (torch.arange(t, device=device)[None, :]
@@ -148,7 +154,7 @@ def _make_ctx(cfg: ModelConfig, t: int, device,
             mask_local = mask_local[None] & valid[:, None, :]
     return BlockCtx(positions=torch.arange(t, device=device),
                     mask_full=mask_full, mode="full", lengths=lengths,
-                    mask_local=mask_local)
+                    mask_local=mask_local, prefix_len=prefix_len)
 
 
 def _run_blocks(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -175,20 +181,34 @@ def _final(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return _head(p, cfg, x)
 
 
+def _with_prefix(cfg: ModelConfig, x: torch.Tensor, prefix_embeds
+                 ) -> tuple[torch.Tensor, int]:
+    """(the block input, prefix_len): a prefix-LM's stub embeddings
+    [B, P, d] ahead of the embedded text, in its dtype and unscaled by
+    ``embed_scale``, as in JAX; without either the text alone."""
+    if not cfg.num_prefix_tokens or prefix_embeds is None:
+        return x, 0
+    pre = torch.as_tensor(prefix_embeds, device=x.device).to(x.dtype)
+    return torch.cat([pre, x], dim=1), cfg.num_prefix_tokens
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
-def forward(p: Params, cfg: ModelConfig, tokens, enc_frames=None,
-            impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, T] -> (logits [B, T, V] float32, aux loss: the MoE
-    layers' load-balancing losses summed, 0 without one).
-    ``enc_frames`` [B, Te, d]: an encoder-decoder model's encoder input."""
+def forward(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
+            enc_frames=None, impl: str = "kernel"
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, Tt] -> (logits [B, T, V] float32, aux loss: the MoE
+    layers' load-balancing losses summed, 0 without one).  T is Tt, plus
+    P for a prefix-LM given ``prefix_embeds`` [B, P, d] (the logits cover
+    prefix and text).  ``enc_frames`` [B, Te, d]: an encoder-decoder
+    model's encoder input."""
     _check_supported(cfg)
     dev = p["embed"]["w"].device
     tokens = _tokens(tokens, dev)
-    x = _embed(p, cfg, tokens)
-    ctx = _make_ctx(cfg, x.shape[1], dev)._replace(
+    x, prefix_len = _with_prefix(cfg, _embed(p, cfg, tokens), prefix_embeds)
+    ctx = _make_ctx(cfg, x.shape[1], dev, prefix_len)._replace(
         impl=impl, enc_out=_enc_out(p, cfg, enc_frames, impl, dev))
     x, _, aux = _run_blocks(p, cfg, x, ctx, None)
     return _final(p, cfg, x), aux
@@ -233,19 +253,22 @@ adopt_pages = cache_mod.adopt_pages
 
 
 def prefill(p: Params, cfg: ModelConfig, tokens, cache: Params,
-            impl: str = "kernel", lengths=None, enc_frames=None
-            ) -> tuple[torch.Tensor, Params]:
+            prefix_embeds=None, enc_frames=None, impl: str = "kernel",
+            lengths=None) -> tuple[torch.Tensor, Params]:
     """Uniform-length prompt [B, P] -> (last-position logits [B, V], cache).
 
     ``lengths`` (i32[B]) admits a ragged right-padded batch: row b's prompt
     is tokens[b, :lengths[b]], logits come from its last valid position,
     and rows with ``lengths[b] == 0`` keep their cache (output garbage).
-    The prompt's attention is the plain masked matmul path on every device;
-    ``impl`` reaches an encoder-decoder model's encoder (``enc_frames``
-    [B, Te, d], on ``flash_attention``), whose output fills the cross-KV.
+    The prompt's attention is the plain masked matmul path on every device,
+    blockwise past ``CHUNKED_THRESHOLD`` tokens; ``impl`` reaches an
+    encoder-decoder model's encoder (``enc_frames`` [B, Te, d], on
+    ``flash_attention``), whose output fills the cross-KV.  A prefix-LM's
+    ``prefix_embeds`` [B, Pp, d] go ahead of the prompt and fill cache
+    positions [0, Pp); the prompt follows them.
     """
     _check_supported(cfg)
-    if lengths is not None and cfg.is_encdec:
+    if lengths is not None and (cfg.num_prefix_tokens or cfg.is_encdec):
         raise NotImplementedError(
             f"ragged prefill supports decoder-only patterns without "
             f"prefix/encoder inputs, got {cfg.block_pattern}")
@@ -253,8 +276,8 @@ def prefill(p: Params, cfg: ModelConfig, tokens, cache: Params,
     tokens = _tokens(tokens, dev)
     if lengths is not None:
         lengths = _tokens(lengths, dev)
-    x = _embed(p, cfg, tokens)
-    ctx = _make_ctx(cfg, x.shape[1], dev, lengths=lengths)
+    x, prefix_len = _with_prefix(cfg, _embed(p, cfg, tokens), prefix_embeds)
+    ctx = _make_ctx(cfg, x.shape[1], dev, prefix_len, lengths=lengths)
     ctx = ctx._replace(mode="prefill", impl=impl,
                        enc_out=_enc_out(p, cfg, enc_frames, impl, dev))
     x, cache, _ = _run_blocks(p, cfg, x, ctx, cache)
@@ -290,7 +313,7 @@ def mixed_step(p: Params, cfg: ModelConfig, tokens, cache: Params, start,
     rows' logits are garbage.  ``all_logits`` returns [B, C, V].
     """
     _check_supported(cfg)
-    if cfg.is_encdec:
+    if cfg.num_prefix_tokens or cfg.is_encdec:
         raise NotImplementedError(
             f"mixed step supports decoder-only patterns without prefix or "
             f"encoder inputs, got {cfg.block_pattern}")

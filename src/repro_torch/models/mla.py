@@ -101,11 +101,12 @@ def _latent_rows(ckv, krope, dp):
 
 
 def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
-            mask: Optional[torch.Tensor], positions: torch.Tensor
-            ) -> torch.Tensor:
+            mask: Optional[torch.Tensor], positions: torch.Tensor,
+            chunked: bool = False, prefix_len: int = 0) -> torch.Tensor:
     """Full-sequence path (expanded keys and values).  The two-term MLA
     logits are one contraction over concat([nope; rope]), so the shared
-    ``attention._sdpa`` applies."""
+    ``attention._sdpa`` applies, its blockwise path (``chunked``, values of
+    ``v_head_dim`` beside keys of nope + rope) included."""
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.num_heads
@@ -118,7 +119,8 @@ def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     qc = torch.cat([q_nope, q_rope], dim=-1)
     kc = torch.cat([k_nope, krope[:, None].expand(b, h, t, m.rope_head_dim)
                     .to(k_nope.dtype)], dim=-1)
-    out = attention._sdpa(qc, kc, v, mask, _scale(cfg))
+    out = attention._sdpa(qc, kc, v, mask, _scale(cfg), chunked=chunked,
+                          prefix_len=prefix_len)
     out = out.transpose(1, 2).reshape(b, t, h * m.v_head_dim)
     return common.dense(p["w_o"], out.to(x.dtype))
 
@@ -155,14 +157,17 @@ def _paged_latent_write(cache: Params, ckv: torch.Tensor,
 
 def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
             mask: Optional[torch.Tensor], positions: torch.Tensor,
+            chunked: bool = False, prefix_len: int = 0,
             lengths: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, Params]:
     """Full-prompt forward that also fills cache positions [0, T).
 
     ``lengths`` (i32[B]) admits a ragged right-padded batch: cache writes
     beyond each row's length are dropped, so rows with ``lengths[b] == 0``
-    keep their cache bit for bit."""
-    y = forward(p, cfg, x, mask, positions)
+    keep their cache bit for bit.  ``chunked`` and ``prefix_len`` as
+    ``forward``."""
+    y = forward(p, cfg, x, mask, positions, chunked=chunked,
+                prefix_len=prefix_len)
     ckv, krope = _latents(p, cfg, x, positions)
     layout = cache_mod.layout_of(cache)
     if layout in _PAGED_MLA:

@@ -47,11 +47,15 @@ def make_serve_step(cfg: ModelConfig, *, impl: str = "kernel",
 
 
 def make_prefill_fn(cfg: ModelConfig, *, impl: str = "kernel"):
-    """(params, cache, tokens [B, P], enc_frames=None) -> (logits, cache);
-    ``enc_frames`` feeds an encoder-decoder model's encoder."""
-    def prefill_fn(params, cache, tokens, enc_frames=None):
-        return lm.prefill(params, cfg, tokens, cache, impl=impl,
-                          enc_frames=enc_frames)
+    """(params, cache, tokens [B, P], prefix_embeds=None, enc_frames=None)
+    -> (logits, cache); ``prefix_embeds`` [B, Pp, d] go ahead of a
+    prefix-LM's prompt, ``enc_frames`` feed an encoder-decoder model's
+    encoder."""
+    def prefill_fn(params, cache, tokens, prefix_embeds=None,
+                   enc_frames=None):
+        return lm.prefill(params, cfg, tokens, cache,
+                          prefix_embeds=prefix_embeds, enc_frames=enc_frames,
+                          impl=impl)
 
     return prefill_fn
 
@@ -214,15 +218,20 @@ class Engine:
         # device sync per step.
         self._pos_ceiling = 0
 
-    def prefill(self, tokens, enc_frames=None) -> torch.Tensor:
-        """Uniform prompt for all rows. tokens: [B, P]; ``enc_frames``
-        [B, Te, d] for an encoder-decoder model."""
+    def prefill(self, tokens, prefix_embeds=None,
+                enc_frames=None) -> torch.Tensor:
+        """Uniform prompt for all rows. tokens: [B, P]; ``prefix_embeds``
+        [B, Pp, d] for a prefix-LM (the rows then decode from P +
+        ``num_prefix_tokens``, as in JAX), ``enc_frames`` [B, Te, d] for an
+        encoder-decoder model."""
         tokens = torch.as_tensor(tokens, device=self.device)
         logits, self.cache = self._prefill(self.params, self.cache, tokens,
+                                           prefix_embeds=prefix_embeds,
                                            enc_frames=enc_frames)
-        self.pos = torch.full((self.batch,), tokens.shape[1],
-                              dtype=torch.int32, device=self.device)
-        self._pos_ceiling = tokens.shape[1]
+        fill = tokens.shape[1] + self.cfg.num_prefix_tokens
+        self.pos = torch.full((self.batch,), fill, dtype=torch.int32,
+                              device=self.device)
+        self._pos_ceiling = fill
         self.token = torch.argmax(logits, dim=-1).to(torch.int32)
         return self.token
 
@@ -237,8 +246,10 @@ class Engine:
         self._pos_ceiling += 1
         return self.token
 
-    def generate(self, tokens, steps: int, enc_frames=None) -> torch.Tensor:
-        outs = [self.prefill(tokens, enc_frames=enc_frames)]
+    def generate(self, tokens, steps: int, prefix_embeds=None,
+                 enc_frames=None) -> torch.Tensor:
+        outs = [self.prefill(tokens, prefix_embeds=prefix_embeds,
+                             enc_frames=enc_frames)]
         for _ in range(steps - 1):
             outs.append(self.step())
         return torch.stack(outs, dim=1)

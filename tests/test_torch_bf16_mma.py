@@ -38,6 +38,7 @@ bf16 rounding exactly where the kernel rounds, and the combine formulas.
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import math
 
@@ -476,7 +477,7 @@ def hold_mha_walk(seed, case, qdtype=None, decode=False) -> float:
     q, kn, vn = q[:, :, :c], kn[:, :, :c], vn[:, :, :c]
     if qdtype is None:
         pools = [kp, vp]
-        plan = kmha.split_plan
+        plan = functools.partial(kmha.split_plan, d=d)
     else:
         pools = [*ref.quantize_rows(kp, qdtype), *ref.quantize_rows(vp,
                                                                     qdtype)]
@@ -486,7 +487,7 @@ def hold_mha_walk(seed, case, qdtype=None, decode=False) -> float:
     # and the emulation take the whole table.
     used = bt[:, :-(-max(np.add(start, span)) // PS)]
     if decode:
-        plan = kmhq.decode_split_plan
+        plan = functools.partial(kmhq.decode_split_plan, d=d)
         op = (ops.paged_decode_attention if qdtype is None
               else ops.paged_decode_attention_quant)
         want = op(q[:, :, 0], *pools, used, st, kn[:, :, 0], vn[:, :, 0],
@@ -524,6 +525,26 @@ def test_mha_bf16_decode_walk_keeps_the_bf16_rule(name):
         hold_mha_walk(seed, _decode_case(name), decode=True)
 
 
+# PaliGemma at head_dim 256 (one KV head, a group of 8): the Engine's
+# paged decode step (the positions chip_smoke.py's d256_ row uses) and a
+# prompt chunk with a window, on the walk's Bf16Pool256 policy (32-key
+# tiles, as Bf16Pool's) and the plans at 2 blocks an SM.
+D256_CASES = {
+    "decode": (8, 8, 1, 1, 256, None, [319, 0, 31, 255, 256, 288, 300, 100],
+               [1] * 8),
+    "chunk_window": (3, 8, 1, 16, 256, 40, [0, 200, 301], [16, 1, 9]),
+}
+
+
+@pytest.mark.parametrize("name", list(D256_CASES))
+def test_mha_bf16_walk_at_head_dim_256_keeps_the_bf16_rule(name):
+    """The D-256 walk's arithmetic is the D-128 walk's over twice the
+    columns: held to the plain version as the other MHA cases, on every
+    seed (decode on ``decode_split_plan``, the chunk on ``split_plan``)."""
+    for seed in SEEDS:
+        hold_mha_walk(seed, D256_CASES[name], decode=name == "decode")
+
+
 def test_mha_p_in_one_term_misses_the_margin():
     """Why P takes two terms: with P rounded once (the walk before), the
     float32 out of the kernel phase's chunk step strays past half the
@@ -553,8 +574,10 @@ MHA_PLAN_SHAPES = [(4, 16, 1024), (8, 16, 1024), (8, 2, 1024), (2, 2, 32),
 
 
 def test_bf16_mha_split_plan_reads_shapes_only():
+    """The plan's inputs are shapes: the head_dim ``d`` too (a D-256
+    walk fits 2 blocks an SM, not 3)."""
     assert list(inspect.signature(kmha.split_plan).parameters) == [
-        "b", "hkv", "cap", "sms"]
+        "b", "hkv", "cap", "sms", "d"]
 
 
 @pytest.mark.parametrize("shape", MHA_PLAN_SHAPES)

@@ -65,6 +65,10 @@ CHUNK_CASES = [
     (2, 4, 1, 16, 4, 64, 8, 4),
     (2, 8, 2, 8, 4, 128, 16, None),
     (4, 2, 2, 16, 8, 128, 40, 11),
+    (2, 48, 1, 16, 4, 128, 3, None),        # granite-34b: MQA, group 48
+    (3, 24, 2, 16, 4, 128, 8, 9),           # starcoder2 / command-r+: 12
+    (2, 8, 1, 16, 4, 256, 16, None),        # PaliGemma: D 256, group 8
+    (3, 8, 1, 16, 8, 256, 64, 20),          # D 256: a full pass, window
 ]
 
 
@@ -117,6 +121,10 @@ DECODE_PAGED_CASES = [
     (2, 8, 2, 16, 4, 64, 4),
     (8, 16, 16, 16, 8, 128, None),
     (2, 32, 1, 8, 4, 128, None),            # group 32: two query tiles
+    (2, 48, 1, 16, 4, 128, None),           # granite-34b: MQA, group 48
+    (3, 24, 2, 16, 4, 128, 7),              # starcoder2 / command-r+: 12
+    (8, 8, 1, 16, 32, 256, None),           # PaliGemma's Engine: D 256
+    (3, 8, 1, 16, 8, 256, 33),              # D 256 under a window
 ]
 
 
@@ -470,14 +478,22 @@ def test_kernels_reject_what_they_cannot_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
                                                  device=card))
-    # head_dim 256 is the dense decode kernel's alone: the paged walks keep
-    # their tiles in static shared memory.
-    kp = torch.zeros(2, 1, 8, 256, device=card)
+    # head_dim 24 is no paged walk's; 256 is the bf16 / float32 walks'
+    # (PaliGemma's) but not the int8 / fp8 ones' (ROADMAP.md queue 2, item
+    # 20).
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=card)
+    pos = torch.zeros(1, dtype=torch.int32, device=card)
+    kp = torch.zeros(2, 1, 8, 24, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         ops.paged_decode_attention(
-            torch.zeros(1, 2, 256, device=card), kp, kp,
-            torch.zeros(1, 2, dtype=torch.int32, device=card),
-            torch.zeros(1, dtype=torch.int32, device=card),
+            torch.zeros(1, 2, 24, device=card), kp, kp, bt, pos,
+            torch.zeros(1, 1, 24, device=card),
+            torch.zeros(1, 1, 24, device=card))
+    kq = torch.zeros(2, 1, 8, 256, device=card, dtype=torch.int8)
+    ks = torch.ones(2, 1, 8, device=card)
+    with pytest.raises(ValueError, match="head_dim 256.*item 20"):
+        ops.paged_decode_attention_quant(
+            torch.zeros(1, 2, 256, device=card), kq, ks, kq, ks, bt, pos,
             torch.zeros(1, 1, 256, device=card),
             torch.zeros(1, 1, 256, device=card))
     with pytest.raises(ValueError, match="dtype"):
@@ -536,11 +552,19 @@ def _same_bits(a, b):
 def test_paged_chunk_quant_kernel_matches_plain(card, case, dtype, qdtype):
     """Pools and scales bitwise (the quantizing write), outputs within the
     tolerance (the walk over dequantized rows); span 0, -1 entries,
-    windows, page sizes 8 and 16, head_dim 16-128."""
+    windows, page sizes 8 and 16, head_dim 16-128; head_dim 256 is
+    refused with the ROADMAP item that lists it."""
     b, hq, hkv, ps, maxp, d, c, window = case
     r = np.random.default_rng(4)
     q = _t(r.normal(size=(b, hq, c, d)), dtype, card)
     kq, ks, vq, vs, bt = _quant_inputs(r, b, hkv, ps, maxp, d, qdtype, card)
+    if d == 256:
+        z = _t(np.zeros(b), torch.int32, card)
+        new = torch.zeros((b, hkv, c, d), dtype=dtype, device=card)
+        with pytest.raises(ValueError, match="queue 2, item 20"):
+            ops.paged_chunk_attention_quant(q, kq, ks, vq, vs, bt, z, z,
+                                            new, new)
+        return
     start = r.integers(0, maxp * ps - 1, b)
     start[-1] = maxp * ps + 3               # past capacity: the clamp
     span = r.integers(0, c + 1, b)
@@ -571,10 +595,18 @@ def test_paged_chunk_quant_kernel_matches_plain(card, case, dtype, qdtype):
 @pytest.mark.parametrize("case", DECODE_PAGED_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_decode_quant_kernel_matches_plain(card, case, dtype, qdtype):
+    """As the chunk test: head_dim 256 is refused."""
     b, hq, hkv, ps, maxp, d, window = case
     r = np.random.default_rng(5)
     q = _t(r.normal(size=(b, hq, d)), dtype, card)
     kq, ks, vq, vs, bt = _quant_inputs(r, b, hkv, ps, maxp, d, qdtype, card)
+    if d == 256:
+        z = _t(np.zeros(b), torch.int32, card)
+        new = torch.zeros((b, hkv, d), dtype=dtype, device=card)
+        with pytest.raises(ValueError, match="queue 2, item 20"):
+            ops.paged_decode_attention_quant(q, kq, ks, vq, vs, bt, z, new,
+                                             new)
+        return
     pos = r.integers(0, maxp * ps, b)
     pos[-1] = maxp * ps + 5                 # past capacity: the clamp
     pos = _t(pos, torch.int32, card)

@@ -138,3 +138,43 @@ def test_kernel_trace_raises_when_no_trace_saw_a_kernel(monkeypatch):
     with pytest.raises(RuntimeError, match="lost kernel records"):
         device_trace.kernel_trace(lambda: None, iters=2)
     assert pauses == list(device_trace.PAUSES_S)
+
+
+@pytest.mark.parametrize("calls,lost,want", [
+    (2, (), (3, 0)), (2, (0,), (3, 1)), (4, (1, 3), (5, 2)),
+    (3, (0, 1, 2, 3), (4, 4))])
+def test_lost_records_counts_the_whole_trace(calls, lost, want):
+    """``lost_records`` (``profile_serve.py``'s count) reads every launch
+    of a trace, the lead-in's too, and counts those whose correlation id
+    has no kernel record; copies are not launches."""
+    assert device_trace.lost_records(_trace(calls, lost, memcpy=True)) == want
+
+
+def test_profile_whole_takes_an_incomplete_run_again(monkeypatch):
+    """A run whose trace lost a record is profiled again after a pause;
+    the first whole trace is the one returned, with every attempt's
+    count."""
+    pauses = _fake_profiler(monkeypatch, [(1,), (0, 2), ()])
+    runs = []
+    prof, out, n, lost, lost_by = device_trace.profile_whole(
+        lambda: runs.append(1) or len(runs))
+    assert (out, n, lost, lost_by) == (3, 3, 0, [1, 2, 0])
+    assert pauses == list(device_trace.PAUSES_S[:3])
+
+
+@pytest.mark.parametrize("share,ok", [(0.34, True), (0.3, False)])
+def test_profile_whole_refuses_runs_that_all_lost_too_much(monkeypatch,
+                                                           share, ok):
+    """When every attempt lost records, the one that lost fewest is kept
+    if its share of the launches is within the bound (1 of 3 here), and
+    otherwise the run is refused: no busy share is read from it."""
+    n = len(device_trace.PAUSES_S)
+    pauses = _fake_profiler(monkeypatch, [(0, 1)] + [(2,)] * (n - 1))
+    if ok:
+        _, _, launches, lost, lost_by = device_trace.profile_whole(
+            lambda: None, max_lost_share=share)
+        assert (launches, lost, lost_by) == (3, 1, [2] + [1] * (n - 1))
+    else:
+        with pytest.raises(RuntimeError, match="lost more than"):
+            device_trace.profile_whole(lambda: None, max_lost_share=share)
+    assert pauses == list(device_trace.PAUSES_S)

@@ -210,8 +210,10 @@ def test_page_tables_and_copy_pages_match_jax(models):
 @pytest.mark.parametrize("pattern", [("slstm",), ("mla_moe",), ("mlstm",)])
 def test_unported_block_kinds_name_their_roadmap_item(pattern):
     """These kinds were the last unported ones and now run: ``init``
-    gives every layer, and their caches equal JAX's.  What is still
-    unported, the PaliGemma prefix-LM, names its ROADMAP.md item."""
+    gives every layer, and their caches equal JAX's.  The prefix-LM
+    (``num_prefix_tokens``, PaliGemma's) now runs too: ``init`` of such a
+    config works, and the mixed step and ragged prefill refuse it with
+    JAX's messages, as JAX's do."""
     arch = "deepseek-v2-lite-16b" if pattern == ("mla_moe",) else "olmo-1b"
     jcfg, tcfg = (pkg.reduced(pkg.get(arch), d_model=32, vocab=64).replace(
         block_pattern=pattern) for pkg in (jconfigs, tconfigs))
@@ -223,5 +225,15 @@ def test_unported_block_kinds_name_their_roadmap_item(pattern):
         assert lw.keys() == lt.keys()
         for name in lw:
             assert torch.equal(lw[name], lt[name]), name
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tlm.init(tcfg.replace(num_prefix_tokens=8), device="cpu")
+    pcfg = tcfg.replace(num_prefix_tokens=8)
+    assert len(tlm.init(pcfg, device="cpu")["layers"]) == pcfg.num_layers
+    jpcfg = jcfg.replace(num_prefix_tokens=8)
+    lengths = np.ones((1,), np.int32)
+    for fn, cfg in ((jlm.mixed_step, jpcfg), (tlm.mixed_step, pcfg)):
+        with pytest.raises(NotImplementedError,
+                           match="without prefix or encoder inputs"):
+            fn(None, cfg, None, None, None, None)
+    for fn, cfg, ln in ((jlm.prefill, jpcfg, jnp.asarray(lengths)),
+                        (tlm.prefill, pcfg, torch.from_numpy(lengths))):
+        with pytest.raises(NotImplementedError, match="ragged prefill"):
+            fn(None, cfg, None, None, lengths=ln)

@@ -505,8 +505,10 @@ def test_mha_split_plan_feeds_the_card_at_the_trial_shape():
 # -- the MHA decode plan ----------------------------------------------------
 
 def test_mha_decode_plan_reads_shapes_only():
+    """The plan's inputs are shapes: the head_dim ``d`` too (a D-256
+    walk fits 2 blocks an SM, not 3)."""
     assert list(inspect.signature(kmha.decode_split_plan).parameters) == [
-        "b", "hkv", "cap", "sms"]
+        "b", "hkv", "cap", "sms", "d"]
 
 
 @pytest.mark.parametrize("name", list(MHA_DECODE_CASES))

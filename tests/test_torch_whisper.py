@@ -385,8 +385,8 @@ def test_xattn_layout_matches_jax_spec():
 def test_encdec_refuses_mixed_step_scheduler_ragged_prefill_and_prefix_lm(
         models):
     """As in JAX: the mixed step (so the scheduler) and ragged prefill
-    refuse encoder-decoder models; a prefix-LM still raises (not ported:
-    ROADMAP.md queue 1 item 11)."""
+    refuse encoder-decoder models, and prefix-LMs too: a prefix-LM's
+    ``init`` runs, and its mixed step and ragged prefill raise."""
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
     from repro_torch.serving.scheduler import Request
     jcfg, jp, tcfg, tp = models["float32"]
@@ -420,5 +420,14 @@ def test_encdec_refuses_mixed_step_scheduler_ragged_prefill_and_prefix_lm(
         tlm.forward(tp, tcfg, torch.from_numpy(toks))
     vlm = tconfigs.reduced(tconfigs.get("olmo-1b"), d_model=32,
                            vocab=64).replace(num_prefix_tokens=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tlm.init(vlm, device="cpu")
+    vp = tlm.init(vlm, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="without prefix or encoder inputs"):
+        tlm.mixed_step(vp, vlm, torch.from_numpy(toks[:, :4]),
+                       tlm.init_cache(vlm, B, MAX_LEN, device="cpu"),
+                       torch.zeros(B, dtype=torch.int32),
+                       torch.ones(B, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="ragged prefill"):
+        tlm.prefill(vp, vlm, torch.from_numpy(toks[:, :PROMPT]),
+                    tlm.init_cache(vlm, B, MAX_LEN, device="cpu"),
+                    lengths=torch.from_numpy(lengths))
