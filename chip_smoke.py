@@ -83,7 +83,24 @@
    exporter's bitwise in every layer and leaf, the adoption counters agree
    across paths, streams agree but at near-ties, and the crash run aborts,
    rolls back and completes every request exactly once; then trial run
-   (g), (a) on two page-table replicas with disaggregated homes;
+   (g), (a) on two page-table replicas with disaggregated homes; then,
+   the serving model freed, training: ``olmo-1b`` at full width (seeded
+   bf16 weights, one repeated batch of ``DataConfig(vocab_size=50304,
+   seq_len=128, batch_size=8)``, ``AdamW(warmup=2)``) through a
+   ``Trainer``'s state and ``make_train_step`` on the plain path: a
+   warm-up step after which every leaf has changed (its grads finite, the
+   same loss and grads with ``remat``), timed steps whose loss falls, the
+   step split into forward + backward and the optimizer (events, wall and
+   device time) with tokens/s, peak memory, the model-FLOP share and the
+   optimizer against its 22-bytes-a-parameter floor, no kernel launched;
+   the kernel wrappers refuse a gradient (``forward(impl="kernel")``
+   under grad on a reduced whisper-tiny and recurrentgemma-2b raises);
+   ``Trainer.save`` of that state restored into a fresh ``Trainer``,
+   every leaf bitwise; a reduced olmo-1b and recurrentgemma-2b train step
+   with float32 weights on the card against the CPU
+   (``train_device_parity``); and JAX's launcher test,
+   ``python -m repro_torch.launch.train ... --fail-worker1-at 3``, on the
+   card;
 5. serves the MLA workload (``workload.mla_config()``: DeepSeek-V2-Lite at
    full width with dense FFNs, seeded random bf16 weights): the scheduler
    on bf16 and int8 latent pools, ``Engine.generate`` on dense and paged
@@ -3255,6 +3272,343 @@ def xlstm_phase():
     return results
 
 
+# ---------------------------------------------------------------------------
+# Training: OLMo-1B at full width through make_train_step, the reduced
+# card-against-CPU steps, the checkpoint round trip, the elastic launcher
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "olmo-1b"
+TRAIN_DATA = dict(seq_len=128, batch_size=8)      # JAX's launcher's shape
+TRAIN_TIMED = 4                       # timed steps after the warm-up step
+# AdamW's floor a parameter: the bf16 grad and parameter read, the two
+# float32 moments read and written, the parameter written.
+ADAMW_BYTES_PER_PARAM = 2 + 2 + 8 + 8 + 2
+# remat recomputes the same bf16 ops: each grad leaf within one bf16 step
+# of its largest |g| (the recomputed forward may reorder no sum, but the
+# backward's accumulations over layers can).
+REMAT_RTOL = 2 ** -7
+# The reduced card-against-CPU step, float32 weights, TF32 off: the loss,
+# grad norm and metrics within 1e-5 relative; each grad leaf within 1e-4
+# of its largest |g| plus 1e-7 (a leaf whose exact gradient is 0 carries
+# noise alone); new parameters within 1e-6 + 1e-6·|p|, or 2·lr + 1e-6 where
+# the gradient sits in that noise band (AdamW's first step moves an
+# element by about lr·sign(g), and a noise-level g may flip its sign).
+PARITY_RTOL, GRAD_RTOL, GRAD_FLOOR = 1e-5, 1e-4, 1e-7
+PARITY_LR = 1e-3
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` hold the same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(_bits(a.detach().reshape(-1)),
+                            _bits(b.detach().reshape(-1))))
+
+
+def _leaf_share(got, want) -> float:
+    """The largest |got - want| of any leaf as a share of that leaf's
+    largest |want|."""
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def _grad_guard_check() -> dict:
+    """A loss on ``impl="kernel"`` raises on the card in the first kernel
+    wrapper the forward reaches (whisper's encoder: ``flash_attention``;
+    an RG-LRU layer: ``linear_scan``); the same forward runs under
+    ``torch.no_grad()``, and the plain path gives every leaf a grad."""
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.models import lm
+    out = {}
+    for arch, kernel in (("whisper-tiny", "flash_attention"),
+                         ("recurrentgemma-2b", "linear_scan")):
+        cfg = configs.reduced(configs.get(arch))
+        params = lm.init(cfg, seed=0, device="cuda")
+        leaves = [p.requires_grad_() for p in tree.leaves(params)]
+        gen = torch.Generator("cuda").manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda",
+                             generator=gen)
+        frames = (torch.randn((2, cfg.encoder.seq_len, cfg.d_model),
+                              device="cuda", generator=gen).bfloat16()
+                  if cfg.is_encdec else None)
+        try:
+            lm.forward(params, cfg, toks, enc_frames=frames, impl="kernel")
+        except RuntimeError as e:
+            if kernel not in str(e) or "no backward" not in str(e):
+                fail(f"{arch}: the guard raised the wrong error: {e}")
+        else:
+            fail(f"{arch}: forward(impl='kernel') under grad did not raise")
+        with torch.no_grad():
+            lm.forward(params, cfg, toks, enc_frames=frames, impl="kernel")
+        batch = {"tokens": toks, "targets": toks,
+                 "loss_mask": torch.ones(toks.shape, device="cuda")}
+        if frames is not None:
+            batch["enc_frames"] = frames
+        loss, _ = lm.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        out[arch] = {"raised_in": kernel, "plain_grad_leaves": len(grads)}
+    return out
+
+
+def train_phase() -> tuple[dict, object]:
+    """OLMo-1B at full width (seeded bf16 weights) through
+    ``make_train_step`` on one repeated batch of JAX's launcher's shape:
+    a warm-up step (every leaf gets a finite grad and changes; remat gives
+    the same loss and grads), TRAIN_TIMED timed steps (the loss falls), and
+    the step split into forward + backward and the optimizer.  Returns the
+    report and the trainer, whose state the checkpoint phase saves."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, shard_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step, to_device
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = configs.get(TRAIN_ARCH)
+    dc = DataConfig(vocab_size=cfg.vocab_size, **TRAIN_DATA)
+    tokens = dc.seq_len * dc.batch_size
+    n_params = cfg.param_count()
+    opt = AdamW(warmup=2, total_steps=TRAIN_TIMED + 2)
+    tcfg = TrainerConfig(steps=TRAIN_TIMED + 1, keep=1,
+                         checkpoint_dir=tempfile.mkdtemp(
+                             prefix="chip_smoke_ckpt_"))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, dc, tcfg, opt=opt, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params, state = trainer.params, trainer.opt_state
+    leaves = tree.leaves(params)
+    batch = to_device(shard_batches(dc, 0)[0], "cuda")
+    step = make_train_step(cfg, opt, remat=False)
+    ops.reset_launch_counts()
+
+    def fwd_bwd(remat=False):
+        loss, _ = lm.loss_fn(params, cfg, batch, remat=remat)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    loss0, grads = fwd_bwd()
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        fail("train: a gradient leaf is not finite")
+    loss_r, grads_r = fwd_bwd(remat=True)
+    remat_share = _leaf_share(grads_r, grads)
+    if float(loss_r) != float(loss0) or remat_share > REMAT_RTOL:
+        fail(f"train: remat changed the step: loss {float(loss_r)} vs "
+             f"{float(loss0)}, grads {remat_share:.3g} of a leaf's max")
+    del grads_r
+    before = [p.detach().clone() for p in leaves]
+    params, state, m = step(params, state, batch)
+    unchanged = [i for i, (a, p) in enumerate(zip(before, leaves))
+                 if _same_bits(a, p)]
+    del before
+    if unchanged:
+        fail(f"train: leaves {unchanged} did not change after a step")
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [float(m["loss"])], [float(m["grad_norm"])], []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))        # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not np.all(np.isfinite(losses + norms)):
+        fail(f"train: losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall on a repeated batch: {losses}")
+
+    def opt_step():
+        opt.update(grads, state, params)
+
+    split = {
+        "fwd_bwd_ms": cuda_ms(fwd_bwd, iters=3, warmup=1),
+        "fwd_bwd_wall_ms": host_ms(fwd_bwd, iters=3),
+        "fwd_bwd_device_ms": sum(device_kernel_us(fwd_bwd, 2).values())
+        / 1e3,
+        "opt_ms": cuda_ms(opt_step, iters=3, warmup=1),
+        "opt_wall_ms": host_ms(opt_step, iters=3),
+        "opt_device_ms": sum(device_kernel_us(opt_step, 2).values()) / 1e3,
+    }
+    launches = ops.launch_counts()
+    if sum(launches.values()):
+        fail(f"train: the plain training path launched kernels {launches}")
+    step_s = float(np.median(step_ms)) / 1e3
+    opt_floor_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    trainer.params, trainer.opt_state = params, state
+    trainer.step = TRAIN_TIMED + 1
+    return {"arch": TRAIN_ARCH, "params": n_params, "leaves": len(leaves),
+            "tokens_a_step": tokens, "init_s": init_s,
+            "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "step_ms_median": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
+            "model_flop_share": 6 * n_params * tokens / step_s
+            / BF16_FLOPS_PER_S,
+            **split, "opt_floor_ms": opt_floor_ms,
+            "opt_share_of_floor": opt_floor_ms / split["opt_device_ms"],
+            "remat_loss_equal": True, "remat_grad_share": remat_share,
+            "every_leaf_changed": True, "launches": launches,
+            "guard": _grad_guard_check()}, trainer
+
+
+def train_device_parity(arch: str) -> dict:
+    """One ``make_train_step`` of a reduced ``arch`` with float32 weights
+    on the card and on the CPU from the same tree and batch, held to the
+    PARITY rules: loss, grad norm, every grad leaf, the new parameters."""
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, shard_batches
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step, to_device
+
+    cfg = configs.reduced(configs.get(arch), d_model=64, vocab=256)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, batch_size=4)
+    batch = shard_batches(dc, 1)[0]
+    opt = AdamW(lr_peak=PARITY_LR, warmup=1, total_steps=4)
+    cpu = tree.map(lambda t: t.float(), lm.init(cfg, seed=0, device="cpu"))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        params = tree.map(lambda t: t.to(dev, copy=True), cpu)
+        leaves = [p.requires_grad_() for p in tree.leaves(params)]
+        loss, _ = lm.loss_fn(params, cfg, to_device(batch, dev))
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        params, _, m = make_train_step(cfg, opt, remat=False)(
+            params, opt.init(params), batch)
+        got[dev] = (float(loss.detach()), grads, {k: float(v) for k, v in m.items()},
+                    [p.detach().cpu() for p in tree.leaves(params)])
+    (l_c, g_c, m_c, p_c), (l_g, g_g, m_g, p_g) = got["cpu"], got["cuda"]
+    rel = {k: abs(m_g[k] / m_c[k] - 1) for k in ("loss", "grad_norm", "xent")}
+    rel["loss_fn"] = abs(l_g / l_c - 1)
+    if max(rel.values()) > PARITY_RTOL:
+        fail(f"train parity {arch}: {rel}")
+    grad_share, flips, param_err = 0.0, 0, 0.0
+    for gc_, gg, pc, pg in zip(g_c, g_g, p_c, p_g):
+        scale = float(gc_.abs().max())
+        err = float((gg - gc_).abs().max())
+        if err > GRAD_RTOL * scale + GRAD_FLOOR:
+            fail(f"train parity {arch}: a grad leaf {tuple(gc_.shape)} "
+                 f"off by {err:.3g} (max |g| {scale:.3g})")
+        grad_share = max(grad_share, err / max(scale, GRAD_FLOOR / GRAD_RTOL))
+        noise = gc_.abs() <= GRAD_RTOL * scale + GRAD_FLOOR
+        d = (pg - pc).abs()
+        tight = d <= 1e-6 + 1e-6 * pc.abs()
+        loose = d <= 2 * PARITY_LR + 1e-6
+        if not bool((tight | (noise & loose)).all()):
+            fail(f"train parity {arch}: new parameters off by "
+                 f"{float(d.max()):.3g}")
+        flips += int((~tight).sum())
+        param_err = max(param_err, float(d[~noise].max()) if
+                        bool((~noise).any()) else 0.0)
+    return {"loss_cpu": l_c, "loss_cuda": l_g, "rel": rel,
+            "grad_share": grad_share, "param_err": param_err,
+            "noise_flips": flips}
+
+
+def checkpoint_phase(trainer) -> dict:
+    """``Trainer.save`` of the full-width params and AdamW state, restored
+    into a fresh ``Trainer`` (other seed): every leaf bitwise, the step
+    too.  The directory is removed afterwards."""
+    import shutil
+    from repro_torch.core import tree
+    from repro_torch.training.trainer import Trainer
+    ckpt_dir = trainer.tcfg.checkpoint_dir
+    state = {"params": trainer.params, "opt": trainer.opt_state}
+    nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(state))
+    free = shutil.disk_usage(ckpt_dir).free
+    try:
+        if free < 1.1 * nbytes:
+            fail(f"checkpoint: {free / 1e9:.1f} GB free under {ckpt_dir}, "
+                 f"{nbytes / 1e9:.1f} GB needed at full width")
+        t = time.perf_counter()
+        trainer.save()
+        trainer.ckpt.wait()
+        save_s = time.perf_counter() - t
+        fresh = Trainer(trainer.cfg, trainer.data_cfg, trainer.tcfg,
+                        opt=trainer.opt, seed=1, device="cuda")
+        t = time.perf_counter()
+        if not fresh.maybe_restore():
+            fail("checkpoint: nothing to restore")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        want = tree.leaves(state)
+        got = tree.leaves({"params": fresh.params, "opt": fresh.opt_state})
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if a.device != b.device or not _same_bits(a, b)]
+        if bad or len(got) != len(want) or fresh.step != trainer.step:
+            fail(f"checkpoint: leaves {bad} did not come back bitwise "
+                 f"(step {fresh.step} vs {trainer.step})")
+        del fresh, got
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"bytes": nbytes, "leaves": len(want), "save_s": save_s,
+            "restore_s": restore_s, "free_bytes": free,
+            "save_gb_per_s": nbytes / save_s / 1e9,
+            "restore_gb_per_s": nbytes / restore_s / 1e9}
+
+
+ELASTIC_CMD = ["-m", "repro_torch.launch.train", "--arch", "olmo-1b",
+               "--steps", "8", "--workers", "2", "--fail-worker1-at", "3",
+               "--seq-len", "32", "--batch", "2"]
+
+
+def elastic_phase() -> dict:
+    """JAX's launcher test on the card: worker 1 crashes after 3 steps,
+    worker 2 reclaims its shard and finishes at step 8."""
+    import shutil
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        out = subprocess.run(
+            [sys.executable, *ELASTIC_CMD, "--ckpt-dir", ckpt],
+            env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")},
+            capture_output=True, text=True, timeout=300)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or not any(
+            ln.startswith("worker1: crashed=True") for ln in lines) or not \
+            any(ln.startswith("worker2: crashed=False step=8")
+                for ln in lines):
+        fail(f"elastic launcher: rc {out.returncode}\n{out.stdout[-2000:]}"
+             f"\n{out.stderr[-2000:]}")
+    return {"lines": [ln for ln in lines if ln.startswith("worker")]}
+
+
+def training_phases(card: str) -> dict:
+    """The four training phases in turn, each reported with its seconds."""
+    report = {}
+    t = time.perf_counter()
+    train, trainer = train_phase()
+    train["phase_s"] = time.perf_counter() - t
+    emit({"train": train, "card": card})
+    report["train"] = train
+    t = time.perf_counter()
+    ckpt = checkpoint_phase(trainer)
+    ckpt["phase_s"] = time.perf_counter() - t
+    emit({"train_checkpoint": ckpt, "card": card})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    parity = {arch: train_device_parity(arch)
+              for arch in ("olmo-1b", "recurrentgemma-2b")}
+    parity["phase_s"] = time.perf_counter() - t
+    emit({"train_card_cpu": parity, "card": card})
+    t = time.perf_counter()
+    elastic = elastic_phase()
+    elastic["phase_s"] = time.perf_counter() - t
+    emit({"train_elastic": elastic, "card": card})
+    report.update(checkpoint=ckpt, card_cpu=parity, elastic=elastic)
+    report["phases_s"] = sum(r["phase_s"] for r in
+                             (train, ckpt, parity, elastic))
+    return report
+
+
 def _path_launches(results, name: str) -> list[int]:
     """Kernel ``name``'s count in every launch-count dict that the paths'
     results hold (under a ``launches`` key, at any depth)."""
@@ -3332,7 +3686,11 @@ def main() -> int:
     emit({"disagg_serving": {k: v for k, v in disagg.items()
                              if k.startswith("streams")}, "card": card})
     trial_g = replicated_trial(cfg, params)
-    del params                  # the MLA model takes the card's memory next
+    del params                  # training takes the card's memory next
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = training_phases(card)
+    gc.collect()                # the MLA model takes the card next
     torch.cuda.empty_cache()
     mla_cfg, mla_params, mla_serving, streams = mla_serving_phase()
     emit({"mla_serving": mla_serving, "card": card})
@@ -3477,6 +3835,7 @@ def main() -> int:
         emit({"kernel": row["name"], **row})
     emit({"added_phases_s": added_s, "moe_xlstm_swap_phases_s": new_s,
           "paligemma_long_phases_s": pg_long_s,
+          "training_phases_s": training["phases_s"],
           "total_s": time.perf_counter() - t0})
     emit({"card": card})
     emit({"kernels": kernels})

@@ -1,4 +1,5 @@
-"""Carry JAX parameter and cache trees across into the port's layout.
+"""Carry JAX parameter, optimizer-state and cache trees across into the
+port's layout.
 
 Input trees hold numpy arrays (``jax.tree.map(np.asarray, tree)`` on the
 JAX side; this module imports no JAX).  bfloat16 leaves (ml_dtypes) move
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.training.optimizer import AdamWState
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -97,3 +99,15 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     device = resolve_device(device)
     return {"layers": _unstack(tree["groups"], tree.get("tail"), cfg,
                                device)}
+
+
+def opt_state_from_jax(state, cfg: ModelConfig, device=None):
+    """A JAX ``AdamWState`` (numpy leaves: ``step``, and ``mu`` / ``nu``
+    in the stacked tree of ``lm.init``) -> the port's ``AdamWState``: the
+    moments unstacked as :func:`params_from_jax` unstacks parameters, on
+    the card unless the caller passes ``device="cpu"``, and the step an
+    int32 scalar on the host."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        mu=params_from_jax(state.mu, cfg, device),
+        nu=params_from_jax(state.nu, cfg, device))

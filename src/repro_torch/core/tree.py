@@ -44,3 +44,28 @@ def map(fn: Callable, tree: Any, *rest: Any,
         return type(tree)(map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
                           for i, v in enumerate(tree))
     raise TypeError(f"not a tensor tree node: {type(tree).__name__}")
+
+
+def unflatten(like: Any, flat: list) -> Any:
+    """``flat`` (in ``leaves(like)`` order) rebuilt in ``like``'s structure
+    (NamedTuple types included): the inverse of :func:`leaves`."""
+    it = iter(flat)
+
+    def build(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if _is_namedtuple(node):
+            return type(node)(*(build(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        if node is None:
+            return None
+        raise TypeError(f"not a tensor tree node: {type(node).__name__}")
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out

@@ -7,7 +7,10 @@ on every path, then dispatches by device:
 
   * a CPU tensor takes the plain PyTorch version in ``ref``;
   * a CUDA tensor launches the Hopper kernel, or raises — there is no
-    fallback.
+    fallback.  No kernel has a backward (nor has any Pallas kernel of the
+    JAX package), so on the card a wrapper also raises while grad mode is
+    on and an input requires grad: its output would end the gradient
+    without a word.  Training runs ``impl="ref"``.
 
 ``impl="ref"`` asks for the plain version on any device: the model's plain
 path, which ``chip_smoke.py`` holds the kernel path against on the card
@@ -82,17 +85,29 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
-def _plain(x: torch.Tensor, impl: str) -> bool:
-    """True where the plain version runs: asked for, or a CPU tensor."""
+def _plain(impl: str, kernel: str, x: torch.Tensor, *rest) -> bool:
+    """True where the plain version runs: asked for, or ``x`` is a CPU
+    tensor.  On the card the kernel runs, unless grad mode is on and an
+    input (``x`` or ``rest``) requires grad: then this raises, because no
+    kernel has a backward and its output would end the gradient without a
+    word."""
     if impl == "ref":
         return True
     if impl != "kernel":
         raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
     if x.device.type == "cpu":
         return True
-    if x.device.type == "cuda":
-        return False
-    raise ValueError(f"no kernel for tensors on {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *rest) if t is not None):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, but the CUDA kernel has no "
+            f"backward (nor has its Pallas counterpart in the JAX "
+            f"package), so the gradient would stop here silently; training "
+            f"runs impl='ref' (lm.loss_fn's default), and inference calls "
+            f"the kernel under torch.no_grad()")
+    return False
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -102,7 +117,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     Query i sits at key position i + Tk - Tq.  A query row with no live
     key gives NaN in the plain version and 0 from the kernel."""
-    if _plain(q, impl):
+    if _plain(impl, "flash_attention", q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                    window=window)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
@@ -114,7 +129,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 def decode_attention(q, k, v, kv_len, *, scale: float | None = None,
                      impl: str = "kernel"):
     """q: [B, Hq, D]; k, v: [B, Hkv, S, D]; kv_len: i32[B] -> [B, Hq, D]."""
-    if _plain(q, impl):
+    if _plain(impl, "decode_attention", q, k, v):
         return ref.decode_attention(q, k, v, kv_len, scale=scale)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     return _dec.decode_attention(q.contiguous(), k, v,
@@ -138,7 +153,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, k_new,
     pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
     k_new = k_new.to(k_pages.dtype)
     v_new = v_new.to(v_pages.dtype)
-    if _plain(q, impl):
+    if _plain(impl, "paged_decode_attention", q, k_pages, v_pages, k_new,
+              v_new):
         return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                           pos, k_new, v_new, scale=scale,
                                           window=window)
@@ -167,7 +183,8 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, start, span,
     span = span.clamp(0, q.shape[2])
     k_new = k_new.to(k_pages.dtype)
     v_new = v_new.to(v_pages.dtype)
-    if _plain(q, impl):
+    if _plain(impl, "paged_chunk_attention", q, k_pages, v_pages, k_new,
+              v_new):
         return ref.paged_chunk_attention(q, k_pages, v_pages, block_tables,
                                          start, span, k_new, v_new,
                                          scale=scale, window=window)
@@ -194,7 +211,8 @@ def paged_decode_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
     """
     ps = k_pages.shape[2]
     pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
-    if _plain(q, impl):
+    if _plain(impl, "paged_decode_attention_quant", q, k_scales, v_scales,
+              k_new, v_new):
         return ref.paged_decode_attention_quant(
             q, k_pages, k_scales, v_pages, v_scales, block_tables, pos,
             k_new, v_new, scale=scale, window=window)
@@ -222,7 +240,8 @@ def paged_chunk_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
     ps = k_pages.shape[2]
     start = start.clamp(max=block_tables.shape[1] * ps - 1)
     span = span.clamp(0, q.shape[2])
-    if _plain(q, impl):
+    if _plain(impl, "paged_chunk_attention_quant", q, k_scales, v_scales,
+              k_new, v_new):
         return ref.paged_chunk_attention_quant(
             q, k_pages, k_scales, v_pages, v_scales, block_tables, start,
             span, k_new, v_new, scale=scale, window=window)
@@ -275,7 +294,8 @@ def paged_mla_decode(q_abs, q_rope, latent_pages, block_tables, pos,
     ps = latent_pages.shape[1]
     pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
     latent_new = latent_new.to(latent_pages.dtype)
-    if _plain(q_abs, impl):
+    if _plain(impl, "paged_mla_decode", q_abs, q_rope, latent_pages,
+              latent_new):
         return ref.paged_mla_decode(q_abs, q_rope, latent_pages,
                                     block_tables, pos, latent_new, r=r,
                                     scale=scale)
@@ -301,7 +321,8 @@ def paged_mla_chunk(q_abs, q_rope, latent_pages, block_tables, start, span,
     start = start.clamp(max=block_tables.shape[1] * ps - 1)
     span = span.clamp(0, q_abs.shape[2])
     latent_new = latent_new.to(latent_pages.dtype)
-    if _plain(q_abs, impl):
+    if _plain(impl, "paged_mla_chunk", q_abs, q_rope, latent_pages,
+              latent_new):
         return ref.paged_mla_chunk(q_abs, q_rope, latent_pages,
                                    block_tables, start, span, latent_new,
                                    r=r, scale=scale)
@@ -326,7 +347,8 @@ def paged_mla_decode_quant(q_abs, q_rope, latent_pages, latent_scales,
     r, _ = _mla_widths(q_abs, q_rope, latent_pages)
     ps = latent_pages.shape[1]
     pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
-    if _plain(q_abs, impl):
+    if _plain(impl, "paged_mla_decode_quant", q_abs, q_rope, latent_scales,
+              latent_new):
         return ref.paged_mla_decode_quant(
             q_abs, q_rope, latent_pages, latent_scales, block_tables, pos,
             latent_new, r=r, scale=scale)
@@ -352,7 +374,8 @@ def paged_mla_chunk_quant(q_abs, q_rope, latent_pages, latent_scales,
     ps = latent_pages.shape[1]
     start = start.clamp(max=block_tables.shape[1] * ps - 1)
     span = span.clamp(0, q_abs.shape[2])
-    if _plain(q_abs, impl):
+    if _plain(impl, "paged_mla_chunk_quant", q_abs, q_rope, latent_scales,
+              latent_new):
         return ref.paged_mla_chunk_quant(
             q_abs, q_rope, latent_pages, latent_scales, block_tables, start,
             span, latent_new, r=r, scale=scale)
@@ -374,7 +397,7 @@ def linear_scan(a, b, h0, *, impl: str = "kernel"):
     Pallas kernel does.  Time is not padded with identity steps: the
     kernel walks t < T.
     """
-    if _plain(a, impl):
+    if _plain(impl, "linear_scan", a, b, h0):
         y = ref.linear_scan(a, b, h0)
         return y, y[:, -1].float()
     return _scan.linear_scan(a.float().contiguous(), b.contiguous(),
@@ -436,7 +459,8 @@ def page_transfer_leaves(pairs, src_ids, dst_ids, *, impl: str = "kernel"):
                              f"cache.copy_pages)")
     if len(pairs) > 1:
         _check_apart(pairs)
-    if _plain(dsts[0], impl):
+    if _plain(impl, "page_transfer", dsts[0], *(t for pair in pairs
+                                                 for t in pair)):
         for src_pool, dst_pool in pairs:
             ref.page_transfer(src_pool, dst_pool, src_ids, dst_ids)
         return dsts
@@ -491,7 +515,7 @@ def lww_merge(key_a, pay_a, key_b, pay_b, *, impl: str = "kernel"):
         raise ValueError(
             f"lww_merge: banks do not match: a {tuple(pay_a.shape)} "
             f"({pay_a.dtype}) vs b {tuple(pay_b.shape)} ({pay_b.dtype})")
-    if _plain(key_a, impl):
+    if _plain(impl, "lww_merge", key_a, pay_a, pay_b):
         return ref.lww_merge(key_a, pay_a, key_b, pay_b)
     if key_a.shape[0] == 0:
         return key_a.clone(), pay_a.clone()
@@ -518,7 +542,7 @@ def delta_apply(key, pay, d_idx, d_key, d_pay, *, impl: str = "kernel"):
     if d_pay.shape[1:] != pay.shape[1:]:
         raise ValueError(f"delta_apply: lane rows {tuple(d_pay.shape[1:])} "
                          f"do not match bank rows {tuple(pay.shape[1:])}")
-    if _plain(key, impl):
+    if _plain(impl, "delta_apply", key, pay, d_pay):
         return ref.delta_apply(key, pay, d_idx, d_key, d_pay)
     if key.shape[0] == 0:
         return key.clone(), pay.clone()

@@ -14,7 +14,8 @@ attends bidirectionally, the text causally and to the whole prefix.
 Prompts past ``CHUNKED_THRESHOLD`` tokens run the blockwise attention path
 (``attention._sdpa_chunked``), as JAX's do.
 
-Entry points mirror ``repro.models.lm``: ``forward``, ``init_cache``,
+Entry points mirror ``repro.models.lm``: ``forward`` and ``loss_fn``
+(training, with ``remat``: each layer checkpointed), ``init_cache``,
 ``prefill``, ``decode_step``, ``mixed_step``, ``verify_step`` with
 ``rollback_snapshot`` / ``rollback_restore`` (speculative decoding) and,
 for recurrent (``state`` layout) layers, ``reset_state_rows``,
@@ -28,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import blocks, common
@@ -157,17 +159,37 @@ def _make_ctx(cfg: ModelConfig, t: int, device, prefix_len: int = 0,
                     mask_local=mask_local, prefix_len=prefix_len)
 
 
+def _checkpointed(kind: str, lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                  ctx: BlockCtx) -> tuple[torch.Tensor, None, torch.Tensor]:
+    """One cache-free layer whose activations the backward pass recomputes
+    (``torch.utils.checkpoint``, non-reentrant: the layer's parameters
+    reach it by closure and still get their gradients)."""
+    def layer(y):
+        y, _, a = blocks.block_apply(kind, lp, cfg, y, ctx, None)
+        return y, (torch.zeros((), dtype=torch.float32, device=y.device)
+                   if a is None else a)
+    y, a = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
+    return y, None, a
+
+
 def _run_blocks(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                ctx: BlockCtx, cache: Params | None
+                ctx: BlockCtx, cache: Params | None, remat: bool = False
                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """Every layer in order: (x, the new cache or None, the layers' aux
-    losses summed, a float32 scalar: 0 without an MoE layer)."""
+    losses summed, a float32 scalar: 0 without an MoE layer).
+
+    ``remat=True`` (training, ``cache`` None) checkpoints each layer: its
+    activations are recomputed in the backward pass, where JAX's
+    ``jax.checkpoint`` recomputes each scanned group."""
     kinds = cache_mod.layer_kinds(cfg)
     layers = cache["layers"] if cache is not None else [None] * len(kinds)
     new_layers = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp, lc in zip(kinds, p["layers"], layers):
-        x, lc, a = blocks.block_apply(kind, lp, cfg, x, ctx, lc)
+        if remat and cache is None:
+            x, lc, a = _checkpointed(kind, lp, cfg, x, ctx)
+        else:
+            x, lc, a = blocks.block_apply(kind, lp, cfg, x, ctx, lc)
         new_layers.append(lc)
         if a is not None:
             aux = aux + a
@@ -197,21 +219,50 @@ def _with_prefix(cfg: ModelConfig, x: torch.Tensor, prefix_embeds
 # ---------------------------------------------------------------------------
 
 def forward(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
-            enc_frames=None, impl: str = "kernel"
+            enc_frames=None, impl: str = "kernel", remat: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, Tt] -> (logits [B, T, V] float32, aux loss: the MoE
     layers' load-balancing losses summed, 0 without one).  T is Tt, plus
     P for a prefix-LM given ``prefix_embeds`` [B, P, d] (the logits cover
     prefix and text).  ``enc_frames`` [B, Te, d]: an encoder-decoder
-    model's encoder input."""
+    model's encoder input.  ``remat=True`` recomputes each layer's
+    activations in the backward pass.
+
+    The kernels have no backward (in either package): a loss differentiated
+    through ``impl="kernel"`` on the card raises in the kernel wrappers;
+    training runs ``impl="ref"`` (:func:`loss_fn`'s default)."""
     _check_supported(cfg)
     dev = p["embed"]["w"].device
     tokens = _tokens(tokens, dev)
     x, prefix_len = _with_prefix(cfg, _embed(p, cfg, tokens), prefix_embeds)
     ctx = _make_ctx(cfg, x.shape[1], dev, prefix_len)._replace(
         impl=impl, enc_out=_enc_out(p, cfg, enc_frames, impl, dev))
-    x, _, aux = _run_blocks(p, cfg, x, ctx, None)
+    x, _, aux = _run_blocks(p, cfg, x, ctx, None, remat=remat)
     return _final(p, cfg, x), aux
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch: dict, impl: str = "ref",
+            aux_weight: float = 0.01, remat: bool = False
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """batch: tokens [B, T], targets [B, T], loss_mask f32[B, T] (+ the
+    stub inputs ``prefix_embeds`` / ``enc_frames``), tensors or numpy.
+
+    Returns (xent + ``aux_weight`` · aux, {"xent", "moe_aux", "tokens"}):
+    the mean next-token cross-entropy over the masked positions (prefix
+    positions carry none: the last T logits are scored), float32."""
+    dev = p["embed"]["w"].device
+    logits, aux = forward(
+        p, cfg, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
+        enc_frames=batch.get("enc_frames"), impl=impl, remat=remat)
+    logits = logits[:, -batch["tokens"].shape[1]:]
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = _tokens(batch["targets"], dev).long()
+    tgt = torch.gather(logp, -1, tgt[..., None])[..., 0]
+    mask = _tokens(batch["loss_mask"], dev).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    xent = -(tgt * mask).sum() / denom
+    total = xent + aux_weight * aux
+    return total, {"xent": xent, "moe_aux": aux, "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------

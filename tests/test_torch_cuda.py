@@ -6,7 +6,10 @@ the RG-LRU's ``linear_scan``, the cross-pool ``page_transfer``,
 ``flash_attention`` on JAX's cases and whisper's encoder shape, the
 register-bank kernels ``lww_merge`` and ``delta_apply``, and the four
 chunk kernels' tensor-core walks, bf16 and quantized pools, on spans 1..64
-at page and tile edges, GQA groups, windows and key splits).
+at page and tile edges, GQA groups, windows and key splits); the kernel
+wrappers refusing an input that requires grad (no kernel has a backward),
+and one reduced float32 training step on the card against the CPU
+(``chip_smoke.train_device_parity``).
 
 Marked ``cuda``; every test takes the ``card`` fixture, which skips where no
 CUDA card is present (decided at run time, never at import).  On the card:
@@ -1863,3 +1866,56 @@ def test_moe_model_kernel_route_follows_the_routing_rule(card, quant):
         same &= ~_routed_apart(ck, cr, k)[0]
     if bool(same.any()):
         assert float((lk - lr).abs()[same].max()) <= 0.25
+
+
+# ---------------------------------------------------------------------------
+# Training: the kernels refuse a gradient; a reduced step, card vs CPU
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_a_gradient(card):
+    r = np.random.default_rng(0)
+    q = _t(r.normal(size=(1, 2, 64, 64)), torch.float32, card)
+    k, v = (_t(r.normal(size=(1, 2, 64, 64)), torch.float32, card)
+            for _ in range(2))
+    a = _t(r.uniform(0.5, 1.0, size=(2, 16, 32)), torch.float32, card)
+    b = _t(r.normal(size=(2, 16, 32)), torch.float32, card)
+    h0 = torch.zeros((2, 32), device=card)
+    before = ops.launch_counts()
+    for grad_in in (q, k):
+        grad_in.requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention(q, k, v, causal=False)
+        grad_in.requires_grad_(False)
+    b.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.linear_scan(a, b, h0)
+    assert ops.launch_counts() == before          # nothing launched
+    with torch.no_grad():                         # inference launches
+        ops.linear_scan(a, b, h0)
+    assert ops.launch_counts()["linear_scan"] == before["linear_scan"] + 1
+    # The plain version differentiates on the card, and on the CPU.
+    y = ops.linear_scan(a, b, h0, impl="ref")[0]
+    (g,) = torch.autograd.grad(y.sum(), b)
+    y_cpu = ops.linear_scan(a.cpu(), b.detach().cpu().requires_grad_(),
+                            h0.cpu())[0]
+    assert y_cpu.requires_grad
+    assert bool(torch.isfinite(g).all())
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "recurrentgemma-2b"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One reduced float32 ``make_train_step`` on the card and on the CPU
+    from the same tree, held to ``chip_smoke``'s parity rules (loss, grad
+    norm, every grad leaf, the new parameters)."""
+    out = _chip_smoke().train_device_parity(arch)
+    assert max(out["rel"].values()) <= 1e-5
