@@ -83,7 +83,20 @@
    exporter's bitwise in every layer and leaf, the adoption counters agree
    across paths, streams agree but at near-ties, and the crash run aborts,
    rolls back and completes every request exactly once; then trial run
-   (g), (a) on two page-table replicas with disaggregated homes; then,
+   (g), (a) on two page-table replicas with disaggregated homes; then the
+   fused decode + coordination step (``engine.make_fused_serve_step``,
+   phase ``fused_coord``): 8 rows prefilled with 128 tokens, R = 4
+   replicas stacked on the card (2 rows each, one doc slot a row), the
+   pmax, allgather and delta (capacity 64) merges, ``merge_every`` 1 and
+   4, on a dense cache (``decode_attention``) and on pages of 16
+   (``paged_decode_attention``), 32 steps each: after every merge all
+   replicas' digests equal and the doc is bitwise the fold join of the
+   replicas' own appends (the delta frontier that join's), the streams
+   equal the plain path's but at near-ties, the decode kernel launched
+   and none on the plain path; each step's and each merge's synchronized
+   ms and the wire bytes a sync; then a one-rank NCCL group (a file
+   store) and a (1, 1) ``DeviceMesh`` through the same step for 8 steps,
+   bitwise the stacked route at R = 1, the group destroyed after; then,
    the serving model freed, training: ``olmo-1b`` at full width (seeded
    bf16 weights, one repeated batch of ``DataConfig(vocab_size=50304,
    seq_len=128, batch_size=8)``, ``AdamW(warmup=2)``) through a
@@ -3609,6 +3622,264 @@ def training_phases(card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# The fused decode + coordination step (phase fused_coord)
+# ---------------------------------------------------------------------------
+
+FUSED = dict(rows=8, replicas=4, prompt_len=128, max_len=1024, page_size=16,
+             steps=32, nccl_steps=8, delta_capacity=64)
+FUSED_INACTIVE_ROW = 7              # one row keeps its token throughout
+FUSED_KERNEL = {False: "decode_attention", True: "paged_decode_attention"}
+
+
+def _fused_setup(cfg, params, paged, impl, rows, prompt_len, max_len,
+                 page_size):
+    """(cache, first token, pos, prompt) after prefilling ``rows`` seeded
+    prompts: the decode rows the fused step starts from."""
+    from repro_torch.models import attention, lm
+    dev = params["embed"]["w"].device
+    prompt = torch.as_tensor(np.random.default_rng(28).integers(
+        0, cfg.vocab_size, (rows, prompt_len)), device=dev)
+    cache = lm.init_cache(cfg, rows, max_len, paged=paged,
+                          page_size=page_size, device=dev)
+    if paged:
+        cache = lm.set_block_tables(cache, attention.default_block_tables(
+            rows, max_len, page_size, dev))
+    logits, cache = lm.prefill(params, cfg, prompt, cache, impl=impl)
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    pos = torch.full((rows,), prompt_len, dtype=torch.int32, device=dev)
+    return cache, token, pos, prompt
+
+
+def fused_coord_run(cfg, params, mesh, strategy, merge_every, *, paged,
+                    impl="kernel", steps=None, check=True, **kw) -> dict:
+    """``engine.make_fused_serve_step`` for ``steps`` steps on the rows of
+    ``FUSED`` (overrides in ``kw``), one slot a row, from a prefilled
+    prompt.  With ``check`` (a ``StackedMesh``), after every merge: all
+    replicas' doc digests equal, the merged doc bitwise the fold join of
+    the replicas' own appends, and the delta frontier that join's
+    frontier.  Returns the generated streams (the prefill's token first),
+    the coord, the launch counts of the steps alone and their
+    synchronized wall ms."""
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import doc as doc_mod
+    from repro_torch.core import gset
+    from repro_torch.core import merge as merge_mod
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import mesh as mesh_mod
+    from repro_torch.serving import engine
+    f = dict(FUSED, **kw)
+    steps = f["steps"] if steps is None else steps
+    rows = f["rows"]
+    dev = params["embed"]["w"].device
+    r = mesh_mod.local_replicas(mesh, ("data",))
+    cache, token, pos, prompt = _fused_setup(
+        cfg, params, paged, impl, rows, f["prompt_len"], f["max_len"],
+        f["page_size"])
+    slots = torch.arange(rows, dtype=torch.int32, device=dev)
+    active = torch.ones(rows, dtype=torch.bool, device=dev)
+    if rows > FUSED_INACTIVE_ROW:
+        active[FUSED_INACTIVE_ROW] = False
+    doc0 = doc_mod.empty(rows, steps, device=dev)
+    coord = {"doc": doc0,
+             "heartbeats": gset.GCounter.zeros(r, device=dev)}
+    if strategy == "delta":
+        coord = engine.with_delta_frontier(coord)
+    coord = engine.replicate_coord(coord, r)
+    own = [doc0] * r                # each replica's own appends, unmerged
+    step_fn = engine.make_fused_serve_step(
+        cfg, mesh, ("data",), impl=impl, merge_strategy=strategy,
+        merge_every=merge_every, delta_capacity=f["delta_capacity"])
+    stream, wall, checked = [token], [], 0
+    per = rows // r
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for t in range(steps):
+        t0 = time.perf_counter()
+        token, cache, pos, coord = step_fn(params, cache, token, pos, slots,
+                                           active, coord, t)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        stream.append(token)
+        if not check:
+            continue
+        for i in range(r):
+            sl = slice(i * per, (i + 1) * per)
+            own[i] = doc_mod.append_token_batch(own[i], slots[sl],
+                                                token[sl], active[sl])
+        if t % merge_every == 0:
+            want = merge_mod.fold_join(own)
+            digests = {int(doc_mod.digest(merge_mod.tree.map(
+                lambda x: x[i], coord["doc"]))) for i in range(r)}
+            if len(digests) != 1:
+                fail(f"fused {strategy}/{merge_every}: replicas' digests "
+                     f"differ after step {t}: {digests}")
+            for i in range(r):
+                got = merge_mod.tree.map(lambda x: x[i], coord["doc"])
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    fail(f"fused {strategy}/{merge_every}: replica {i}'s "
+                         f"doc is not the fold join at step {t}")
+                if strategy == "delta" and not torch.equal(
+                        coord["frontier"]["doc"].length[i],
+                        delta_mod.frontier(want).length):
+                    fail(f"fused delta/{merge_every}: frontier behind the "
+                         f"join at step {t}")
+            checked += 1
+    counts = ops.launch_counts()
+    return dict(stream=torch.stack(stream, 1).cpu().numpy(), coord=coord,
+                prompt=prompt.cpu().numpy(), launches=counts,
+                step_ms=float(np.median(wall)), step_ms_max=max(wall),
+                merges_checked=checked, merge_fn=engine.make_coord_merge(
+                    mesh, ("data",), strategy,
+                    delta_capacity=f["delta_capacity"]))
+
+
+def _fused_streams_tie_aware(cfg, params, a, b, label) -> dict:
+    """Row by row, two fused runs' streams are equal, or their first
+    difference falls where the plain path's top-2 gap is at most twice the
+    logit tolerance."""
+    differing, gaps = 0, []
+    for row, (sa, sb) in enumerate(zip(a["stream"], b["stream"])):
+        diff = np.nonzero(sa != sb)[0]
+        if not diff.size:
+            continue
+        differing += 1
+        j = int(diff[0])
+        gap = _stream_gap(cfg, params, a["prompt"][row], sa, j)
+        gaps.append(gap)
+        if gap > 2 * LOGITS_ATOL:
+            fail(f"fused streams ({label}): row {row} differs at {j} where "
+                 f"the top-2 gap is {gap}")
+    return dict(rows_differing=differing, gaps=gaps)
+
+
+def _merge_ms(run, iters: int = 10) -> float:
+    """Synchronized wall ms of one merge of the run's final coord."""
+    coord = run["coord"]
+    run["merge_fn"](coord)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run["merge_fn"](coord)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _wire_bytes(strategy, run, r, capacity) -> int:
+    """Bytes on the wire for one sync of ``r`` replicas: JAX's model
+    (``delta.full_state_wire_bytes``) for the full-state strategies; for
+    the delta ring the shipped buffers' ``nbytes`` over r·(r-1) hops."""
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import tree
+    state = {k: tree.map(lambda x: x[0], v)
+             for k, v in run["coord"].items() if k != "frontier"}
+    if strategy != "delta":
+        return delta_mod.full_state_wire_bytes(strategy, r,
+                                               delta_mod.nbytes(state))
+    fr = tree.map(lambda x: x[0], run["coord"]["frontier"])
+    d, _ = delta_mod.extract(state, fr, capacity)
+    return r * (r - 1) * delta_mod.nbytes(d)
+
+
+def fused_nccl_check(cfg, params, strategies=("pmax", "allgather", "delta"),
+                     **kw) -> dict:
+    """The process-group route on the card: a one-rank NCCL group (file
+    store), a (1, 1) ``DeviceMesh``, the fused step per strategy; tokens
+    and coord bitwise those of the stacked route at R = 1.  The group is
+    destroyed whatever happens."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import tree
+    from repro_torch.sharding.mesh import StackedMesh
+    torch.cuda.set_device(params["embed"]["w"].device)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            for s in strategies:
+                runs = [fused_coord_run(cfg, params, m, s, 1, paged=False,
+                                        check=False, **kw)
+                        for m in (mesh, StackedMesh((1, 1),
+                                                    ("data", "model")))]
+                same_tokens = np.array_equal(runs[0]["stream"],
+                                             runs[1]["stream"])
+                same_coord = all(torch.equal(a, b) for a, b in zip(
+                    tree.leaves(runs[0]["coord"]),
+                    tree.leaves(runs[1]["coord"])))
+                if not (same_tokens and same_coord):
+                    fail(f"NCCL route {s}: tokens equal {same_tokens}, "
+                         f"coord equal {same_coord} against R = 1 stacked")
+                out[s] = dict(steps=runs[0]["stream"].shape[1] - 1,
+                              step_ms=runs[0]["step_ms"],
+                              launches=runs[0]["launches"],
+                              merge_ms=_merge_ms(runs[0]))
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def fused_coord_phase(cfg, params, card) -> dict:
+    """OLMo-1B at full width through the fused decode + coordination step:
+    R = 4 replicas stacked on the card (2 rows each), the pmax, allgather
+    and delta strategies, ``merge_every`` 1 and 4, a dense cache
+    (``decode_attention``) and pages of 16 (``paged_decode_attention``),
+    through the kernels, and once a cache through the plain versions
+    (streams tie-aware, no kernel launched); then the one-rank NCCL route
+    against R = 1."""
+    from repro_torch.sharding.mesh import StackedMesh
+    t0 = time.perf_counter()
+    mesh = StackedMesh((FUSED["replicas"], 1), ("data", "model"))
+    out = {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        kernel = FUSED_KERNEL[paged]
+        ref = fused_coord_run(cfg, params, mesh, "pmax", 1, paged=paged,
+                              impl="ref")
+        if sum(ref["launches"].values()):
+            fail(f"fused {label} ref run launched {ref['launches']}")
+        runs = {}
+        for strategy in ("pmax", "allgather", "delta"):
+            for every in (1, 4):
+                run = fused_coord_run(cfg, params, mesh, strategy, every,
+                                      paged=paged)
+                if run["launches"][kernel] <= 0:
+                    fail(f"fused {label} {strategy}/{every} never launched "
+                         f"{kernel}")
+                ties = _fused_streams_tie_aware(cfg, params, run, ref,
+                                                f"{label} {strategy}")
+                runs[f"{strategy}/{every}"] = dict(
+                    step_ms=run["step_ms"], step_ms_max=run["step_ms_max"],
+                    merge_ms=_merge_ms(run), launches=run["launches"],
+                    merges_checked=run["merges_checked"],
+                    wire_bytes_per_sync=_wire_bytes(
+                        strategy, run, FUSED["replicas"],
+                        FUSED["delta_capacity"]),
+                    ref_agree_share=_agree_share(run["stream"],
+                                                 ref["stream"]),
+                    ref_ties=ties)
+                del run
+        out[label] = dict(runs=runs, ref=dict(step_ms=ref["step_ms"],
+                                               launches=ref["launches"]),
+                          fused_launches=runs["pmax/1"]["launches"][kernel])
+        emit({"fused_coord": label, **{k: {kk: vv for kk, vv in v.items()
+                                           if kk != "launches"}
+                                       for k, v in runs.items()},
+              "card": card})
+    out["nccl"] = fused_nccl_check(cfg, params, steps=FUSED["nccl_steps"])
+    out["phase_s"] = time.perf_counter() - t0
+    emit({"fused_coord_nccl": {k: {kk: vv for kk, vv in v.items()
+                                   if kk != "launches"}
+                               for k, v in out["nccl"].items()},
+          "fused_coord_phase_s": out["phase_s"], "card": card})
+    return out
+
+
 def _path_launches(results, name: str) -> list[int]:
     """Kernel ``name``'s count in every launch-count dict that the paths'
     results hold (under a ``launches`` key, at any depth)."""
@@ -3686,6 +3957,7 @@ def main() -> int:
     emit({"disagg_serving": {k: v for k, v in disagg.items()
                              if k.startswith("streams")}, "card": card})
     trial_g = replicated_trial(cfg, params)
+    fused = fused_coord_phase(cfg, params, card)
     del params                  # training takes the card's memory next
     gc.collect()
     torch.cuda.empty_cache()
@@ -3750,7 +4022,7 @@ def main() -> int:
     # each path's counts read right after its run.  lww_merge has no path:
     # its count is summed over every path's counts, and must be 0.
     paths = [bench, paper, serving, olmo_spec, swap, trial, trial_h, disagg,
-             trial_g, mla_serving, mla_spec, trial_e, moe, dense_moe,
+             trial_g, fused, mla_serving, mla_spec, trial_e, moe, dense_moe,
              rec_serving, rec_spec, trial_f, xlstm, whisper, paligemma,
              long]
     lww = _path_launches(paths, "lww_merge")
@@ -3827,6 +4099,11 @@ def main() -> int:
             # PaliGemma's paged Engine at head_dim 256.
             row["d256_launches"] = (paligemma["paged"]["kernel"]["launches"]
                                     ["paged_decode_attention"])
+        if row["name"] in FUSED_KERNEL.values():
+            # The fused decode + coordination step (pmax, every step).
+            row["fused_launches"] = fused[
+                "paged" if row["name"] == "paged_decode_attention"
+                else "dense"]["fused_launches"]
         if row["name"] in spec_paths:
             # The speculative runs' verify steps, at their span widths.
             row["spec_launches"] = spec_paths[row["name"]]
@@ -3836,6 +4113,7 @@ def main() -> int:
     emit({"added_phases_s": added_s, "moe_xlstm_swap_phases_s": new_s,
           "paligemma_long_phases_s": pg_long_s,
           "training_phases_s": training["phases_s"],
+          "fused_coord_phase_s": fused["phase_s"],
           "total_s": time.perf_counter() - t0})
     emit({"card": card})
     emit({"kernels": kernels})

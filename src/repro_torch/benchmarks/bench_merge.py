@@ -18,9 +18,9 @@ sync (eager, warm, the device synchronised after each call) and reports
     merge/<strategy>/R<r>_S<s>_rate<rate>,<us_per_sync>,bytes=<wire_bytes>
 
 rows per the harness CSV contract.  ``pmax`` is timed as the join over a
-replica axis (``merge.pmax_merge`` on the stacked replicas with
-``merge.stacked_max``, the single-process stand-in for the collective, as
-JAX's bench times ``vmap(pmax_merge)``).  A final section times the
+replica axis (``merge.pmax_merge`` on the stacked replicas over a
+``merge.StackedAxis``, the single-process route of the collective, as JAX's
+bench times ``vmap(pmax_merge)``).  A final section times the
 ``delta_apply`` CUDA kernel against its plain version (on the CPU the plain
 version alone).
 
@@ -132,7 +132,7 @@ def sweep_cell(n_rep: int, slot_cap: int, rate: float, *, runs: int = 5,
             "allgather": _time(lambda: merge_mod.fold_join(replicas), runs,
                                dev),
             "pmax": _time(lambda: merge_mod.pmax_merge(
-                stacked, merge_mod.stacked_max), runs, dev),
+                stacked, merge_mod.StackedAxis((n_rep,))), runs, dev),
             "delta": _time(lambda: delta_round()[0], runs, dev),
         },
         "delta_exact": exact,

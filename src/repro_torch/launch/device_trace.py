@@ -7,14 +7,20 @@ kernel record is not.  Measured (PERF.md): in some processes most
 traces of 20 calls lost the records of their first 1-4 launches, now and
 then a stretch of 40; one-launch traces came back empty a few times in
 2,000, three in a row.  A route check then reads an empty trace, and a
-device time summed over such a trace undercounts without notice.
+device time summed over such a trace undercounts without notice.  In one
+process every trace lost 2 counted records of DeepSeek-V2-Lite's MoE FFN
+at a decode step, whose lead-in call has 38 (34 launches, 4 copies and
+sets): a stretch of 40 at each trace's start.
 
-``kernel_trace`` runs ``fn`` once as a lead-in inside the trace and
-synchronizes, then runs the ``iters`` calls it reads: the lead-in takes
-the losses at the start of a trace.  It matches the counted launches to
-kernel records by correlation id and takes a trace that lost any again,
-after a pause.  When every attempt lost some, it raises: a time or a
-kernel list read from such a trace would be short without notice.
+``kernel_trace`` launches ``LEAD_LAUNCHES`` one-element kernels and runs
+``fn`` once as a lead-in inside the trace and synchronizes, then runs
+the ``iters`` calls it reads: the lead-in takes the losses at the start
+of a trace, however few records ``fn`` itself has. It matches the
+counted launches to kernel records, and the counted copies and sets to
+their Memcpy / Memset records, by correlation id and takes a trace that
+lost any again, after a pause. When every attempt lost some, it raises:
+a time or a kernel list read from such a trace would be short without
+notice.
 
     us = kernel_trace(lambda: ops.paged_mla_decode(...), iters=20)
     # {kernel name: mean device µs a call}
@@ -34,6 +40,9 @@ import torch
 
 # Pauses before each attempt: a stretch of lost records lasted ~0.35 s.
 PAUSES_S = (0.0, 0.25, 0.5, 1.0, 2.0)
+# Kernel launches at the start of each trace, before the lead-in call:
+# three times the longest stretch of lost records seen at a trace's start.
+LEAD_LAUNCHES = 128
 # The share of a whole trace's launches that may lack their kernel record
 # when no attempt is whole: device time summed over it is short by about
 # that share of the launches (reported beside it).
@@ -48,6 +57,25 @@ def _lost(host, device) -> tuple[int, int]:
     recorded = {e.correlation_id() for e in device
                 if not e.name().startswith(("Memcpy", "Memset"))}
     return len(launches), len(launches - recorded)
+
+
+def _lost_moves(host, device) -> int:
+    """Memory operations among the runtime events ``host``
+    (``cudaMemcpyAsync``, ``cudaMemsetAsync``) whose correlation id has no
+    Memcpy / Memset record among ``device``: a call that only copies (a
+    ``clone``) has no kernel launch to show that its trace lost records."""
+    moves = {e.correlation_id() for e in host
+             if "Memcpy" in e.name() or "Memset" in e.name()}
+    recorded = {e.correlation_id() for e in device
+                if e.name().startswith(("Memcpy", "Memset"))}
+    return len(moves - recorded)
+
+
+def _lead_launches(n: int) -> None:
+    """``n`` launches of a one-element kernel on the current device."""
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(n):
+        pad.add_(1)
 
 
 def _split(events) -> tuple[list, list]:
@@ -66,8 +94,9 @@ def lost_records(events) -> tuple[int, int]:
 
 def read(events, iters: int) -> tuple[dict[str, float], int]:
     """({device kernel or memory operation name: mean µs a call}, launches
-    without a kernel record) of the calls after a trace's first
-    synchronize (the lead-in's), from its raw kineto events."""
+    and memory operations without their device record) of the calls after
+    a trace's first synchronize (the lead-in's), from its raw kineto
+    events."""
     host, device = _split(events)
     cut = next((e.start_ns() for e in host if "Synchronize" in e.name()),
                None)
@@ -79,7 +108,7 @@ def read(events, iters: int) -> tuple[dict[str, float], int]:
     for e in device:
         if e.correlation_id() in calls:
             us[e.name()] += e.duration_ns() / 1e3 / iters
-    return dict(us), _lost(counted, device)[1]
+    return dict(us), _lost(counted, device)[1] + _lost_moves(counted, device)
 
 
 def kernel_trace(fn, iters: int = 1) -> dict[str, float]:
@@ -94,7 +123,8 @@ def kernel_trace(fn, iters: int = 1) -> dict[str, float]:
     for pause in PAUSES_S:
         time.sleep(pause)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()                                  # the lead-in: not read
+            _lead_launches(LEAD_LAUNCHES)         # the lead-in: not read
+            fn()
             torch.cuda.synchronize()
             for _ in range(iters):
                 fn()

@@ -30,6 +30,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import activation
 
 Params = Any
 
@@ -379,8 +380,11 @@ def decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     s = cache["k"].shape[2]
     rows = torch.arange(b, device=x.device)
     slot = (pos % s).long()
-    cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+    # The new token's K/V resharded while tiny, under a binding.
+    k_tok = activation.constrain(k[:, :, 0], "batch", None, None)
+    v_tok = activation.constrain(v[:, :, 0], "batch", None, None)
+    cache["k"][rows, :, slot] = k_tok.to(cache["k"].dtype)
+    cache["v"][rows, :, slot] = v_tok.to(cache["v"].dtype)
     kv_len = (pos + 1).clamp(max=s)
     if cfg.window is None or s <= cfg.window:
         # No window, or the cache holds no more than the window (a ring

@@ -36,6 +36,7 @@ from repro_torch.models import blocks, common
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.blocks import BlockCtx
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import activation
 
 Params = Any
 
@@ -96,6 +97,8 @@ def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         logits = x @ p["embed"]["w"].t().to(x.dtype)
     else:
         logits = common.dense(p["head"], x)
+    # Logits stay vocab-sharded through the float32 loss under a binding.
+    logits = activation.constrain(logits, "batch", None, "vocab")
     return common.softcap(logits.float(), cfg.logit_softcap)
 
 
@@ -186,6 +189,9 @@ def _run_blocks(p: Params, cfg: ModelConfig, x: torch.Tensor,
     new_layers = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp, lc in zip(kinds, p["layers"], layers):
+        if cache is None:
+            # The sequence-parallel residual stream between layers.
+            x = activation.constrain(x, "batch", "seq", None)
         if remat and cache is None:
             x, lc, a = _checkpointed(kind, lp, cfg, x, ctx)
         else:

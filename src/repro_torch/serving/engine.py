@@ -1,11 +1,20 @@
-"""Serving engine: prefill/decode/mixed step functions and the host-side
-generation loop.
+"""Serving engine: prefill/decode/mixed step functions, the host-side
+generation loop, and the fused decode + coordination step.
 
 The step factories mirror ``repro.serving.engine``.  JAX jits each step and
 compiles it once per width bucket; the port runs them eagerly (a CUDA graph
 per bucket is a later, measured change), so ``width_bucket`` only bounds
 the set of shapes the kernels see.  Sampling at temperature > 0 draws from
 an explicit ``torch.Generator``; greedy decoding needs none.
+
+``make_fused_serve_step`` threads the CRDT coordination state through the
+decode step: each data-parallel replica hosts a set of agents (its
+decode-batch rows), appends their tokens to its own SlotDoc replica, and
+the replicas converge through a collective merge (pmax, all-gather or the
+delta ring; ``core/merge.py``), the collective playing the role of the
+paper's WebSocket relay.  The mesh is a ``sharding.mesh.StackedMesh`` (every
+replica in one process, stacked on the coord leaves' leading dim) or a
+``DeviceMesh`` (one replica a rank over gloo or NCCL).
 
 ``make_gossip_fns`` is the delta-sync triple the replicated page table's
 host gossip runs (``serving/replicated.py``, the simulator).
@@ -18,8 +27,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import delta as delta_mod
+from repro_torch.core import doc as doc_mod
+from repro_torch.core import gset, tree
+from repro_torch.core import merge as merge_mod
 from repro_torch.models import attention, lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import mesh as mesh_mod
 
 Params = Any
 
@@ -175,6 +188,104 @@ def make_gossip_fns(template: Any, capacity: Any = 32) -> GossipFns:
     state template (any registered type or dict container); ``capacity``
     is an int or ``(key, cap)`` pairs with a ``"*"`` default."""
     return GossipFns(template, capacity)
+
+
+# ---------------------------------------------------------------------------
+# Fused decode + CRDT coordination
+# ---------------------------------------------------------------------------
+
+def replicate_coord(coord: Any, n_replicas: int) -> Any:
+    """Stack a coordination state into per-replica rows [R, ...] (each
+    replica its own storage)."""
+    return tree.map(
+        lambda x: x.expand((n_replicas,) + tuple(x.shape)).clone(), coord)
+
+
+def with_delta_frontier(coord: dict) -> dict:
+    """Attach the delta-sync frontier to a coordination dict.
+
+    The delta merge strategy threads a shared frontier (the previous sync
+    point) alongside the CRDT state; it rides in the coord dict under
+    ``"frontier"`` so the fused step's signature is unchanged."""
+    state = {k: v for k, v in coord.items() if k != "frontier"}
+    return dict(coord, frontier=delta_mod.frontier(state))
+
+
+def make_coord_merge(mesh, dp_axes: tuple[str, ...],
+                     strategy: str = "pmax", *, delta_capacity: Any = 64):
+    """Collective merge of the per-replica CRDT state (leaves [r, ...]:
+    every replica of a ``StackedMesh``, a rank's own of a ``DeviceMesh``).
+
+    For ``strategy="delta"`` the coord dict must carry a ``"frontier"``
+    entry (see ``with_delta_frontier``); deltas beyond it ring-circulate
+    instead of the full state."""
+    axes = mesh_mod.replica_axes(mesh, dp_axes)
+    if strategy not in ("pmax", "allgather", "delta"):
+        raise ValueError(f"unknown merge strategy: {strategy}")
+
+    def merge_fn(coord: dict) -> dict:
+        if strategy == "delta":
+            state = {k: v for k, v in coord.items() if k != "frontier"}
+            merged, fr = merge_mod.delta_merge(
+                state, coord["frontier"], axes, capacity=delta_capacity)
+            return dict(merged, frontier=fr)
+        return merge_mod.collective_merge(coord, axes, strategy)
+
+    return merge_fn
+
+
+def make_fused_serve_step(cfg: ModelConfig, mesh, dp_axes: tuple[str, ...],
+                          *, impl: str = "kernel",
+                          merge_strategy: str = "pmax",
+                          merge_every: int = 1, delta_capacity: Any = 64,
+                          temperature: float = 0.0):
+    """Decode one token per agent stream AND converge coordination state.
+
+    (params, cache, token [B], pos [B], slots i32[B], active bool[B],
+    coord, step, gen=None) -> (next_token, cache, pos, coord).
+
+    ``coord`` is ``{"doc": SlotDoc, "heartbeats": GCounter}`` (plus
+    ``"frontier"`` for the delta strategy) with leaves stacked [r, ...]
+    over the replicas this process holds; the B rows split into r runs of
+    B / r consecutive rows, one a replica (as ``shard_map`` splits the
+    batch over the data axes).  ``step`` is a Python int: the merge runs
+    when ``step % merge_every == 0``, decided on the host.
+
+    The model runs on every row this process holds (data-parallel across
+    the ranks of a ``DeviceMesh``, replicated across ``model``); each
+    replica appends its rows' tokens to its own doc and every worker
+    beats; then the collective join makes every replica observe everyone's
+    edits.  ``temperature > 0`` samples with the caller's
+    ``torch.Generator`` ``gen``."""
+    merge_fn = make_coord_merge(mesh, dp_axes, merge_strategy,
+                                delta_capacity=delta_capacity)
+    n_local = mesh_mod.local_replicas(mesh, dp_axes)
+
+    def append_local(coord, token, slots, active):
+        def local(state, tok, sl, act):
+            d = doc_mod.append_token_batch(state["doc"], sl, tok, act)
+            hb = gset.GCounter(state["heartbeats"].counts + 1)
+            return dict(state, doc=d, heartbeats=hb)
+
+        rows = lambda x: x.reshape(n_local, -1)
+        return merge_mod.per_replica(local, coord, rows(token), rows(slots),
+                                     rows(active))
+
+    def serve_step(params, cache, token, pos, slots, active, coord,
+                   step: int, gen: Optional[torch.Generator] = None):
+        if temperature > 0.0 and gen is None:
+            raise ValueError("temperature > 0 requires a torch.Generator")
+        logits, cache = lm.decode_step(params, cfg, token, cache, pos,
+                                       impl=impl)
+        nxt = sample_token(logits, gen, temperature)
+        nxt = torch.where(active, nxt, token)
+        coord = append_local(coord, nxt, slots, active)
+        if step % merge_every == 0:
+            coord = merge_fn(coord)
+        pos = pos + active.to(pos.dtype)
+        return nxt, cache, pos, coord
+
+    return serve_step
 
 
 class Engine:

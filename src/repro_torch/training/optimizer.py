@@ -9,8 +9,8 @@ place under ``torch.no_grad()`` (PyTorch's idiom: no second copy of a
 
 The step count lives on the host (an int32 scalar on the CPU), so the
 learning rate and the bias corrections are host scalars and the update
-never waits for the card.  ZeRO-1 sharding of the moments (the reference's
-``zero1_specs``) waits for the port's partitioner.
+never waits for the card.  ``zero1_specs`` gives the moments' ZeRO-1
+partition specs from the partitioner's parameter specs.
 """
 from __future__ import annotations
 
@@ -87,3 +87,28 @@ class AdamW(NamedTuple):
         return params, new_state, {
             "grad_norm": gnorm,
             "lr": torch.tensor(lr, dtype=torch.float32)}
+
+
+def zero1_specs(param_specs: Params, params: Params,
+                data_axes: tuple[str, ...], data_size: int) -> Params:
+    """Adam-moment partition specs: a parameter's spec with its first
+    replicated, divisible dim sharded over the data axes (ZeRO-1).
+
+    JAX's rule on a layer's own spec and shape.  JAX applies it to moments
+    stacked [G, ...] a block-pattern slot, so wherever G divides the data
+    size it shards the layer axis (full OLMo-1B: 16 layers on the
+    production mesh's data = 16); the port keeps one tensor a layer and
+    shards the first such dim of the layer's shape instead."""
+    from repro_torch.sharding.partition import P
+
+    def moment_spec(spec, leaf):
+        shape = tuple(leaf.shape)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        for i, (ax, dim) in enumerate(zip(parts, shape)):
+            if ax is None and dim % data_size == 0 and dim >= data_size:
+                parts[i] = data_axes
+                break
+        return P(*parts)
+
+    return tree.map(moment_spec, param_specs, params,
+                    is_leaf=lambda x: isinstance(x, P))

@@ -1919,3 +1919,46 @@ def test_train_step_on_card_matches_cpu(card, arch):
     norm, every grad leaf, the new parameters)."""
     out = _chip_smoke().train_device_parity(arch)
     assert max(out["rel"].values()) <= 1e-5
+
+
+FUSED_KW = dict(rows=8, prompt_len=16, max_len=64, page_size=16, steps=8)
+
+
+def _fused_model():
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.reduced(configs.get("olmo-1b"), d_model=64, vocab=128)
+    return cfg, lm.init(cfg, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_fused_step_stacked_kernel_matches_plain(card, paged):
+    """The fused decode + coordination step at R = 4 stacked on the card,
+    every strategy: through the kernels (the decode kernel launched, every
+    merge checked against the fold join by ``chip_smoke.fused_coord_run``)
+    and through the plain versions (no launch); streams equal but at
+    near-ties."""
+    cs = _chip_smoke()
+    from repro_torch.sharding.mesh import StackedMesh
+    cfg, params = _fused_model()
+    mesh = StackedMesh((4, 1), ("data", "model"))
+    ref = cs.fused_coord_run(cfg, params, mesh, "pmax", 1, paged=paged,
+                             impl="ref", **FUSED_KW)
+    assert sum(ref["launches"].values()) == 0
+    for strategy in ("pmax", "allgather", "delta"):
+        for every in (1, 4):
+            run = cs.fused_coord_run(cfg, params, mesh, strategy, every,
+                                     paged=paged, **FUSED_KW)
+            assert run["launches"][cs.FUSED_KERNEL[paged]] > 0
+            assert run["merges_checked"] == len(range(0, 8, every))
+            cs._fused_streams_tie_aware(cfg, params, run, ref, strategy)
+
+
+def test_fused_step_nccl_one_rank_matches_stacked(card):
+    """The process-group route on one NCCL rank: tokens and coord bitwise
+    the stacked route's at R = 1, for every strategy."""
+    cs = _chip_smoke()
+    cfg, params = _fused_model()
+    out = cs.fused_nccl_check(cfg, params, **FUSED_KW)
+    assert sorted(out) == ["allgather", "delta", "pmax"]
+    assert all(o["launches"]["decode_attention"] > 0 for o in out.values())

@@ -1,9 +1,11 @@
-"""``repro_torch.launch.device_trace`` on the CPU, with stand-in profiler
-events: only the calls after the lead-in's synchronize are read, a launch
-without its kernel record (matched by correlation id) makes a trace
-incomplete, and ``kernel_trace`` takes an incomplete trace again after a
-pause, and raises when none is whole.  (On the card the same code reads real traces:
-``tests/test_torch_cuda.py``, ``chip_smoke.py``, ``bench_attention.py``.)
+"""``repro_torch.launch.device_trace`` on the CPU, with stand-in
+profiler events: only the calls after the lead-in's synchronize are
+read, a launch without its kernel record (matched by correlation id)
+makes a trace incomplete, and ``kernel_trace`` opens each trace with
+``LEAD_LAUNCHES`` launches and a lead-in call, takes an incomplete trace
+again after a pause, and raises when none is whole. (On the card the
+same code reads real traces: ``tests/test_torch_cuda.py``,
+``chip_smoke.py``, ``bench_attention.py``.)
 """
 from __future__ import annotations
 
@@ -75,16 +77,35 @@ def test_read_counts_the_calls_after_the_lead_in(calls, lost, memcpy, want):
     assert device_trace.read(_trace(calls, lost, memcpy), calls) == want
 
 
+def test_read_counts_a_copy_without_its_record():
+    """A trace that lost a counted copy's Memcpy record is incomplete,
+    also where the copy is all the call does (no kernel launch)."""
+    ev = _trace(2, (), memcpy=True)
+    drop = [e for e in ev if e.name().startswith("Memcpy")][1]
+    ev = [e for e in ev if e is not drop]
+    assert device_trace.read(ev, 2) == ({
+        "void walk<16>(float*)": 2.0,
+        "Memcpy DtoD (Device -> Device)": 0.25}, 1)
+    only_copies = [e for e in ev if "walk" not in e.name()
+                   and "LaunchKernel" not in e.name()]
+    assert device_trace.read(only_copies, 2) == ({
+        "Memcpy DtoD (Device -> Device)": 0.25}, 1)
+
+
 def test_read_without_a_synchronize_is_incomplete():
     ev = [e for e in _trace(1) if "Synchronize" not in e.name()]
     assert device_trace.read(ev, 1) == ({}, 1)
 
 
-def _fake_profiler(monkeypatch, traces):
+def _fake_profiler(monkeypatch, traces, calls=None):
     """torch.profiler.profile handing out, in turn, the events of
     ``traces`` (each the ``lost`` launches of a 2-call trace); returns the
-    pauses."""
+    pauses.  ``calls``, where given, gets ``("lead", n)`` for each burst
+    of lead-in launches."""
     pauses, queue = [], list(traces)
+    monkeypatch.setattr(device_trace, "_lead_launches",
+                        lambda n: calls is not None
+                        and calls.append(("lead", n)))
 
     class Prof:
         def __init__(self, activities):
@@ -112,14 +133,15 @@ def _fake_profiler(monkeypatch, traces):
 
 def test_kernel_trace_takes_an_incomplete_trace_again(monkeypatch):
     """Two traces that lost a counted record, then a whole one: the third
-    is read, after growing pauses; each attempt runs a lead-in call
-    before its counted calls."""
-    pauses = _fake_profiler(monkeypatch, [(1,), (2,), (0,)])
+    is read, after growing pauses; each attempt opens with the burst of
+    lead-in launches and a lead-in call before its counted calls."""
     calls = []
+    pauses = _fake_profiler(monkeypatch, [(1,), (2,), (0,)], calls)
     got = device_trace.kernel_trace(lambda: calls.append(1), iters=2)
     assert got == {"void walk<16>(float*)": 2.0}
     assert pauses == list(device_trace.PAUSES_S[:3])
-    assert len(calls) == 3 * (1 + 2)
+    assert calls == [("lead", device_trace.LEAD_LAUNCHES), 1, 1, 1] * 3
+    assert device_trace.LEAD_LAUNCHES >= 3 * 40
 
 
 def test_kernel_trace_raises_when_every_trace_is_incomplete(monkeypatch):

@@ -298,7 +298,7 @@ def _to_jax(x):
 @pytest.mark.parametrize("kind", ["lww", "board", "counters", "glog", "rga",
                                   "slotdoc", "container"])
 def test_pmax_merge_stacked_matches_jax_vmap(kind, seed):
-    """The port's ``pmax_merge`` with ``stacked_max`` against JAX's
+    """The port's ``pmax_merge`` on a ``StackedAxis`` against JAX's
     ``vmap(pmax_merge, axis_name=...)`` on the same stacked replicas, and
     every replica of it against ``fold_join``."""
     tr = _port_replicas(kind, 300 + seed)
@@ -307,7 +307,7 @@ def test_pmax_merge_stacked_matches_jax_vmap(kind, seed):
     tstack = T.merge.tree.map(lambda *xs: torch.stack(xs), *tr)
     jm = jax.jit(jax.vmap(lambda s: J.merge.pmax_merge(s, "r"),
                           axis_name="r"))(jstack)
-    tm = T.merge.pmax_merge(tstack, T.merge.stacked_max)
+    tm = T.merge.pmax_merge(tstack, T.merge.StackedAxis((len(tr),)))
     assert_same(jm, tm)
     want = T.merge.fold_join(tr)
     assert_same(J.merge.fold_join(jr), want)
@@ -319,13 +319,13 @@ def test_pmax_merge_stacked_matches_jax_vmap(kind, seed):
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bool])
 def test_stacked_max_gives_each_replica_its_own_copy(dtype):
-    """``stacked_max`` leaves every replica the max in storage of its own,
+    """A ``StackedAxis``' max leaves every replica the max in storage of its own,
     as an all-reduce does: writing one replica's result leaves the others
     as they were."""
     x = torch.as_tensor(np.random.default_rng(5).integers(0, 9, (3, 4, 5)))
     x = x.to(dtype)
     x0 = x.clone()
-    got = T.merge.stacked_max(x)
+    got = T.merge.StackedAxis((3,)).max(x)
     want = x.amax(0) if dtype != torch.bool else x.any(0)
     for i in range(3):
         assert torch.equal(got[i], want)
