@@ -174,6 +174,28 @@ paged shape (head_dim 256, ``d256_`` keys), at granite-34b's group of 48
 on one KV head (``g48_``) and starcoder2-15b's group of 12 (``g12_``), and
 ``decode_attention`` at PaliGemma's dense shape (``pg_``).
 
+Right after the tables, the serving benchmark (``serving_bench_phase``):
+``benchmarks.bench_serving.run_bench`` on the card at its full sizes, then
+at ``--quick``, whose report goes through ``benchmarks.check_regression``
+against the port's CPU baseline
+(``benchmarks/baselines/BENCH_serving_quick.json``): every line must pass
+but those that follow from the generated tokens (the speculative sweeps'
+draft and rollback counts, the int8 identity flags: ``gate_against_cpu``),
+which the card's kernels may move by breaking the sim LLM's exact logit
+ties otherwise, and which are held to the card's own rules instead; every
+analytic counter must equal the baseline's (write and read bytes a step,
+resident MB, slot bytes, transfer bytes) and every acceptance flag
+of the quick run true (the full run's too, but the two JAX's own bench
+computes false at those sizes, ``FULL_SIZE_FALSE``; the int8 greedy-
+identity flags, where false, held to the card's tie-aware rule instead,
+``INT8_IDENTITY``: every token that differs does so at a bf16 top-2 gap
+of at most ``TIE_GAP``, read from the gaps the same report holds); the
+launches of the MHA kernels and ``page_transfer`` during the full run are
+counted (``decode_attention`` has no caller in
+the sweeps: their dense rows run the mixed step's masked path, as JAX's
+do); then the three examples run as subprocesses with ``--device
+cuda``, each exiting 0.
+
 The trials hash (task, TODO) pairs into their prompts, so the script runs
 itself again under ``PYTHONHASHSEED=0`` when the variable is not ``0``:
 every run's prompts, and so its trial digests, repeat.
@@ -2588,6 +2610,223 @@ def tables_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The serving benchmark and the examples
+# ---------------------------------------------------------------------------
+
+# The kernels the serving benchmark's sweeps can reach: the schedulers'
+# mixed steps (bf16 and quantized pools), the quant-error report's decode
+# steps, the disaggregated server's page moves.  The sweeps' dense rows run
+# the mixed step's masked path, so decode_attention stays at 0 (as in
+# JAX's bench, whose dense mixed step is a masked einsum too).
+BENCH_KERNELS = ("paged_chunk_attention", "paged_decode_attention",
+                 "paged_chunk_attention_quant",
+                 "paged_decode_attention_quant", "page_transfer")
+BENCH_FLAGS = ("admission", "replication", "fault_tolerance",
+               "disaggregation", "quantization", "memory_tiers",
+               "speculation")
+# The two flags JAX's own bench computes false at its full sizes, on the
+# same workload (checked with the JAX package's functions on the CPU): its
+# second crash step (8) finds no request in flight on the crashed replica,
+# so there is nothing to recover; and int8 pools part the greedy streams
+# from bf16's at 16 new tokens over 119-token prompts (ROADMAP queue 3:
+# int8 streams do not equal the reference's in the engine).  The quick
+# run, which the gate reads, must have every flag true.
+FULL_SIZE_FALSE = ("fault_tolerance.crash_runs_recovered",
+                   "quantization.streams_match_int8")
+# The bench's greedy-identity flags between int8 and bf16 pools.  On the
+# card the two pools' kernels round differently, and the sim LLM has exact
+# logit ties (512 tokens over 64 widths), so a tie may break either way
+# (ROADMAP queue 3: int8 streams are gated on the logit error, not on
+# identity).  Where one is false, it is held to the card's tie-aware rule
+# instead (``_int8_ties``): every greedy token that differs does so where
+# the bf16 pool's top-2 gap is at most ``TIE_GAP``, the bound the CPU
+# tests hold the same model to (``tests/torch_agents_common.py``).
+INT8_IDENTITY = ("quantization.streams_match_int8",
+                 "quantization.greedy_match_int8")
+TIE_GAP = 0.125
+EXAMPLES = (("quickstart",), ("multi_agent_codegen", "tic_tac_toe", "2"),
+            ("serve_demo",))
+
+
+def _bench_flags(report) -> dict:
+    """Every acceptance flag of a bench report, by section."""
+    return {f"{sec}.{k}": v for sec in BENCH_FLAGS
+            for k, v in report[sec].items() if isinstance(v, bool)}
+
+
+def _int8_ties(report, false: list) -> dict:
+    """The false int8 identity flags of one run, judged on the gaps that
+    run's report holds: each teacher-forced step of the quant-error report
+    and each sweep stream that parts from the bf16 pool's does so at a
+    bf16 top-2 gap of at most ``TIE_GAP``."""
+    out = {}
+    if "quantization.greedy_match_int8" in false:
+        out["teacher_forced"] = \
+            report["quant_error"]["modes"]["int8"]["flip_gaps"]
+    if "quantization.streams_match_int8" in false:
+        out["streams"] = [g for r in report["quant"]
+                          if r["kv_quant"] == "int8"
+                          for g in r["first_diff_gaps"]]
+    for key, gaps in out.items():
+        if not gaps or max(gaps) > TIE_GAP:
+            fail(f"int8 {key} part from the bf16 pool's at top-2 gaps "
+                 f"{gaps} (a tie is a gap of at most {TIE_GAP})")
+    return out
+
+
+# The gate's lines that follow from the generated tokens: the speculative
+# sweeps' draft and rollback counts (a drafter proposes from the stream so
+# far, so a tie broken otherwise drafts and rolls back other spans; the
+# card moved ``spec ngram rollback_tokens`` 4 -> 6) and the int8 identity
+# flags.  The card's kernels break the sim LLM's exact logit ties
+# otherwise than the CPU's plain path, so these move between the two
+# devices with no change of code (the gate's premise, bit-identical
+# reruns, holds on one device).  On the card they are held instead to
+# that device's own rules: every speculative stream equal to the card's
+# greedy stream and the agents' digests equal (flags that must be true),
+# and the int8 identity flags tie-aware (``_int8_ties``).  Every other
+# speculative line (steps, acceptance, µs an accepted token) must pass.
+TOKEN_COUNTERS = ("draft_tokens", "rollback_tokens")
+INT8_GATE_LINES = ("int8 greedy streams identical to bf16 pools: FAIL",
+                   "int8 teacher-forced argmax matches reference: FAIL")
+
+
+def gate_against_cpu(report, baseline) -> dict:
+    """``check_regression.check`` of a card report against the CPU
+    baseline: the failed lines (missing rows included) that must not
+    fail, and the token-dependent ones, kept apart.  The per-counter
+    table at the end only sums the lines above it."""
+    from repro_torch.benchmarks import check_regression
+    ok, lines = check_regression.check(baseline, report, 0.15, 0.50)
+    lines = lines[:lines.index("per-counter gate table:")]
+    bad = [l.strip() for l in lines if "FAIL" in l or "MISSING" in l]
+    token = [l for l in bad if l in INT8_GATE_LINES
+             or (l.startswith(("spec ", "spec-agents "))
+                 and l.split(":")[0].split()[-1] in TOKEN_COUNTERS)]
+    return dict(ok=ok, lines=len(lines), token_dependent=token,
+                failed=[l for l in bad if l not in token])
+
+
+def _paged_over_dense(report) -> dict:
+    """µs a token of each paged row over its dense row's (the gate's
+    normalized timing)."""
+    us = {(r["mode"], r["batch"], r["skew"]): r["us_per_token"]
+          for r in report["rows"]}
+    return {f"b{b}_{skew}": us[("paged", b, skew)] / us[("dense", b, skew)]
+            for (mode, b, skew) in us if mode == "paged"}
+
+
+def _bench_analytic(report) -> dict:
+    """The analytic counters of a quick report: functions of the cache
+    trees' shapes and of the schedule, the same on every device."""
+    out = {}
+    for r in report["rows"]:
+        for k in ("write_bytes_per_step", "read_bytes_per_step",
+                  "resident_cache_mb"):
+            out[f"rows/{r['mode']}_b{r['batch']}_{r['skew']}/{k}"] = r[k]
+    for r in report["quant"]:
+        for k in ("write_bytes_per_step", "read_bytes_per_step",
+                  "resident_cache_mb", "slot_bytes"):
+            out[f"quant/{r['kv_quant']}/{k}"] = r[k]
+    for r in report["prefix_share"]:
+        out[f"prefix/f{r['fanout']}_{r['cow']}/resident_cache_mb"] = \
+            r["resident_cache_mb"]
+    for r in report["disagg"]:
+        for k in ("transfer_bytes", "transfer_bytes_per_step"):
+            out[f"disagg/{r['adoption']}/{k}"] = r[k]
+    return out
+
+
+def _examples() -> dict:
+    """The three examples as subprocesses with ``--device cuda``, run
+    together; each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t = time.perf_counter()
+    procs = {args[0]: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{args[0]}",
+         *args[1:], "--device", "cuda"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for args in EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"example {name} exited {proc.returncode}: "
+                     f"{stderr[-1500:]}")
+            out[name] = dict(rc=proc.returncode,
+                             last_line=stdout.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    out["wall_s"] = time.perf_counter() - t
+    return out
+
+
+def serving_bench_phase(card) -> dict:
+    """The port's serving benchmark on the card, at JAX's default sizes
+    and at ``--quick``; the quick report through the regression gate
+    against the CPU baseline, its analytic counters equal to the
+    baseline's, every flag true, the MHA kernels and ``page_transfer``
+    launched; then the three examples."""
+    import tempfile
+
+    from repro_torch.benchmarks import bench_serving, check_regression
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, quick in (("full", False), ("quick", True)):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            csv = []
+            report = bench_serving.run_bench(
+                quick=quick, out=os.path.join(tmp, f"{label}.json"),
+                emit_csv=csv.append, device="cuda")
+            torch.cuda.synchronize()
+            runs[label] = dict(report=report, csv=csv,
+                               wall_s=time.perf_counter() - t,
+                               launches=ops.launch_counts())
+    false = {label: sorted(k for k, v in _bench_flags(run["report"]).items()
+                           if not v) for label, run in runs.items()}
+    allowed = dict(quick=INT8_IDENTITY, full=FULL_SIZE_FALSE + INT8_IDENTITY)
+    bad = {label: [k for k in keys if k not in allowed[label]]
+           for label, keys in false.items()}
+    if any(bad.values()):
+        fail(f"serving bench acceptance flags false: {bad}")
+    ties = {label: _int8_ties(runs[label]["report"], false[label])
+            for label in runs}
+    baseline = json.loads(check_regression.BASELINE.read_text())
+    quick = runs["quick"]["report"]
+    gate = gate_against_cpu(quick, baseline)
+    if gate["failed"]:
+        fail("serving bench regression gate against the CPU baseline: "
+             + "; ".join(gate["failed"]))
+    want, got = _bench_analytic(baseline), _bench_analytic(quick)
+    diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if diff or set(got) != set(want):
+        fail(f"serving bench analytic counters differ from the CPU "
+             f"baseline's: {diff}")
+    launches = runs["full"]["launches"]
+    for name in BENCH_KERNELS:
+        if launches[name] <= 0:
+            fail(f"the serving bench never launched {name}")
+    examples = _examples()
+    return dict(
+        full_s=runs["full"]["wall_s"], quick_s=runs["quick"]["wall_s"],
+        launches=launches, quick_launches=runs["quick"]["launches"],
+        flags={label: len(_bench_flags(run["report"]))
+               for label, run in runs.items()}, false_flags=false,
+        int8_ties=ties,
+        gate=gate, analytic_counters=len(want),
+        paged_over_dense=dict(card=_paged_over_dense(quick),
+                              cpu_baseline=_paged_over_dense(baseline)),
+        csv={label: run["csv"] for label, run in runs.items()},
+        examples=examples, phase_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # Speculative decoding at full width
 # ---------------------------------------------------------------------------
 
@@ -3936,6 +4175,8 @@ def main() -> int:
     paper = tables_phase()
     emit({"paper_tables": paper, "card": card})
     added_s = time.perf_counter() - t_tables
+    bench_serving = serving_bench_phase(card)
+    emit({"serving_bench": bench_serving, "card": card})
     cfg, params, serving, streams = serving_phase()
     emit({"serving": serving, "card": card})
     t_added = time.perf_counter()
@@ -4021,7 +4262,8 @@ def main() -> int:
     # flash_attention on the whisper Engine, delta_apply on bench_merge,
     # each path's counts read right after its run.  lww_merge has no path:
     # its count is summed over every path's counts, and must be 0.
-    paths = [bench, paper, serving, olmo_spec, swap, trial, trial_h, disagg,
+    paths = [bench, paper, bench_serving, serving, olmo_spec, swap, trial,
+             trial_h, disagg,
              trial_g, fused, mla_serving, mla_spec, trial_e, moe, dense_moe,
              rec_serving, rec_spec, trial_f, xlstm, whisper, paligemma,
              long]
@@ -4108,12 +4350,19 @@ def main() -> int:
             # The speculative runs' verify steps, at their span widths.
             row["spec_launches"] = spec_paths[row["name"]]
         row.update(new_paths.get(row["name"], {}))
+        if row["name"] in BENCH_KERNELS + ("decode_attention",):
+            # The serving benchmark (PR 29): its full run, and the quick
+            # run the gate reads.
+            row["bench_launches"] = bench_serving["launches"][row["name"]]
+            row["bench_quick_launches"] = (
+                bench_serving["quick_launches"][row["name"]])
         row["kernel_ms"] = row["ms"]
         emit({"kernel": row["name"], **row})
     emit({"added_phases_s": added_s, "moe_xlstm_swap_phases_s": new_s,
           "paligemma_long_phases_s": pg_long_s,
           "training_phases_s": training["phases_s"],
           "fused_coord_phase_s": fused["phase_s"],
+          "serving_bench_phase_s": bench_serving["phase_s"],
           "total_s": time.perf_counter() - t0})
     emit({"card": card})
     emit({"kernels": kernels})

@@ -26,6 +26,7 @@ updated in place; recurrent layers hand back new state tensors.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
@@ -58,7 +59,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     the JAX reference's weights use ``convert.params_from_jax``."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (_MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     d, v = cfg.d_model, cfg.vocab_size
     p: dict[str, Any] = {
         "embed": {"w": (torch.randn((v, d), generator=gen, device=dev)
@@ -79,6 +81,31 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
             "norm": common.norm_init(d, cfg.norm_type, dev),
         }
     return p
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator that reports the ``meta`` device, which has none of its
+    own: the draws of ``init`` on ``meta`` tensors read no state."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The tree ``init`` makes, as ``meta`` tensors: every leaf's shape
+    and dtype with nothing allocated (the dry run's parameters)."""
+    return init(cfg, device="meta")
+
+
+@contextlib.contextmanager
+def unrolled_scans():
+    """Kept for JAX's name, and does nothing.  JAX's dry run unrolls its
+    layer-group ``lax.scan``s under it, because XLA's cost analysis counts
+    a scan body once.  The port has no scan: it keeps one module a layer
+    and loops over them in Python, so every layer's operations are counted
+    as they run."""
+    yield
 
 
 # ---------------------------------------------------------------------------

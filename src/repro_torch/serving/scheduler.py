@@ -82,6 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import tree
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -1314,3 +1315,20 @@ class ContinuousBatchingEngine:
         """Accepted drafts / proposed drafts (0.0 before any speculation)."""
         return (self.stats["accepted_tokens"]
                 / max(1, self.stats["draft_tokens"]))
+
+    def resident_cache_bytes(self) -> int:
+        """Bytes of KV actually pinned right now.
+
+        Dense: the whole cache allocation, always.  Paged: pages in use ×
+        per-page bytes of every pool and scale leaf — what a pool sized to
+        the live-token watermark would hold.  Shared (prefix) pages count
+        once."""
+        if not self.paged:
+            return sum(int(x.nbytes) for x in tree.leaves(self.cache))
+        used = self.allocator.num_pages - self.allocator.available
+        total = 0
+        for _, layout, layer in cache_mod.iter_layers(self.cache):
+            for name in cache_mod.pool_leaves(layout):
+                pool = layer[name]
+                total += int(pool.nbytes) * used // pool.shape[0]
+        return total

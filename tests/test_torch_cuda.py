@@ -1962,3 +1962,34 @@ def test_fused_step_nccl_one_rank_matches_stacked(card):
     out = cs.fused_nccl_check(cfg, params, **FUSED_KW)
     assert sorted(out) == ["allgather", "delta", "pmax"]
     assert all(o["launches"]["decode_attention"] > 0 for o in out.values())
+
+
+def test_quick_serving_bench_passes_the_gate_against_the_cpu_baseline(
+        card, tmp_path):
+    """``bench_serving --quick`` on the card through ``check_regression``
+    against the port's CPU baseline: every line passes but the ones that
+    follow from the generated tokens (``chip_smoke.gate_against_cpu``: the
+    card's kernels may break the sim LLM's exact logit ties otherwise),
+    every analytic counter equals the baseline's, and every flag is true
+    but the int8 identity ones, which where false are held tie-aware
+    (``chip_smoke._int8_ties``)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.benchmarks import bench_serving, check_regression
+    report = bench_serving.run_bench(quick=True, out=tmp_path / "b.json",
+                                     emit_csv=lambda row: None,
+                                     device="cuda")
+    baseline = json.loads(check_regression.BASELINE.read_text())
+    gate = chip_smoke.gate_against_cpu(report, baseline)
+    assert not gate["failed"], gate
+    assert (chip_smoke._bench_analytic(report)
+            == chip_smoke._bench_analytic(baseline))
+    flags = chip_smoke._bench_flags(report)
+    assert all(v for k, v in flags.items()
+               if k not in chip_smoke.INT8_IDENTITY), flags
+    chip_smoke._int8_ties(report, [k for k, v in flags.items() if not v])
+    assert report["quant_error"]["all_within_tol"]

@@ -93,12 +93,16 @@ def test_packet_does_not_see_a_later_in_place_write():
 
 
 def test_fixture_is_applied_where_jax_runs_the_replicated_table():
-    """The four port test files that run JAX's replicated page table import
-    the fixture (a file that forgets it reads racy JAX traces)."""
+    """The port test files that run JAX's replicated page table import the
+    fixture (a file that forgets it reads racy JAX traces); the agent
+    trials' files all do."""
     from pathlib import Path
     here = Path(__file__).parent
+    agents = sorted(p.name for p in here.glob("test_torch_agents*.py"))
+    assert len(agents) >= 3, agents
     for name in ("test_torch_replicated.py", "test_torch_fault_tolerance.py",
-                 "test_torch_disagg.py", "test_torch_agents.py"):
+                 "test_torch_disagg.py", "test_torch_bench_serving.py",
+                 *agents):
         text = (here / name).read_text()
         assert ("from test_torch_jax_state import _jax_state_from_copies"
                 in text), name

@@ -31,7 +31,8 @@ from repro_torch.agents.tasks import TaskSpec as TTaskSpec  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
-from test_torch_agents import TIE_GAP, _jax_factories, _port_factories  # noqa: E402,E501
+from torch_agents_common import (TIE_GAP, _jax_factories,  # noqa: E402
+                                 _port_factories)
 from test_torch_tables import _one_thread  # noqa: E402,F401
 
 

@@ -35,8 +35,9 @@ from repro_torch.agents.tasks import TASKS  # noqa: E402
 from repro_torch.benchmarks import common as tcommon  # noqa: E402
 from repro_torch.benchmarks import tables as ttables  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
-from test_torch_agents import (TIE_GAP, TOKEN_DEPENDENT,  # noqa: E402
-                               _first_flips, _jax_factories, _port_factories)
+from torch_agents_common import (TIE_GAP, TOKEN_DEPENDENT,  # noqa: E402
+                                 _first_flips, _jax_factories,
+                                 _port_factories)
 
 SUITE_TABLES = ("table3", "table4", "table5", "table7", "rq3_consistency")
 
