@@ -4119,6 +4119,219 @@ def fused_coord_phase(cfg, params, card) -> dict:
     return out
 
 
+SHARDED = dict(rows=8, prompt_len=128, max_len=256, page_size=16, steps=8)
+DRYRUN_CELLS = (
+    ("baseline", []),
+    ("fused_delta", ["--fused-coord", "--merge-strategy", "delta"]))
+
+
+def _dryrun_records() -> dict:
+    """The dry run of olmo-1b x decode_32k on the single mesh, plain and
+    with the fused delta step, each in its own process (the fake group of
+    256 ranks is that process's default group): both records must carry
+    collective bytes with a positive total."""
+    from repro_torch.launch import dryrun
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = {v: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "olmo-1b", "--shape", "decode_32k", "--mesh", "single", "--force",
+         "--variant", v, *flags], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for v, flags in DRYRUN_CELLS}
+    out = {}
+    for v, p in procs.items():
+        _, err = p.communicate(timeout=300)
+        path = dryrun.OUT_DIR / "single" / f"olmo-1b__decode_32k__{v}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        coll = rec.get("collective_bytes_per_device") or {}
+        if p.returncode or rec.get("status") != "ok" or not (
+                coll.get("total", 0) > 0):
+            fail(f"dry run {v}: rc {p.returncode}, status "
+                 f"{rec.get('status')}, collectives {coll}: {err[-2000:]}")
+        out[v] = {"count_s": rec["count_s"],
+                  "flops_per_device": rec["flops_per_device"],
+                  "bytes_per_device": rec["bytes_per_device"],
+                  "collective_bytes_per_device": coll}
+    return out
+
+
+def _refuses(fn) -> bool:
+    from repro_torch.kernels import ops
+    try:
+        fn()
+    except ops.ShardedKernelError:
+        return True
+    return False
+
+
+def _sharded_serve(cfg, params, sp, rows, paged: bool) -> dict:
+    """Prefill SHARDED rows and decode SHARDED["steps"] tokens on plain
+    tensors and on the ``DTensor`` model (``impl="ref"``, the plain path
+    a sharded run takes), the plain run's tokens fed to both: logits each
+    step and the final cache bitwise."""
+    from repro_torch.core import tree
+    from repro_torch.models import attention, lm
+    from repro_torch.sharding import activation, partition
+    sh = SHARDED
+    dev = params["embed"]["w"].device
+    prompt = torch.as_tensor(np.random.default_rng(30).integers(
+        0, cfg.vocab_size, (sh["rows"], sh["prompt_len"])), device=dev)
+    cache = lm.init_cache(cfg, sh["rows"], sh["max_len"], paged=paged,
+                          page_size=sh["page_size"], device=dev)
+    if paged:
+        cache = lm.set_block_tables(cache, attention.default_block_tables(
+            sh["rows"], sh["max_len"], sh["page_size"], dev))
+    part = partition.Partitioner(rows.mesh, fsdp=False)
+    sc = partition.shard_cache(tree.map(torch.clone, cache), part)
+    def bind():
+        return activation.bind(activation.standard_binding(("data",)))
+
+    times = {}
+    with torch.no_grad():
+        t = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, prompt, cache, impl="ref")
+        torch.cuda.synchronize()
+        times["plain_prefill_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        with bind():
+            sl, sc = lm.prefill(sp, cfg, rows(prompt), sc, impl="ref")
+        torch.cuda.synchronize()
+        times["sharded_prefill_ms"] = (time.perf_counter() - t) * 1e3
+        equal = [torch.equal(logits, sl.full_tensor())]
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        pos = torch.full((sh["rows"],), sh["prompt_len"], dtype=torch.int32,
+                         device=dev)
+        plain_ms, sharded_ms = [], []
+        for _ in range(sh["steps"]):
+            t = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, token, cache, pos,
+                                           impl="ref")
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            with bind():
+                sl, sc = lm.decode_step(sp, cfg, rows(token), sc, rows(pos),
+                                        impl="ref")
+            torch.cuda.synchronize()
+            sharded_ms.append((time.perf_counter() - t) * 1e3)
+            equal.append(torch.equal(logits, sl.full_tensor()))
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            pos = pos + 1
+        cache_equal = all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(cache), tree.leaves(partition.full_tensor(sc))))
+    label = "paged" if paged else "dense"
+    if not (all(equal) and cache_equal):
+        fail(f"sharded {label}: logits equal a step {equal}, cache equal "
+             f"{cache_equal}")
+    return {**times, "plain_decode_ms": float(np.median(plain_ms)),
+            "sharded_decode_ms": float(np.median(sharded_ms)),
+            "steps": sh["steps"], "bitwise": True}
+
+
+def _sharded_train(cfg, params, mesh, rows) -> dict:
+    """One FSDP train step of the training phase's shape on ``DTensor``
+    leaves against the same step on plain tensors: loss, grad norm, the
+    new parameters and moments bitwise."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, shard_batches
+    from repro_torch.sharding import activation, partition
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step, to_device
+    dc = DataConfig(vocab_size=cfg.vocab_size, **TRAIN_DATA)
+    batch = to_device(shard_batches(dc, 0)[0], params["embed"]["w"].device)
+    opt = AdamW(warmup=2, total_steps=4)
+    step = make_train_step(cfg, opt)
+    part = partition.Partitioner(mesh, fsdp=True)
+    plain = tree.map(lambda x: x.detach().clone(), params)
+    state = opt.init(plain)
+    sp = partition.shard_params(tree.map(lambda x: x.detach().clone(),
+                                         params), part)
+    sst = partition.shard_opt_state(opt.init(params), params, part)
+    t = time.perf_counter()
+    plain, state, m = step(plain, state, batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    with activation.bind(activation.standard_binding(("data",))):
+        sp, sst, sm = step(sp, sst, {k: rows(v) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t) * 1e3
+    full = partition.full_tensor
+    checks = {
+        "loss": torch.equal(m["loss"], full(sm["loss"])),
+        "grad_norm": torch.equal(m["grad_norm"], full(sm["grad_norm"])),
+        "params": all(torch.equal(a.detach(), b.detach()) for a, b in zip(
+            tree.leaves(plain), tree.leaves(full(sp)))),
+        "moments": all(torch.equal(a, b) for a, b in zip(
+            tree.leaves([state.mu, state.nu]),
+            tree.leaves(full([sst.mu, sst.nu]))))}
+    if not all(checks.values()):
+        fail(f"sharded train step: bitwise {checks}")
+    return {"plain_ms": plain_ms, "sharded_ms": sharded_ms,
+            "loss": float(m["loss"]), "bitwise": checks}
+
+
+def sharded_phase(cfg, params, card) -> dict:
+    """OLMo-1B at full width on ``DTensor`` parameters: a one-rank NCCL
+    group (file store) and a (1, 1) ("data", "model") ``DeviceMesh``, the
+    partitioner's placements (tensor-parallel for serving, FSDP for
+    training); the prefill of 8 x 128 tokens with 8 dense and 8 paged
+    decode steps, and one train step of the training phase's shape, each
+    bitwise the same call on plain tensors (one rank runs the same local
+    ops); the kernel wrappers refuse a ``DTensor`` under
+    ``impl="kernel"``; then the dry run's two records."""
+    import functools
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import partition
+    t0 = time.perf_counter()
+    dev = params["embed"]["w"].device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{d}/pg", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            rows = functools.partial(partition.shard_batch, mesh=mesh,
+                                     dp_axes=("data",))
+            rows.mesh = mesh
+            sp = partition.shard_params(
+                params, partition.Partitioner(mesh, fsdp=False))
+            for paged in (False, True):
+                out["paged" if paged else "dense"] = _sharded_serve(
+                    cfg, params, sp, rows, paged)
+            q = rows(torch.ones((8, 16, 128), device=dev,
+                                dtype=torch.bfloat16))
+            kv = rows(torch.ones((8, 16, 64, 128), device=dev,
+                                 dtype=torch.bfloat16))
+            kv_len = torch.full((8,), 64, device=dev, dtype=torch.int32)
+            refused = {
+                "decode_attention": _refuses(lambda: ops.decode_attention(
+                    q, kv, kv, kv_len, impl="kernel")),
+                "flash_attention": _refuses(lambda: ops.flash_attention(
+                    kv, kv, kv, impl="kernel"))}
+            if not all(refused.values()):
+                fail(f"a kernel wrapper took a DTensor: {refused}")
+            out["refused"] = refused
+            del sp
+            out["train"] = _sharded_train(cfg, params, mesh, rows)
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dryrun"] = _dryrun_records()
+    out["phase_s"] = time.perf_counter() - t0
+    emit({"sharded": out, "card": card})
+    return out
+
+
 def _path_launches(results, name: str) -> list[int]:
     """Kernel ``name``'s count in every launch-count dict that the paths'
     results hold (under a ``launches`` key, at any depth)."""
@@ -4151,7 +4364,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is present", file=sys.stderr)
         return 2
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4199,6 +4412,10 @@ def main() -> int:
                              if k.startswith("streams")}, "card": card})
     trial_g = replicated_trial(cfg, params)
     fused = fused_coord_phase(cfg, params, card)
+    ops.reset_launch_counts()
+    sharded = sharded_phase(cfg, params, card)
+    if sum(ops.launch_counts().values()):
+        fail(f"the sharded phase launched kernels {ops.launch_counts()}")
     del params                  # training takes the card's memory next
     gc.collect()
     torch.cuda.empty_cache()
@@ -4362,6 +4579,7 @@ def main() -> int:
           "paligemma_long_phases_s": pg_long_s,
           "training_phases_s": training["phases_s"],
           "fused_coord_phase_s": fused["phase_s"],
+          "sharded_phase_s": sharded["phase_s"],
           "serving_bench_phase_s": bench_serving["phase_s"],
           "total_s": time.perf_counter() - t0})
     emit({"card": card})

@@ -9,9 +9,10 @@ Pulls ``experiments/dryrun_torch/<mesh>/*.json`` (``launch/dryrun.py``:
 baseline and variants) and ``experiments/bench_torch/suite_*.json`` (the
 agent suite ``benchmarks/common.py`` caches).  The port's dry run compiles
 nothing, so where JAX's tables show compile seconds and XLA's CPU temp
-bytes these show the count's seconds and the aten ops counted; its records
-carry no collective bytes until ROADMAP queue 1 item 24, so the collective
-schedule says so instead of printing zeros.
+bytes these show the count's seconds and the aten ops counted; the
+collective schedule shows the bytes the sharded step's collectives move
+(a record without them, written before they were counted, says so instead
+of printing zeros).
 """
 from __future__ import annotations
 
@@ -153,8 +154,8 @@ def agents_section() -> list[str]:
 
 
 def schedule_section() -> list[str]:
-    """Collective schedule of representative cells: not counted until the
-    model runs sharded (ROADMAP queue 1 item 24)."""
+    """Collective schedule of representative cells: bytes a device moves
+    in a step, by op kind (JAX's ring model)."""
     out = ["### Collective schedule (bytes/device/step, representative cells)",
            "", "| cell | collective bytes |", "|---|---|"]
     picks = [("command-r-plus-104b", "train_4k"),

@@ -5,10 +5,11 @@ Per (arch × shape × mesh) cell:
     compute term    = flops_per_device / PEAK_FLOPS_BF16
     memory term     = bytes_per_device / HBM_BW
     collective term = collective_bytes_per_device / NVLINK_BW
-(all per-device quantities from ``launch/dryrun.py``'s records).  The
-port's records carry no collective bytes until the model runs on sharded
-weights (ROADMAP queue 1 item 24): their collective term is reported as
-unmeasured, never as 0, and the dominant term is taken over the two
+(all per-device quantities from ``launch/dryrun.py``'s records: what rank
+0 of the production mesh runs and sends in the sharded step, collective
+bytes by JAX's ring model).  A record without collective bytes (one
+written before the dry run counted them) has its collective term reported
+as unmeasured, never as 0, and the dominant term is taken over the two
 measured ones.
 
 Reports the dominant term (the bottleneck), the MODEL_FLOPS / counted
@@ -37,8 +38,8 @@ NVLINK_BW = 450e9            # NVLink bytes/s each way
 DRYRUN_DIR = (Path(__file__).resolve().parents[3] / "experiments"
               / "dryrun_torch")
 
-UNMEASURED = ("unmeasured: no sharded execution to count collectives from "
-              "(ROADMAP queue 1 item 24)")
+UNMEASURED = ("unmeasured: the record carries no collective bytes (written "
+              "before the dry run counted the sharded step's collectives)")
 
 
 # ---------------------------------------------------------------------------

@@ -85,16 +85,35 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
+class ShardedKernelError(RuntimeError):
+    """A ``DTensor`` reached a kernel wrapper with ``impl="kernel"``."""
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _plain(impl: str, kernel: str, x: torch.Tensor, *rest) -> bool:
     """True where the plain version runs: asked for, or ``x`` is a CPU
     tensor.  On the card the kernel runs, unless grad mode is on and an
     input (``x`` or ``rest``) requires grad: then this raises, because no
     kernel has a backward and its output would end the gradient without a
-    word."""
+    word.  A ``DTensor`` (a sharded run) takes the plain version under
+    ``impl="ref"`` and raises ``ShardedKernelError`` under
+    ``impl="kernel"``: a kernel takes one card's whole tensors, and a
+    ``DTensor``'s pointer is one rank's shard."""
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
+    if any(_is_dtensor(t) for t in (x, *rest)):
+        if impl == "kernel":
+            raise ShardedKernelError(
+                f"{kernel}: a DTensor reached the kernel wrapper with "
+                f"impl='kernel'; the kernels run on one card's plain "
+                f"tensors, so a sharded run passes impl='ref'")
+        return True
     if impl == "ref":
         return True
-    if impl != "kernel":
-        raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
@@ -108,6 +127,100 @@ def _plain(impl: str, kernel: str, x: torch.Tensor, *rest) -> bool:
             f"runs impl='ref' (lm.loss_fn's default), and inference calls "
             f"the kernel under torch.no_grad()")
     return False
+
+
+# ---------------------------------------------------------------------------
+# The paged plain versions on DTensors (a sharded run, impl="ref")
+# ---------------------------------------------------------------------------
+#
+# A paged pool is shared by every row, so no batch axis shards it: it is
+# replicated over the data axes (and split over model by heads, or by the
+# latent features).  Every rank writes every row's new K/V into its copy,
+# so the copies stay equal, as GSPMD makes a scatter of batch-sharded rows
+# into a replicated operand gather the rows first; the attend then runs on
+# every row too (each data rank computes all rows' outputs, which the next
+# op slices to its own: the plain path's cost, not the kernels').
+
+def _whole(fn, q, pools, block_tables, idx, news, **kw):
+    return fn(q, *pools, block_tables, *idx, *news, **kw)
+
+
+def _full(x):
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
+def _as(x, mesh, placements):
+    """This rank's local tensor of ``x`` under ``placements``."""
+    from torch.distributed.tensor import distribute_tensor
+    if _is_dtensor(x):
+        return x.redistribute(mesh, placements).to_local()
+    return distribute_tensor(x, mesh, placements,
+                             src_data_rank=None).to_local()
+
+
+def like_pool(x, pool, dim: int) -> torch.Tensor:
+    """This rank's local ``x`` (every row) with its ``dim`` split over
+    the mesh dims that split ``pool`` (heads, or latent features), for a
+    write into ``pool.to_local()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    d = dim % x.dim()
+    return _as(x, pool.device_mesh, tuple(
+        Shard(d) if isinstance(p, Shard) else Replicate()
+        for p in pool.placements))
+
+
+def _no_sharded_pool(kernel: str, *pools) -> None:
+    if any(_is_dtensor(p) for p in pools):
+        raise NotImplementedError(
+            f"{kernel}: quantized page pools do not run sharded yet (the "
+            f"partitioner splits their scale leaves over pages)")
+
+
+def _on_head_shards(fn, q, pools, block_tables, idx, news, **kw):
+    """``fn`` (a paged MHA plain version) on each rank's pool shard (its
+    heads, or all of them where the heads do not divide model): every
+    row, the matching query and new-K/V heads; the output has the pool's
+    head placement and every row."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = pools[0].device_mesh
+    heads = tuple(Shard(1) if isinstance(p, Shard) else Replicate()
+                  for p in pools[0].placements)
+    out = fn(_as(q, mesh, heads), *(p.to_local() for p in pools),
+             _full(block_tables), *(_full(i) for i in idx),
+             *(_as(n, mesh, heads) for n in news), **kw)
+    o = DTensor.from_local(out[0], mesh, heads, run_check=False,
+                           shape=q.shape, stride=q.stride())
+    return (o, *pools)
+
+
+def _on_latent_shards(fn, q_abs, q_rope, pool, block_tables, idx,
+                      latent_new, **kw):
+    """``fn`` (a paged MLA plain version) on a latent pool split over
+    model by features: every row's new latent row goes into each rank's
+    feature slice, then the attend, which contracts over the whole latent
+    width, runs on the pool gathered over model (an all-gather of the
+    pool a call: the plain sharded path's cost)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = pool.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    feats = tuple(Shard(1) if isinstance(p, Shard) else Replicate()
+                  for p in pool.placements)
+    table, index = _full(block_tables), tuple(_full(i) for i in idx)
+    local = pool.to_local()
+    rows = _as(latent_new, mesh, feats)
+    ps = local.shape[1]
+    if len(index) == 1:
+        pg, slot, keep = ref._token_slot(table, index[0].long(), ps)
+        local[pg[keep], slot[keep]] = rows[keep].to(local.dtype)
+    else:
+        start, span = index
+        pg, slot, keep, _ = ref._span_slots(table, start.long(),
+                                            span.long(), rows.shape[1], ps)
+        local[pg[keep], slot[keep]] = rows[keep].to(local.dtype)
+    whole = pool.redistribute(mesh, rep).to_local()
+    ctx, _ = fn(_as(q_abs, mesh, rep), _as(q_rope, mesh, rep), whole,
+                table, *index, _as(latent_new, mesh, rep), **kw)
+    return (DTensor.from_local(ctx, mesh, rep, run_check=False), pool)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -155,9 +268,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, k_new,
     v_new = v_new.to(v_pages.dtype)
     if _plain(impl, "paged_decode_attention", q, k_pages, v_pages, k_new,
               v_new):
-        return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                          pos, k_new, v_new, scale=scale,
-                                          window=window)
+        fn = _on_head_shards if _is_dtensor(k_pages) else _whole
+        return fn(ref.paged_decode_attention, q, (k_pages, v_pages),
+                  block_tables, (pos,), (k_new, v_new), scale=scale,
+                  window=window)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     return _pdec.paged_decode_attention(
         q.contiguous(), k_pages, v_pages,
@@ -185,9 +299,10 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, start, span,
     v_new = v_new.to(v_pages.dtype)
     if _plain(impl, "paged_chunk_attention", q, k_pages, v_pages, k_new,
               v_new):
-        return ref.paged_chunk_attention(q, k_pages, v_pages, block_tables,
-                                         start, span, k_new, v_new,
-                                         scale=scale, window=window)
+        fn = _on_head_shards if _is_dtensor(k_pages) else _whole
+        return fn(ref.paged_chunk_attention, q, (k_pages, v_pages),
+                  block_tables, (start, span), (k_new, v_new), scale=scale,
+                  window=window)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     return _pchunk.paged_chunk_attention(
         q.contiguous(), k_pages, v_pages,
@@ -211,6 +326,7 @@ def paged_decode_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
     """
     ps = k_pages.shape[2]
     pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
+    _no_sharded_pool("paged_decode_attention_quant", k_pages, k_scales)
     if _plain(impl, "paged_decode_attention_quant", q, k_scales, v_scales,
               k_new, v_new):
         return ref.paged_decode_attention_quant(
@@ -240,6 +356,7 @@ def paged_chunk_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
     ps = k_pages.shape[2]
     start = start.clamp(max=block_tables.shape[1] * ps - 1)
     span = span.clamp(0, q.shape[2])
+    _no_sharded_pool("paged_chunk_attention_quant", k_pages, k_scales)
     if _plain(impl, "paged_chunk_attention_quant", q, k_scales, v_scales,
               k_new, v_new):
         return ref.paged_chunk_attention_quant(
@@ -296,6 +413,10 @@ def paged_mla_decode(q_abs, q_rope, latent_pages, block_tables, pos,
     latent_new = latent_new.to(latent_pages.dtype)
     if _plain(impl, "paged_mla_decode", q_abs, q_rope, latent_pages,
               latent_new):
+        if _is_dtensor(latent_pages):
+            return _on_latent_shards(ref.paged_mla_decode, q_abs, q_rope,
+                                     latent_pages, block_tables, (pos,),
+                                     latent_new, r=r, scale=scale)
         return ref.paged_mla_decode(q_abs, q_rope, latent_pages,
                                     block_tables, pos, latent_new, r=r,
                                     scale=scale)
@@ -323,6 +444,11 @@ def paged_mla_chunk(q_abs, q_rope, latent_pages, block_tables, start, span,
     latent_new = latent_new.to(latent_pages.dtype)
     if _plain(impl, "paged_mla_chunk", q_abs, q_rope, latent_pages,
               latent_new):
+        if _is_dtensor(latent_pages):
+            return _on_latent_shards(ref.paged_mla_chunk, q_abs, q_rope,
+                                     latent_pages, block_tables,
+                                     (start, span), latent_new, r=r,
+                                     scale=scale)
         return ref.paged_mla_chunk(q_abs, q_rope, latent_pages,
                                    block_tables, start, span, latent_new,
                                    r=r, scale=scale)
@@ -347,6 +473,7 @@ def paged_mla_decode_quant(q_abs, q_rope, latent_pages, latent_scales,
     r, _ = _mla_widths(q_abs, q_rope, latent_pages)
     ps = latent_pages.shape[1]
     pos = pos.clamp(max=block_tables.shape[1] * ps - 1)
+    _no_sharded_pool("paged_mla_decode_quant", latent_pages, latent_scales)
     if _plain(impl, "paged_mla_decode_quant", q_abs, q_rope, latent_scales,
               latent_new):
         return ref.paged_mla_decode_quant(
@@ -374,6 +501,7 @@ def paged_mla_chunk_quant(q_abs, q_rope, latent_pages, latent_scales,
     ps = latent_pages.shape[1]
     start = start.clamp(max=block_tables.shape[1] * ps - 1)
     span = span.clamp(0, q_abs.shape[2])
+    _no_sharded_pool("paged_mla_chunk_quant", latent_pages, latent_scales)
     if _plain(impl, "paged_mla_chunk_quant", q_abs, q_rope, latent_scales,
               latent_new):
         return ref.paged_mla_chunk_quant(

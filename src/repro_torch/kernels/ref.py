@@ -25,7 +25,8 @@ import torch
 
 def _broadcast_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
     """[B, Hkv, T, D] -> [B, Hq, T, D] by repeating groups (GQA)."""
-    return torch.repeat_interleave(k, n_q_heads // k.shape[1], dim=1)
+    from repro_torch.sharding.activation import repeat_kv
+    return repeat_kv(k, n_q_heads // k.shape[1])
 
 
 def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
@@ -77,18 +78,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [B, Hq, D]; k, v: [B, Hkv, S, D]; kv_len: i32[B] — valid prefix.
     """
+    from repro_torch.sharding.activation import by_heads
     hq, d = q.shape[1], q.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    kb = _broadcast_kv(k, hq).float()
-    vb = _broadcast_kv(v, hq).float()
-    logits = torch.einsum("bhd,bhsd->bhs", q.float(), kb) * scale
     s = k.shape[2]
     mask = (torch.arange(s, device=q.device)[None, :]
             < kv_len.to(q.device)[:, None])
-    logits = logits.masked_fill(~mask[:, None, :], float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhs,bhsd->bhd", p, vb)
-    return out.to(q.dtype)
+
+    def attend(q, kb, vb, mask):
+        logits = torch.einsum("bhd,bhsd->bhs", q.float(), kb.float()) * scale
+        logits = logits.masked_fill(~mask[:, None, :], float("-inf"))
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhs,bhsd->bhd", p, vb.float()).to(q.dtype)
+
+    # A per-row mask: [B, 1, S] rides as [B, Tq = 1, S].
+    return by_heads(lambda q, kb, vb, m: attend(q, kb, vb, m[:, 0]),
+                    q, _broadcast_kv(k, hq), _broadcast_kv(v, hq),
+                    mask=mask[:, None])
 
 
 def _scatter_rows(pages: torch.Tensor, pg: torch.Tensor, slot: torch.Tensor,
@@ -430,14 +436,23 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     ``lax.scan``) rounds the same way, and so does the CUDA kernel's
     ``__fmaf_rn``; two float32 roundings (``a*h`` then ``+ b``) would not.
     """
-    a64 = a.to(torch.float64)
-    b64 = b.to(torch.float64)
+    from repro_torch.models import scan as scan_mod
+    from repro_torch.sharding.activation import whole_dim
+    a64 = whole_dim(a, 1).to(torch.float64)
+    b64 = whole_dim(b, 1).to(torch.float64)
     h = h0.to(torch.float32)
-    y = torch.empty(a.shape, dtype=torch.float32, device=a.device)
-    for t in range(a.shape[1]):
+    n = a.shape[1]
+    one = scan_mod.once(n, [a64, b64, h])
+    if one is not None:
+        # The dry run's counter: one step counted n times (models/scan.py).
+        a64, b64, h = one.enter([a64, b64, h])
+    ys = []
+    for t in range(1 if one is not None else n):
         h = (a64[:, t] * h + b64[:, t]).to(torch.float32)
-        y[:, t] = h
-    return y.to(b.dtype)
+        ys.append(h)
+    if one is not None:
+        ys = one.exit(ys) * n
+    return torch.stack(ys, dim=1).to(b.dtype)
 
 
 def rglru(x: torch.Tensor, input_gate: torch.Tensor, rec_gate: torch.Tensor,

@@ -3,31 +3,33 @@ tensors, with nothing allocated and no card needed (the port's
 counterpart of the JAX package's ``launch/dryrun.py``).
 
 For each cell this script:
-  1. builds the parameters (``lm.abstract_params``), the optimizer state,
-     the cache and the batch as ``meta`` tensors,
-  2. runs the step JAX's ``lower_cell`` lowers — the train step with remat
-     and microbatches, the prefill, or the decode step on a dense or paged
-     cache, with or without the fused coordination — once, eagerly, on
-     those tensors, counting its FLOPs with
-     ``torch.utils.flop_counter.FlopCounterMode`` and the operand and
-     result bytes of every aten op with a ``TorchDispatchMode``,
-  3. divides both by the mesh's device count (``cost_method`` says that
-     these are unfused eager counts of the plain path, spread evenly),
-  4. computes the persistent state a device holds (``memory_analytic``)
+  1. opens a fake process group of the production mesh's ranks in this
+     process (``launch/mesh.production_counting_mesh``: (16, 16), and the
+     multi-pod (2, 16, 16) as (32, 16), its pod and data axes as one) and
+     builds the parameters (``lm.abstract_params``), the optimizer state,
+     the cache and the batch as ``meta`` ``DTensor``s sharded as JAX's
+     ``lower_cell`` shards them: the ``Partitioner``'s specs (FSDP for
+     training, tensor-parallel only for serving, ``--mla-cache`` for MLA
+     latent caches), the AdamW moments as the parameters, the batch and
+     cache rows over the data axes, the activations under JAX's
+     ``standard_binding``,
+  2. runs the step JAX lowers — the train step with remat and
+     microbatches, the prefill, or the decode step on a dense or paged
+     cache, with or without the fused coordination — once, eagerly, as
+     rank 0 runs it, counting the FLOPs and bytes of its local ops and the
+     bytes of its collectives by kind with ``launch/counting.LocalCounter``
+     (a recurrent scan counts one step times its length, ``models/scan``),
+  3. computes the persistent state a device holds (``memory_analytic``)
      from the port's ``Partitioner`` specs on the mesh's stand-in
-     (``sharding/mesh.StackedMesh``: the production meshes (16, 16) and
-     (2, 16, 16) are axis names and sizes, not 256 or 512 live ranks),
-  5. writes one JSON record per cell under ``experiments/dryrun_torch/
+     (``sharding/mesh.StackedMesh``), bitwise JAX's ``analytic_memory``,
+  4. writes one JSON record per cell under ``experiments/dryrun_torch/
      <mesh>/`` as it goes (a cell already written is skipped unless
      ``--force``).
 
+The process must hold no process group: the fake one is its default
+group while a cell is counted.
+
 What JAX's records have and these do not:
-  * ``collective_bytes_per_device`` is null.  JAX parses the collectives
-    from the optimised HLO of the SPMD-partitioned program; the port runs
-    no model on sharded weights yet (ROADMAP queue 1 item 24), so there is
-    no collective to count.  ``collective_method`` names that item: once
-    the model runs on ``DTensor`` parameters, ``torch.distributed.tensor
-    .debug.CommDebugMode`` counts them.
   * ``memory`` (XLA's ``memory_analysis``: argument, output, temp and code
     bytes of the compiled program), ``lower_s`` and ``compile_s``.  The
     port lowers and compiles nothing: eager PyTorch runs op by op, so there
@@ -36,9 +38,8 @@ What JAX's records have and these do not:
     a real run (the caching allocator's peak on the card).
   * ``raw_flops_per_device`` / ``raw_bytes_per_device``.  JAX keeps them
     because XLA's cost analysis counts a scan body once and its totals are
-    extrapolated over layer groups; the port has no scan (one module a
-    layer, ``lm.unrolled_scans`` is a no-op) and counts every layer as it
-    runs, so its counts are direct.
+    extrapolated over layer groups; the port keeps one module a layer and
+    counts every layer as it runs, so its counts are direct.
 
 Data-dependent selections (a boolean-mask index of the paged writes)
 count every element as selected: every row of the cell is live.
@@ -60,17 +61,16 @@ import traceback
 from pathlib import Path
 
 import torch
-import torch.fx.experimental._config as fx_config
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
 
 import repro_torch.configs as configs
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable
 from repro_torch.core import doc as doc_mod, gset
-from repro_torch.launch.mesh import PRODUCTION
+from repro_torch.launch import counting
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.counting import COLLECTIVE_METHOD
 from repro_torch.models import lm
 from repro_torch.serving import engine as engine_mod
+from repro_torch.sharding import activation, partition
 from repro_torch.sharding.mesh import StackedMesh, axis_sizes
 from repro_torch.sharding.partition import Partitioner
 from repro_torch.training.optimizer import AdamW
@@ -79,14 +79,12 @@ from repro_torch.training.train_step import make_train_step
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 META = torch.device("meta")
 
-COST_METHOD = ("unfused eager counts of the plain path on meta tensors: "
-               "FlopCounterMode FLOPs and the operand + result bytes of "
-               "every aten op but views, over the whole step, divided by "
-               "the mesh's device count")
-COLLECTIVE_METHOD = ("not counted: the port runs no model on sharded "
-                     "weights until ROADMAP queue 1 item 24; then "
-                     "torch.distributed.tensor.debug.CommDebugMode counts "
-                     "the collectives")
+COST_METHOD = ("unfused eager counts of the plain path, run sharded on meta "
+               "tensors on a fake group of the mesh's ranks: the FLOPs "
+               "(FlopCounterMode's formulas) and the operand + result bytes "
+               "of every local aten op but views that rank 0 runs, at the "
+               "local shapes (launch/counting.LocalCounter); a recurrent "
+               "scan counts one step times its length")
 
 # Per-arch microbatch counts for train_4k (JAX's, chosen there so a full
 # compile fits a TPU's memory; kept so the same step is counted).
@@ -105,11 +103,7 @@ TRAIN_MICROBATCHES = {
 def production_mesh(mesh_kind: str) -> StackedMesh:
     """The stand-in of JAX's production mesh: ``single`` (data 16, model
     16) or ``multi`` (pod 2, data 16, model 16)."""
-    return StackedMesh(*PRODUCTION[mesh_kind == "multi"])
-
-
-def dp_axes(mesh) -> tuple[str, ...]:
-    return tuple(a for a in axis_sizes(mesh) if a != "model")
+    return StackedMesh(*mesh_mod.PRODUCTION[mesh_kind == "multi"])
 
 
 def _n_devices(mesh) -> int:
@@ -118,7 +112,7 @@ def _n_devices(mesh) -> int:
 
 def _dp_size(mesh) -> int:
     sizes = axis_sizes(mesh)
-    return math.prod(sizes[a] for a in dp_axes(mesh))
+    return math.prod(sizes[a] for a in mesh_mod.dp_axes(mesh))
 
 
 def _meta(shape, dtype):
@@ -149,116 +143,101 @@ def input_specs(arch: str, shape_name: str) -> dict:
 # Counting
 # ---------------------------------------------------------------------------
 
-def _is_view(func) -> bool:
-    return any(r.alias_info is not None and not r.alias_info.is_write
-               for r in func._schema.returns)
-
-
-def _nbytes(obj) -> int:
-    leaves, _ = tree_flatten(obj)
-    return sum(t.numel() * t.element_size() for t in leaves
-               if isinstance(t, torch.Tensor))
-
-
-class ByteCounter(TorchDispatchMode):
-    """Sums the bytes of every aten op's tensor operands and results (an
-    in-place op reads and writes its target); views move nothing and are
-    not counted."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if not _is_view(func):
-            self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
-            self.ops += 1
-        return out
-
-
-def count(fn) -> dict:
-    """FLOPs and bytes of one eager call of ``fn`` (on ``meta`` tensors:
-    data-dependent selections count every element as selected)."""
-    with fx_config.patch(meta_nonzero_assume_all_nonzero=True), \
-            FlopCounterMode(display=False) as flops, ByteCounter() as nb:
-        fn()
-    return {"flops": float(flops.get_total_flops()), "bytes": float(nb.bytes),
-            "ops": nb.ops}
-
-
-def _coord(n_rep: int, merge_strategy: str) -> dict:
+def _coord(merge_strategy: str) -> dict:
+    """A rank's own replica of the coordination state ([1, ...] leaves,
+    as the fused step takes it on a ``DeviceMesh``)."""
     base = {"doc": doc_mod.empty(64, 2048, device=META),
-            "heartbeats": gset.GCounter.zeros(n_rep, device=META)}
+            "heartbeats": gset.GCounter.zeros(1, device=META)}
     if merge_strategy == "delta":
         base = engine_mod.with_delta_frontier(base)
-    return engine_mod.replicate_coord(base, n_rep)
+    return engine_mod.replicate_coord(base, 1)
 
 
 def count_cell(cfg, shape: ShapeSpec, mesh, *, merge_strategy="pmax",
                fused_coord=False, microbatches=1, remat=True,
                merge_every=1, delta_capacity=64, kv_layout="dense",
-               page_size=64) -> dict:
-    """Counts of the whole step of one cell (not divided by devices)."""
-    params = lm.abstract_params(cfg)
-    if shape.kind == "train":
-        opt = AdamW()
-        state = opt.init(params)
-        batch = batch_specs(cfg, shape)
-        step = make_train_step(cfg, opt, remat=remat,
-                               microbatches=microbatches)
-        return count(lambda: step(params, state, batch))
+               page_size=64, mla_cache="latent") -> dict:
+    """What rank 0 of ``mesh`` (a ``DeviceMesh`` over a fake group:
+    ``launch/mesh.counting_mesh``) runs and sends in one step of the
+    cell, sharded as JAX's ``lower_cell`` shards it: the parameters under
+    the ``Partitioner``'s specs (FSDP for training, tensor-parallel only
+    for serving), the AdamW moments as the parameters, the batch and the
+    cache rows over the data axes, the activations under JAX's
+    ``standard_binding``."""
+    dp = mesh_mod.dp_axes(mesh)
+    part = Partitioner(mesh, fsdp=(shape.kind == "train"),
+                       mla_cache=mla_cache)
+    params = partition.shard_params(lm.abstract_params(cfg), part)
+    rows = functools.partial(partition.shard_batch, mesh=mesh, dp_axes=dp)
+    with activation.bind(activation.standard_binding(dp)):
+        if shape.kind == "train":
+            opt = AdamW()
+            state = partition.shard_opt_state(
+                opt.init(lm.abstract_params(cfg)), params, part)
+            batch = {k: rows(v) for k, v in batch_specs(cfg, shape).items()}
+            step = make_train_step(cfg, opt, remat=remat,
+                                   microbatches=microbatches)
+            return counting.count(lambda: step(params, state, batch))
 
-    b = shape.global_batch
-    # VLM prefix tokens occupy cache positions too.
-    max_len = shape.seq_len + cfg.num_prefix_tokens
-    cache = lm.init_cache(cfg, b, max_len, paged=(kv_layout == "paged"),
-                          page_size=page_size, device=META)
-    stubs = {}
-    if cfg.num_prefix_tokens:
-        stubs["prefix_embeds"] = _meta((b, cfg.num_prefix_tokens,
-                                        cfg.d_model), torch.bfloat16)
-    if cfg.is_encdec:
-        stubs["enc_frames"] = _meta((b, cfg.encoder.seq_len, cfg.d_model),
-                                    torch.bfloat16)
+        b = shape.global_batch
+        # VLM prefix tokens occupy cache positions too.
+        max_len = shape.seq_len + cfg.num_prefix_tokens
+        cache = partition.shard_cache(
+            lm.init_cache(cfg, b, max_len, paged=(kv_layout == "paged"),
+                          page_size=page_size, device=META), part,
+            shard_batch=b % _dp_size(mesh) == 0)
+        stubs = {}
+        if cfg.num_prefix_tokens:
+            stubs["prefix_embeds"] = rows(_meta(
+                (b, cfg.num_prefix_tokens, cfg.d_model), torch.bfloat16))
+        if cfg.is_encdec:
+            stubs["enc_frames"] = rows(_meta(
+                (b, cfg.encoder.seq_len, cfg.d_model), torch.bfloat16))
 
-    if shape.kind == "prefill":
-        prefill_fn = engine_mod.make_prefill_fn(cfg, impl="ref")
-        tokens = _meta((b, shape.seq_len), torch.int32)
-        with torch.no_grad():
-            return count(lambda: prefill_fn(params, cache, tokens, **stubs))
+        if shape.kind == "prefill":
+            prefill_fn = engine_mod.make_prefill_fn(cfg, impl="ref")
+            tokens = rows(_meta((b, shape.seq_len), torch.int32))
+            with torch.no_grad():
+                return counting.count(
+                    lambda: prefill_fn(params, cache, tokens, **stubs))
 
-    token = _meta((b,), torch.int32)
-    pos = _meta((b,), torch.int32)
-    if not fused_coord:
-        serve_fn = engine_mod.make_serve_step(cfg, impl="ref")
-        with torch.no_grad():
-            return count(lambda: serve_fn(params, cache, token, pos))
+        token = rows(_meta((b,), torch.int32))
+        pos = rows(_meta((b,), torch.int32))
+        if not fused_coord:
+            serve_fn = engine_mod.make_serve_step(cfg, impl="ref")
+            with torch.no_grad():
+                return counting.count(
+                    lambda: serve_fn(params, cache, token, pos))
 
-    dp = dp_axes(mesh)
-    n_rep = _dp_size(mesh)
-    step_fn = engine_mod.make_fused_serve_step(
-        cfg, mesh, dp, impl="ref", merge_strategy=merge_strategy,
-        merge_every=merge_every, delta_capacity=delta_capacity)
-    slots = _meta((b,), torch.int32)
-    active = torch.ones((b,), dtype=torch.bool, device=META)
+        step_fn = engine_mod.make_fused_serve_step(
+            cfg, mesh, dp, impl="ref", merge_strategy=merge_strategy,
+            merge_every=merge_every, delta_capacity=delta_capacity)
+        slots = rows(_meta((b,), torch.int32))
+        active = rows(torch.ones((b,), dtype=torch.bool, device=META))
 
-    def at(step: int) -> dict:
-        coord = _coord(n_rep, merge_strategy)
-        with torch.no_grad():
-            return count(lambda: step_fn(params, cache, token, pos, slots,
-                                         active, coord, step))
+        def at(step: int) -> dict:
+            coord = _coord(merge_strategy)
+            with torch.no_grad():
+                return counting.count(lambda: step_fn(
+                    params, cache, token, pos, slots, active, coord, step))
 
-    # The mean step over one merge cycle: the merge runs at step 0 of every
-    # ``merge_every``.
-    merged = at(0)
-    if merge_every == 1:
-        return merged
-    plain = at(1)
-    return {k: (merged[k] + (merge_every - 1) * plain[k]) / merge_every
-            for k in merged}
+        # The mean step over one merge cycle: the merge runs at step 0 of
+        # every ``merge_every``.
+        merged = at(0)
+        if merge_every == 1:
+            return merged
+        plain = at(1)
+        return _mean(merged, plain, merge_every)
+
+
+def _mean(merged: dict, plain: dict, every: int) -> dict:
+    """The mean of one merging step and ``every - 1`` plain ones."""
+    def mix(a, b):
+        if isinstance(a, dict):
+            return {k: mix(a.get(k, 0.0), b.get(k, 0.0))
+                    for k in set(a) | set(b)}
+        return (a + (every - 1) * b) / every
+    return mix(merged, plain)
 
 
 # ---------------------------------------------------------------------------
@@ -365,16 +344,17 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              merge_strategy: str = "pmax", fused_coord: bool = False,
              moe_dispatch: str | None = None, remat: bool = True,
              microbatches: int = 1, capacity_factor: float | None = None,
-             merge_every: int = 1, delta_capacity: int = 64,
-             ring_cache: bool = False, kv_layout: str = "dense",
-             page_size: int = 64, out_dir: Path | None = None,
-             counts: dict | None = None) -> dict:
+             mla_cache: str = "latent", merge_every: int = 1,
+             delta_capacity: int = 64, ring_cache: bool = False,
+             kv_layout: str = "dense", page_size: int = 64,
+             out_dir: Path | None = None, counts: dict | None = None
+             ) -> dict:
     """One cell's record, written under ``out_dir / mesh_kind`` (a cell
-    already written is read back unless ``force``).  ``counts``, when
-    given, keeps each step's counts across calls, keyed on the cell's
-    config, shape and options: they depend on the mesh only through the
-    fused step's replica count, so a run over both meshes counts each
-    step once."""
+    already written is read back unless ``force``).  The step is counted
+    on a fake group of the production mesh's ranks, which this process
+    opens for the count and closes after (it must hold no process group).
+    ``counts``, when given, keeps each step's counts across calls, keyed
+    on the cell's config, shape, options and mesh."""
     shape = SHAPES[shape_name]
     cfg = cell_config(arch, moe_dispatch=moe_dispatch,
                       capacity_factor=capacity_factor, ring_cache=ring_cache)
@@ -393,30 +373,34 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         out_path.write_text(json.dumps(record, indent=2))
         return record
 
-    mesh = production_mesh(mesh_kind)
-    n_dev = _n_devices(mesh)
+    stand_in = production_mesh(mesh_kind)
     options = dict(merge_strategy=merge_strategy, fused_coord=fused_coord,
                    remat=remat, microbatches=microbatches,
                    merge_every=merge_every, delta_capacity=delta_capacity,
-                   kv_layout=kv_layout, page_size=page_size)
-    key = (cfg, shape_name, tuple(sorted(options.items())),
-           _dp_size(mesh) if fused_coord else None)
+                   kv_layout=kv_layout, page_size=page_size,
+                   mla_cache=mla_cache)
+    key = (cfg, shape_name, tuple(sorted(options.items())), mesh_kind)
     counts = {} if counts is None else counts
     t0 = time.time()
     try:
         if key not in counts:
-            counts[key] = count_cell(cfg, shape, mesh, **options)
+            with mesh_mod.production_counting_mesh(
+                    multi_pod=(mesh_kind == "multi")) as mesh:
+                counts[key] = count_cell(cfg, shape, mesh, **options)
         est = counts[key]
+        coll = dict(est.get("collectives", {}))
+        coll.setdefault("total", 0.0)
         record.update(
-            status="ok", n_devices=int(n_dev),
+            status="ok", n_devices=int(_n_devices(stand_in)),
             count_s=round(time.time() - t0, 2), aten_ops=int(est["ops"]),
-            flops_per_device=est["flops"] / n_dev,
-            bytes_per_device=est["bytes"] / n_dev,
-            collective_bytes_per_device=None,
+            flops_per_device=est["flops"],
+            bytes_per_device=est["bytes"],
+            collective_bytes_per_device=coll,
             collective_method=COLLECTIVE_METHOD,
             cost_method=COST_METHOD,
             model_flops_est=_model_flops(cfg, shape),
-            memory_analytic=analytic_memory(cfg, shape, mesh),
+            # JAX's rule: the default MLA cache layout, whatever the flag.
+            memory_analytic=analytic_memory(cfg, shape, stand_in),
             options=options)
     except Exception as e:  # record the failure; the suite reports it
         record.update(status="error", error=f"{type(e).__name__}: {e}",
@@ -451,16 +435,6 @@ def main(argv=None) -> None:
                     help="KV cache layout for serving cells")
     ap.add_argument("--page-size", type=int, default=64)
     args = ap.parse_args(argv)
-    if args.mla_cache != "latent":
-        # JAX's flag picks how the latent cache is sharded, which moves
-        # only collectives and per-device layout in its lowered program;
-        # the port's counts are unsharded totals over the device count and
-        # its analytic memory uses the default rule, as JAX's does.
-        raise SystemExit(
-            "--mla-cache changes only the sharded layout, which the port "
-            "does not run until ROADMAP queue 1 item 24: nothing this dry "
-            "run records would change")
-
     archs = sorted(configs.ARCHS) if (args.all or not args.arch) \
         else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
@@ -483,14 +457,15 @@ def main(argv=None) -> None:
                     capacity_factor=args.capacity_factor,
                     merge_every=args.merge_every,
                     delta_capacity=args.delta_capacity,
-                    ring_cache=args.ring_cache,
+                    mla_cache=args.mla_cache, ring_cache=args.ring_cache,
                     kv_layout=args.kv, page_size=args.page_size,
                     counts=counts)
                 status = rec.get("status")
                 extra = (rec.get("reason") or rec.get("error", "")
                          )[:80] if status != "ok" else (
                     f"flops/dev={rec['flops_per_device']:.3e} "
-                    f"bytes/dev={rec['bytes_per_device']:.3e} coll=null")
+                    f"bytes/dev={rec['bytes_per_device']:.3e} "
+                    f"coll={rec['collective_bytes_per_device']['total']:.3e}B")
                 print(f"[{mesh_kind}] {arch} × {shape_name} ({args.variant}): "
                       f"{status} ({time.time() - t0:.1f}s) {extra}",
                       flush=True)

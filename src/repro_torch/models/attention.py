@@ -52,8 +52,7 @@ def init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    b, t, _ = x.shape
-    return x.reshape(b, t, n_heads, -1).transpose(1, 2)      # [B,H,T,D]
+    return activation.split_last(x, n_heads).transpose(1, 2)  # [B,H,T,D]
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -114,10 +113,10 @@ def _sdpa_chunked(q, k, v, scale, *, causal: bool = True, window=None,
     acc = torch.zeros((b, hq, tq, v.shape[-1]), dtype=torch.float32,
                       device=dev)
     for start in range(0, tk, chunk):
-        kb = torch.repeat_interleave(k[:, :, start:start + chunk], group,
-                                     dim=1).float()
-        vb = torch.repeat_interleave(v[:, :, start:start + chunk], group,
-                                     dim=1).float()
+        kb = activation.repeat_kv(k[:, :, start:start + chunk],
+                                  group).float()
+        vb = activation.repeat_kv(v[:, :, start:start + chunk],
+                                  group).float()
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
         cols = start + torch.arange(kb.shape[2], device=dev)
         mask = _block_mask(rows, cols, tk_true=tk, causal=causal,
@@ -145,23 +144,36 @@ def _sdpa(q, k, v, mask, scale, impl: str = "ref", window=None,
     ``mask`` is None.  A 3-D mask carries per-row validity (ragged
     prefill); rows with no valid key give NaN, which callers discard."""
     if chunked:
+        if cache_mod.is_dtensor(q):
+            # Each rank's rows and heads, every key: the KV heads repeated
+            # for the rank's query heads once, not a chunk at a time.
+            group = q.shape[1] // k.shape[1]
+            return activation.by_heads(
+                lambda q, k, v, _: _sdpa_chunked(
+                    q, k, v, scale, causal=causal, window=window,
+                    prefix_len=prefix_len),
+                q, activation.repeat_kv(k, group),
+                activation.repeat_kv(v, group))
         return _sdpa_chunked(q, k, v, scale, causal=causal, window=window,
                              prefix_len=prefix_len)
     if impl != "ref" and mask is None:
         return kops.flash_attention(q, k, v, causal=causal, scale=scale,
                                     window=window, impl=impl)
     group = q.shape[1] // k.shape[1]
-    kb = torch.repeat_interleave(k, group, dim=1)
-    vb = torch.repeat_interleave(v, group, dim=1)
-    logits = torch.matmul(q.float(), kb.float().transpose(-1, -2)) * scale
-    if mask is not None:
-        mask_b = mask[:, None] if mask.dim() == 3 else mask[None, None]
-        logits = logits.masked_fill(~mask_b, float("-inf"))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    # JAX's einsum promotes mixed operands (a float32 query over a bf16
-    # cross-KV cache): so does this product.
-    dt = torch.promote_types(probs.dtype, vb.dtype)
-    return torch.matmul(probs.to(dt), vb.to(dt))
+
+    def attend(q, kb, vb, mask):
+        logits = torch.matmul(q.float(), kb.float().transpose(-1, -2)) * scale
+        if mask is not None:
+            mask_b = mask[:, None] if mask.dim() == 3 else mask[None, None]
+            logits = logits.masked_fill(~mask_b, float("-inf"))
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        # JAX's einsum promotes mixed operands (a float32 query over a bf16
+        # cross-KV cache): so does this product.
+        dt = torch.promote_types(probs.dtype, vb.dtype)
+        return torch.matmul(probs.to(dt), vb.to(dt))
+
+    return activation.by_heads(attend, q, activation.repeat_kv(k, group),
+                               activation.repeat_kv(v, group), mask=mask)
 
 
 def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -219,9 +231,21 @@ def _paged_prefill_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
                          lengths: Optional[torch.Tensor]) -> Params:
     """Scatter a prompt's K/V ([B, Hkv, T, D]) into the row's pages, in
     place, through ``_prefill_slots``."""
+    quantized = "k_scales" in cache
+    if cache_mod.is_dtensor(cache["k_pages"]):
+        # Every row into each rank's head shard of the shared pools.
+        if quantized:
+            kops._no_sharded_pool("paged prefill", cache["k_pages"])
+        pg, slot, keep = _prefill_slots(
+            kops._full(cache["block_tables"]), k.shape[2],
+            cache["k_pages"].shape[2], kops._full(lengths))
+        for name, new in (("k_pages", k), ("v_pages", v)):
+            rows = kops.like_pool(new, cache[name], 1).transpose(1, 2)
+            local = cache[name].to_local()
+            local[pg[keep], :, slot[keep], :] = rows[keep].to(local.dtype)
+        return cache
     pg, slot, keep = _prefill_slots(cache["block_tables"], k.shape[2],
                                     cache["k_pages"].shape[2], lengths)
-    quantized = "k_scales" in cache
     for name, new in (("k_pages", k), ("v_pages", v)):
         pool = cache[name]
         rows = new.transpose(1, 2)[keep]                    # [N, Hkv, D]
@@ -260,13 +284,13 @@ def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     s = cache["k"].shape[2]
     if t <= s:
         for name, new in (("k", k), ("v", v)):
-            dst = cache[name][:, :, :t]
-            new = new.to(dst.dtype)
             if lengths is not None:
+                dst = cache[name][:, :, :t]
                 keep = (torch.arange(t, device=x.device)[None, :]
                         < lengths.to(x.device)[:, None])
-                new = torch.where(keep[:, None, :, None], new, dst)
-            dst.copy_(new)
+                new = torch.where(keep[:, None, :, None], new.to(dst.dtype),
+                                  dst)
+            cache_mod.put_prefix(cache[name], 2, new)
         return proj, cache
     if lengths is not None:
         raise NotImplementedError(
@@ -341,8 +365,8 @@ def mixed_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
             2, gidx.expand(b, new.shape[1], s, new.shape[3]))
         dst.copy_(torch.where(wmask, new_in, dst))
     group = cfg.num_heads // cfg.num_kv_heads
-    kb = torch.repeat_interleave(cache["k"], group, dim=1).float()
-    vb = torch.repeat_interleave(cache["v"], group, dim=1).float()
+    kb = activation.repeat_kv(cache["k"], group).float()
+    vb = activation.repeat_kv(cache["v"], group).float()
     logits = torch.einsum("bhcd,bhsd->bhcs", q.float(), kb) * scale
     valid = pidx[None, None, :] <= positions[:, :, None]          # [B, C, S]
     if cfg.window is not None:
@@ -378,13 +402,12 @@ def decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     # Ring indexing: token at absolute position p lives at slot p % S (the
     # identity for unbounded caches).
     s = cache["k"].shape[2]
-    rows = torch.arange(b, device=x.device)
     slot = (pos % s).long()
     # The new token's K/V resharded while tiny, under a binding.
     k_tok = activation.constrain(k[:, :, 0], "batch", None, None)
     v_tok = activation.constrain(v[:, :, 0], "batch", None, None)
-    cache["k"][rows, :, slot] = k_tok.to(cache["k"].dtype)
-    cache["v"][rows, :, slot] = v_tok.to(cache["v"].dtype)
+    cache_mod.put_slot(cache["k"], 2, slot, k_tok)
+    cache_mod.put_slot(cache["v"], 2, slot, v_tok)
     kv_len = (pos + 1).clamp(max=s)
     if cfg.window is None or s <= cfg.window:
         # No window, or the cache holds no more than the window (a ring

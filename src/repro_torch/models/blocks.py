@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models import attention, common, ffn, mla, moe, rglru, xlstm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import activation
 
 Params = Any
 
@@ -83,6 +84,15 @@ def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def _res(x, cache):
+    """The residual stream after an add, under a binding: rows over the
+    data axes, and the sequence over model in a cache-free (training)
+    pass, as between layers; a row-parallel projection's partial sums are
+    reduced here (a reduce-scatter, or an all-reduce in a cached step)."""
+    return activation.constrain(x, "batch",
+                                "seq" if cache is None else None, None)
+
+
 def _norm(p, cfg, x):
     return common.apply_norm(p, x, cfg.norm_type, cfg.norm_eps)
 
@@ -132,10 +142,10 @@ def block_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
                               prefix_len=ctx.prefix_len)
     if cfg.parallel_block:
         f, aux = _ffn(kind, p["ffn"], cfg, h)
-        return x + a + f, cache, aux
-    x = x + a
+        return _res(x + a + f, cache), cache, aux
+    x = _res(x + a, cache)
     f, aux = _ffn(kind, p["ffn"], cfg, _norm(p["norm2"], cfg, x))
-    return x + f, cache, aux
+    return _res(x + f, cache), cache, aux
 
 
 def _mla_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -157,9 +167,9 @@ def _mla_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         a = mla.forward(p["attn"], cfg, h, ctx.mask_full, ctx.positions,
                         chunked=ctx.chunked, prefix_len=ctx.prefix_len)
-    x = x + a
+    x = _res(x + a, cache)
     f, aux = _ffn(kind, p["ffn"], cfg, _norm(p["norm2"], cfg, x))
-    return x + f, cache, aux
+    return _res(x + f, cache), cache, aux
 
 
 def _rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -173,8 +183,9 @@ def _rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         r, cache = rglru.forward(p["rec"], cfg, h, cache, ctx.impl,
                                  lengths=ctx.lengths)
-    x = x + r
-    return x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)), cache
+    x = _res(x + r, cache)
+    return _res(x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)),
+                cache), cache
 
 
 def _xlstm_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -191,7 +202,7 @@ def _xlstm_apply(kind: str, p: Params, cfg: ModelConfig, x: torch.Tensor,
         y, cache = step(p["cell"], cfg, h, cache)
     else:
         y, cache = fwd(p["cell"], cfg, h, cache, lengths=ctx.lengths)
-    return x + y, cache
+    return _res(x + y, cache), cache
 
 
 def _cross_kv(p: Params, cfg: ModelConfig, enc_out: torch.Tensor):
@@ -243,5 +254,6 @@ def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         hx = _norm(p["norm_x"], cfg, x + a)
         c = _cross_attend(p["xattn"], cfg, hx, xk.to(x.dtype),
                           xv.to(x.dtype))
-    x = x + a + c
-    return x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)), cache
+    x = _res(x + a + c, cache)
+    return _res(x + ffn.forward(p["ffn"], cfg, _norm(p["norm2"], cfg, x)),
+                cache), cache

@@ -41,6 +41,13 @@ JAX package (whose TPU kernels need the lane width), so caches carry across
 leaf for leaf; ``CacheSpec.latent_width`` records the live r + rd.  The
 ``moe`` kind takes ``attn``'s layouts and ``mla_moe`` takes ``mla``'s.
 
+Writes keep a sharded cache's placements: ``put_slot`` (a decode step's
+one position a row) and ``put_prefix`` (a prompt's first T positions)
+write a plain tensor as ever, and a ``DTensor`` leaf on each rank's own
+shard (its rows, and its part of the position axis under the ``seq``
+rules), in place either way.  The paged writes index the never-sharded
+page axis, every row into each rank's copy.
+
 The swap tier keeps a host mirror of every pool and scale leaf
 (``make_swap_pool``: pinned CPU tensors with the page axis replaced by
 swap slots); ``swap_out_pages`` / ``swap_in_pages`` move pages between
@@ -54,6 +61,91 @@ from typing import Any, Callable, Iterator
 import torch
 
 Params = Any
+
+def is_dtensor(x) -> bool:
+    """True for a ``DTensor`` (a leaf of a sharded run)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _local_like(x, dst, dims: dict):
+    """This rank's part of ``x`` for a write into ``dst.to_local()``:
+    ``dims`` maps a ``dst`` dim to the ``x`` dim that runs along it; each
+    mesh dim that splits one of those ``dst`` dims splits ``x``'s the
+    same way, and ``x`` is whole over the others."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    pl = tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+               else Replicate() for p in dst.placements)
+    if is_dtensor(x):
+        return x.redistribute(dst.device_mesh, pl).to_local()
+    return distribute_tensor(x, dst.device_mesh, pl,
+                             src_data_rank=None).to_local()
+
+
+def _span(dst, dim: int) -> tuple[int, int]:
+    """[start, stop) of ``dst``'s dim ``dim`` this rank holds (an even
+    split over each mesh dim that splits it, in mesh-dim order)."""
+    from torch.distributed.tensor import Shard
+    start, size = 0, dst.shape[dim]
+    mesh = dst.device_mesh
+    for i, p in enumerate(dst.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(i)
+            start += mesh.get_local_rank(i) * size
+    return start, start + size
+
+
+def put_slot(dst: torch.Tensor, dim: int, slot: torch.Tensor,
+             value: torch.Tensor, keep: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """``dst[b, ..., slot[b], ...] = value[b]`` for every row b, in place,
+    where ``dim`` is the slot's axis and ``value`` lacks it; rows with
+    ``keep`` False (bool[B], or None: every row) are left alone.  A
+    ``DTensor`` is written on each rank's own shard: its rows, and the
+    slots that fall in its part of ``dim``.  Returns ``dst``."""
+    value = value.to(dst.dtype)
+    b = dst.shape[0]
+    if is_dtensor(dst):
+        rest = [d for d in range(1, dst.dim()) if d != dim]
+        vdims = {0: 0, **{d: i + 1 for i, d in enumerate(rest)}}
+        local = dst.to_local()
+        lo, hi = _span(dst, dim)
+        slot = _local_like(slot.long(), dst, {0: 0}) - lo
+        inside = (slot >= 0) & (slot < hi - lo)
+        if keep is not None:
+            inside = inside & _local_like(keep, dst, {0: 0})
+        rows = torch.arange(local.shape[0], device=local.device)[inside]
+        idx = (rows,) + (slice(None),) * (dim - 1) + (slot[inside],)
+        local[idx] = _local_like(value, dst, vdims)[inside]
+        return dst
+    rows = torch.arange(b, device=dst.device)
+    idx = (rows,) + (slice(None),) * (dim - 1) + (slot,)
+    if keep is not None:
+        value = torch.where(
+            keep.reshape((b,) + (1,) * (value.dim() - 1)), value, dst[idx])
+    dst[idx] = value
+    return dst
+
+
+def put_prefix(dst: torch.Tensor, dim: int, new: torch.Tensor
+               ) -> torch.Tensor:
+    """Positions [0, T) of ``dst`` along ``dim`` := ``new`` (T =
+    ``new.shape[dim]``), in place; a ``DTensor`` on each rank's own
+    shard (the positions of [0, T) in its part of ``dim``).  Returns
+    ``dst``."""
+    t = new.shape[dim]
+    new = new.to(dst.dtype)
+    if not is_dtensor(dst):
+        dst.narrow(dim, 0, t).copy_(new)
+        return dst
+    lo, hi = _span(dst, dim)
+    stop = min(hi, t)
+    if stop > lo:
+        dims = {d: d for d in range(dst.dim()) if d != dim}
+        part = _local_like(new.narrow(dim, lo, stop - lo), dst, dims)
+        dst.to_local().narrow(dim, 0, stop - lo).copy_(part)
+    return dst
+
 
 ROLE_KV = "kv"
 ROLE_POOL = "pool"

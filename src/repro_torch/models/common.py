@@ -10,6 +10,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.sharding import activation
+
 PARAM_DTYPE = torch.bfloat16
 Params = Any
 
@@ -30,7 +32,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = activation.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

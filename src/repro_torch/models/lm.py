@@ -113,7 +113,14 @@ def unrolled_scans():
 # ---------------------------------------------------------------------------
 
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embed"]["w"][tokens.long()]
+    # ``embedding``, not an index: on a vocab-sharded table (a sharded
+    # run) each rank looks up the rows it holds and the partial rows are
+    # summed, as GSPMD partitions the gather; the table is never gathered.
+    x = torch.nn.functional.embedding(
+        tokens.long(), activation.fsdp_gathered(p["embed"]["w"]))
+    # The partial rows summed once, whole on every model rank (before the
+    # residual stream's two readers).
+    x = activation.constrain(x, "batch", None, None)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -121,7 +128,7 @@ def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = x @ p["embed"]["w"].t().to(x.dtype)
+        logits = activation.matmul(x, p["embed"]["w"].t().to(x.dtype))
     else:
         logits = common.dense(p["head"], x)
     # Logits stay vocab-sharded through the float32 loss under a binding.

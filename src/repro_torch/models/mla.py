@@ -29,6 +29,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import attention, common
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import activation
 
 Params = Any
 
@@ -60,8 +61,7 @@ def _queries(p, cfg, x, positions):
     """(q_nope, q_rope), each [B, H, T, *], RoPE applied to q_rope."""
     m = cfg.mla
     b, t, _ = x.shape
-    q = common.dense(p["w_q"], x).reshape(
-        b, t, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
+    q = activation.split_last(common.dense(p["w_q"], x), cfg.num_heads)
     q = q.transpose(1, 2)                                       # [B,H,T,*]
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     return q_nope, common.apply_rope(q_rope, positions, cfg.rope_theta)
@@ -112,10 +112,10 @@ def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     h = cfg.num_heads
     q_nope, q_rope = _queries(p, cfg, x, positions)
     ckv, krope = _latents(p, cfg, x, positions)
-    k_nope = (ckv @ p["w_uk"]["w"].to(ckv.dtype)).reshape(
-        b, t, h, m.nope_head_dim).transpose(1, 2)
-    v = (ckv @ p["w_uv"]["w"].to(ckv.dtype)).reshape(
-        b, t, h, m.v_head_dim).transpose(1, 2)
+    k_nope = activation.split_last(activation.matmul(
+        ckv, p["w_uk"]["w"].to(ckv.dtype)), h).transpose(1, 2)
+    v = activation.split_last(activation.matmul(
+        ckv, p["w_uv"]["w"].to(ckv.dtype)), h).transpose(1, 2)
     qc = torch.cat([q_nope, q_rope], dim=-1)
     kc = torch.cat([k_nope, krope[:, None].expand(b, h, t, m.rope_head_dim)
                     .to(k_nope.dtype)], dim=-1)
@@ -145,6 +145,17 @@ def _paged_latent_write(cache: Params, ckv: torch.Tensor,
     -1 entries, past the table, past a ragged row's length)."""
     pool = cache["latent_pages"]
     _, ps, dp = pool.shape
+    if cache_mod.is_dtensor(pool):
+        # Every row into each rank's feature slice of the shared pool.
+        if "latent_scales" in cache:
+            kops._no_sharded_pool("paged MLA prefill", pool)
+        pg, slot, keep = attention._prefill_slots(
+            kops._full(cache["block_tables"]), ckv.shape[1], ps,
+            kops._full(lengths))
+        rows = kops.like_pool(_latent_rows(ckv, krope, dp), pool, -1)
+        local = pool.to_local()
+        local[pg[keep], slot[keep]] = rows[keep].to(local.dtype)
+        return cache
     pg, slot, keep = attention._prefill_slots(cache["block_tables"],
                                               ckv.shape[1], ps, lengths)
     rows = _latent_rows(ckv, krope, dp)[keep]                    # [N, Dp]
@@ -174,13 +185,12 @@ def prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
         return y, _paged_latent_write(cache, ckv, krope, lengths)
     t = x.shape[1]
     for name, new in (("ckv", ckv), ("krope", krope)):
-        dst = cache[name][:, :t]
-        new = new.to(dst.dtype)
         if lengths is not None:
+            dst = cache[name][:, :t]
             keep = (torch.arange(t, device=x.device)[None, :]
                     < lengths.to(x.device)[:, None])
-            new = torch.where(keep[..., None], new, dst)
-        dst.copy_(new)
+            new = torch.where(keep[..., None], new.to(dst.dtype), dst)
+        cache_mod.put_prefix(cache[name], 1, new)
     return y, cache
 
 
@@ -268,13 +278,9 @@ def decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     # Dense latent cache: write slot pos (dropped past the cache, as JAX's
     # one-hot write), then attend over positions <= pos.
     s = cache["ckv"].shape[1]
-    rows = torch.arange(b, device=x.device)
     slot = pos.clamp(max=s - 1).long()
-    inside = (pos < s)[:, None]
     for name, new in (("ckv", ckv_t), ("krope", krope_t)):
-        dst = cache[name]
-        dst[rows, slot] = torch.where(inside, new[:, 0].to(dst.dtype),
-                                      dst[rows, slot])
+        cache_mod.put_slot(cache[name], 1, slot, new[:, 0], keep=pos < s)
     ckv = cache["ckv"].float()
     logits = (torch.einsum("bhr,bsr->bhs", q_abs[:, :, 0], ckv)
               + torch.einsum("bhr,bsr->bhs", q_rope[:, :, 0].float(),

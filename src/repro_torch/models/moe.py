@@ -13,6 +13,15 @@ Two dispatch modes, as in the JAX package:
     when ``dispatch == "dense"`` or the call has no more tokens than
     experts (a decode step), where capacity math would drop tokens.
 
+On ``DTensor``s (a sharded run) the layer is expert-parallel, as the
+partitioner's rule places the banks (experts on ``model``, the shared
+experts' hidden dim on ``model``): every rank routes its own token rows
+over all experts, dispatches them to its local experts only (the others'
+assignments count as dropped there), and its partial output is summed
+over ``model`` by the residual add that follows (an all-reduce); the aux
+loss sums its counts over the data axes.  Dispatch is group-local per
+batch row, so no token crosses ranks.
+
 The top k are taken by a stable descending sort, so equal probabilities
 go to the lowest expert index first, as ``jax.lax.top_k`` orders them.
 The expert products are plain ``torch`` matmuls: the JAX package computes
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import activation
 
 Params = Any
 
@@ -91,6 +101,9 @@ def route(p: Params, cfg: ModelConfig, xf: torch.Tensor
 def forward(p: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, T, d] -> (y [B, T, d], float32 aux loss)."""
+    from repro_torch.models.cache import is_dtensor
+    if is_dtensor(x):
+        return _forward_sharded(p, cfg, x)
     m = cfg.moe
     b, t, d = x.shape
     n = b * t
@@ -105,17 +118,92 @@ def forward(p: Params, cfg: ModelConfig, x: torch.Tensor
                                  device=x.device))
     aux = e * torch.sum(routed / n * probs.mean(dim=0))
 
-    if m.dispatch == "dense" or n <= e:
-        all_out = _expert_ffn(p["experts"], xf)                  # [E, N, d]
-        combine = torch.zeros((n, e), dtype=xf.dtype, device=x.device)
-        combine.scatter_(1, top_idx, gate_vals.to(xf.dtype))
-        y = torch.einsum("end,ne->nd", all_out, combine)
-    else:
-        y = _gather_dispatch(p, cfg, x, gate_vals, top_idx).reshape(n, d)
-
+    y = _experts(p["experts"], cfg, x, gate_vals, top_idx, 0, e)
     if m.num_shared:
         y = y + _expert_ffn(p["shared"], xf).sum(dim=0)
     return y.reshape(b, t, d), aux
+
+
+def _experts(bank: Params, cfg: ModelConfig, x: torch.Tensor,
+             gate_vals: torch.Tensor, top_idx: torch.Tensor, first: int,
+             n_local: int) -> torch.Tensor:
+    """The routed experts' combined output [N, d] from experts [first,
+    first + n_local) of ``bank`` (which holds just those)."""
+    b, t, d = x.shape
+    n = b * t
+    xf = x.reshape(n, d)
+    if cfg.moe.dispatch == "dense" or n <= cfg.moe.num_experts:
+        all_out = _expert_ffn(bank, xf)                          # [E, N, d]
+        combine = torch.zeros((n, cfg.moe.num_experts), dtype=xf.dtype,
+                              device=x.device)
+        combine.scatter_(1, top_idx, gate_vals.to(xf.dtype))
+        return torch.einsum("end,ne->nd", all_out,
+                            combine[:, first:first + n_local])
+    return _gather_dispatch(bank, cfg, x, gate_vals, top_idx, first,
+                            n_local).reshape(n, d)
+
+
+def _forward_sharded(p: Params, cfg: ModelConfig, x
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``forward`` on ``DTensor``s, expert-parallel over ``model``.  The
+    router runs on ``DTensor``s; the experts on each rank's rows and
+    experts, whose gradients (to the rows, the gates and, in a training
+    run, the banks) are partial sums over the ranks that share them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    m = cfg.moe
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    b, t, d = x.shape
+    e = m.num_experts
+    # Rows stay on their data ranks; every model rank holds them whole.
+    rows = tuple(Shard(0) if name != "model" and pl == Shard(0)
+                 else Replicate() for name, pl in zip(names, x.placements))
+    on_model = tuple(Partial() if name == "model" else r
+                     for name, r in zip(names, rows))
+    probs, gate_vals, top_idx = route(
+        p, cfg, x.redistribute(mesh, rows).reshape(b * t, d))
+    xl = x.redistribute(mesh, rows).to_local(grad_placements=on_model)
+    gates = gate_vals.redistribute(mesh, rows).to_local(
+        grad_placements=on_model)
+    ids = top_idx.redistribute(mesh, rows).to_local()
+
+    def local(w):
+        # FSDP's all-gather of a bank in a training run; each data rank's
+        # rows give a partial gradient.
+        w = activation.fsdp_gathered(w)
+        return w.to_local(grad_placements=tuple(
+            Partial() if r == Shard(0) else q
+            for r, q in zip(rows, w.placements)))
+
+    def summed(y, sharded: bool):
+        # A bank split over model gives a partial sum a model rank.
+        return DTensor.from_local(y.reshape(xl.shape[0], t, d), mesh,
+                                  on_model if sharded else rows,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    bank = {k: local(v) for k, v in p["experts"].items()}
+    n_local = bank["gate"].shape[0]
+    first = (mesh.get_local_rank("model") * n_local if n_local < e else 0)
+    y = summed(_experts(bank, cfg, xl, gates, ids, first, n_local),
+               n_local < e)
+    if m.num_shared:
+        shared = {k: local(v) for k, v in p["shared"].items()}
+        y = y + summed(_expert_ffn(shared, xl.reshape(-1, d)).sum(dim=0),
+                       shared["down"].shape[1] < m.d_expert)
+
+    # Switch aux loss over every row: counts summed over the data ranks
+    # holding rows, probabilities through the router's DTensors.
+    routed = torch.zeros((e,), dtype=torch.float32, device=xl.device)
+    routed.index_add_(0, ids.reshape(-1),
+                      torch.ones((ids.numel(),), dtype=torch.float32,
+                                 device=xl.device))
+    routed = DTensor.from_local(routed, mesh, tuple(
+        Partial() if r == Shard(0) else Replicate() for r in rows),
+        run_check=False)
+    n = b * t
+    aux = e * torch.sum(routed / n * probs.mean(dim=0))
+    return y, aux
 
 
 def slots(cfg: ModelConfig, top_idx: torch.Tensor, b: int, t: int
@@ -131,19 +219,26 @@ def slots(cfg: ModelConfig, top_idx: torch.Tensor, b: int, t: int
     return slot, slot < capacity(cfg, t)
 
 
-def _gather_dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                     gate_vals: torch.Tensor, top_idx: torch.Tensor
+def _gather_dispatch(bank: Params, cfg: ModelConfig, x: torch.Tensor,
+                     gate_vals: torch.Tensor, top_idx: torch.Tensor,
+                     first: int = 0, n_local: int | None = None
                      ) -> torch.Tensor:
     """Capacity dispatch: assignments scatter into [E, B·C] expert rows
     (dropped ones into one spare row past them, which no expert reads),
     one batched matmul a weight bank, then each token sums its kept
-    assignments' outputs times their gates.  Returns [B, T, d]."""
+    assignments' outputs times their gates.  Only experts [first, first +
+    n_local) are in ``bank`` (all of them unless sharded): an assignment
+    to another expert is dropped here.  Returns [B, T, d]."""
     m = cfg.moe
     b, t, d = x.shape
-    tk, e = m.top_k, m.num_experts
+    tk = m.top_k
+    e = m.num_experts if n_local is None else n_local
     cap = capacity(cfg, t)
     slot, keep = slots(cfg, top_idx, b, t)
-    e_bt = top_idx.reshape(b, t * tk)
+    e_bt = top_idx.reshape(b, t * tk) - first
+    if e != m.num_experts:
+        keep = keep & (e_bt >= 0) & (e_bt < e)
+        e_bt = e_bt.clamp(0, e - 1)
     rows = b * cap
     # Row of slot min(slot, cap - 1): a kept assignment's own, a dropped
     # one's last (read back with weight 0, as JAX's clipped gather does).
@@ -153,7 +248,7 @@ def _gather_dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor,
     src = x[:, torch.arange(t, device=x.device).repeat_interleave(tk)]
     buf = torch.zeros((e * rows + 1, d), dtype=x.dtype, device=x.device)
     buf[dest.reshape(-1)] = src.reshape(-1, d)
-    out = _expert_ffn(p["experts"], buf[:-1].view(e, rows, d))   # [E,BC,d]
+    out = _expert_ffn(bank, buf[:-1].view(e, rows, d))           # [E,BC,d]
     gathered = out.reshape(e * rows, d)[at]                       # [B,TK,d]
     w = (gate_vals.reshape(b, t * tk) * keep).to(x.dtype)
     return (gathered * w[..., None]).reshape(b, t, tk, d).sum(dim=2)

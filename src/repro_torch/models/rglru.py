@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import activation
 
 Params = Any
 C_GATE = 8.0
@@ -120,6 +121,9 @@ def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  < lengths[:, None])[..., None]             # [B, T, 1]
         a_t = torch.where(valid, a_t, 1.0)                  # identity step
         b_t = torch.where(valid, b_t, 0.0)
+    # Under a binding the scan's inputs keep time whole, width on model.
+    a_t = activation.constrain(a_t, "batch", None, "ffn")
+    b_t = activation.constrain(b_t, "batch", None, "ffn")
     h0 = (torch.zeros((x.shape[0], cfg.rglru_width), dtype=torch.float32,
                       device=x.device) if cache is None else cache["h"])
     h, h_last = kops.linear_scan(a_t, b_t, h0, impl=impl)

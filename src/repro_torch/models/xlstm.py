@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common
+from repro_torch.models import scan as scan_mod
+from repro_torch.sharding import activation
 from repro_torch.models.config import ModelConfig
 
 Params = Any
@@ -41,15 +43,25 @@ def _scan(step, state: dict, xs: tuple, lengths: Optional[torch.Tensor],
     with ``lengths``, steps at t >= lengths[b] keep row b's state.  The
     output of a step is y_t, or with ``emit`` that leaf of the state after
     the mask (sLSTM's h, as in JAX).  Returns (state, ys on axis 1)."""
+    xs = tuple(activation.whole_dim(x, 1) for x in xs)
     t = xs[0].shape[1]
     if lengths is not None:
         lengths = lengths.to(xs[0].device)
+    names = sorted(state)
+    one = scan_mod.once(t, [state[k] for k in names] + list(xs))
+    if one is not None:
+        # The dry run's counter: one step counted t times (models/scan.py).
+        ins = one.enter([state[k] for k in names] + list(xs))
+        state, xs = dict(zip(names, ins)), tuple(ins[len(names):])
     ys = []
-    for i in range(t):
+    for i in range(1 if one is not None else t):
         new, y = step(state, *(x[:, i] for x in xs))
         state = new if lengths is None else _masked_state(i < lengths, new,
                                                           state)
         ys.append(y if emit is None else state[emit])
+    if one is not None:
+        outs = one.exit([state[k] for k in names] + ys)
+        state, ys = dict(zip(names, outs)), outs[len(names):] * t
     return state, torch.stack(ys, dim=1)
 
 
@@ -82,10 +94,9 @@ def slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
 def _slstm_cell(p: Params, cfg: ModelConfig, wx_t: torch.Tensor,
                 state: dict) -> tuple[dict, torch.Tensor]:
     """wx_t: [B, 4d] input contribution; state: dict of [B, d] float32."""
-    b = wx_t.shape[0]
-    h_heads = state["h"].reshape(b, cfg.num_heads, -1).float()
-    rh = torch.einsum("bhd,hde->bhe", h_heads,
-                      p["r"].float()).reshape(b, -1)              # [B, 4d]
+    h_heads = activation.split_last(state["h"], cfg.num_heads).float()
+    rh = activation.merge_last(torch.einsum(
+        "bhd,hde->bhe", h_heads, p["r"].float()), 2)            # [B, 4d]
     pre = wx_t.float() + rh
     i_p, f_p, z_p, o_p = torch.chunk(pre, 4, dim=-1)
     m_new = torch.maximum(f_p + state["m"], i_p)                  # log-space
@@ -157,7 +168,7 @@ def mlstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
 def _mlstm_cell(state: dict, q_t, k_t, v_t, i_p, f_p
                 ) -> tuple[dict, torch.Tensor]:
     """One step.  q/k/v: [B, H, dh]; i_p / f_p: [B, H] pre-activations."""
-    f_log = F.logsigmoid(f_p.float())
+    f_log = activation.elementwise(F.logsigmoid, f_p.float())
     m_new = torch.maximum(f_log + state["m"], i_p.float())
     i_g = torch.exp(i_p - m_new)[..., None]                       # [B,H,1]
     f_g = torch.exp(f_log + state["m"] - m_new)[..., None]
@@ -176,7 +187,7 @@ def _mlstm_qkvif(p: Params, cfg: ModelConfig, xu: torch.Tensor):
     dh = up // h
 
     def split(z):
-        return z.reshape(b, t, h, dh)
+        return activation.split_last(z, h)
     q = split(common.dense(p["wq"], xu))
     k = split(common.dense(p["wk"], xu)) * dh ** -0.5
     v = split(common.dense(p["wv"], xu))
@@ -186,8 +197,7 @@ def _mlstm_qkvif(p: Params, cfg: ModelConfig, xu: torch.Tensor):
 
 def _mlstm_out(p: Params, cfg: ModelConfig, hs: torch.Tensor,
                gate: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    b, t = x.shape[:2]
-    h = hs.reshape(b, t, -1).to(x.dtype)
+    h = activation.merge_last(hs, 2).to(x.dtype)
     h = common.apply_norm(p["norm"], h, "rmsnorm", cfg.norm_eps)
     return common.dense(p["down"], h * gate)
 

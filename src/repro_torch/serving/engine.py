@@ -32,6 +32,7 @@ from repro_torch.core import gset, tree
 from repro_torch.core import merge as merge_mod
 from repro_torch.models import attention, lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import activation
 from repro_torch.sharding import mesh as mesh_mod
 
 Params = Any
@@ -39,6 +40,8 @@ Params = Any
 
 def sample_token(logits: torch.Tensor, gen: Optional[torch.Generator],
                  temperature: float = 0.0) -> torch.Tensor:
+    # Sharded logits are gathered along the vocabulary first.
+    logits = activation.whole_dim(logits, -1)
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if gen is None:
@@ -252,7 +255,12 @@ def make_fused_serve_step(cfg: ModelConfig, mesh, dp_axes: tuple[str, ...],
     when ``step % merge_every == 0``, decided on the host.
 
     The model runs on every row this process holds (data-parallel across
-    the ranks of a ``DeviceMesh``, replicated across ``model``); each
+    the ranks of a ``DeviceMesh``, replicated across ``model``), or, on a
+    model of ``DTensor``s (``sharding.partition.shard_params``), on the
+    whole batch sharded as its inputs are (token, pos, slots and active
+    with their rows over the data axes, ``shard_batch``), the
+    coordination taking each rank's own rows, as JAX's ``shard_map``
+    over the data axes gives them; each
     replica appends its rows' tokens to its own doc and every worker
     beats; then the collective join makes every replica observe everyone's
     edits.  ``temperature > 0`` samples with the caller's
@@ -279,13 +287,27 @@ def make_fused_serve_step(cfg: ModelConfig, mesh, dp_axes: tuple[str, ...],
                                        impl=impl)
         nxt = sample_token(logits, gen, temperature)
         nxt = torch.where(active, nxt, token)
-        coord = append_local(coord, nxt, slots, active)
+        coord = append_local(coord, *(_own_rows(x, dp_axes)
+                                      for x in (nxt, slots, active)))
         if step % merge_every == 0:
             coord = merge_fn(coord)
         pos = pos + active.to(pos.dtype)
         return nxt, cache, pos, coord
 
     return serve_step
+
+
+def _own_rows(x, dp_axes: tuple[str, ...]):
+    """This rank's rows of a batch ``DTensor``, as a plain tensor (its
+    rows over the data axes, whole over the rest); a plain tensor is
+    already a process's own."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    pl = tuple(Shard(0) if name in dp_axes else Replicate()
+               for name in mesh.mesh_dim_names)
+    return x.redistribute(mesh, pl).to_local()
 
 
 class Engine:

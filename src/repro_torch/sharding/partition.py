@@ -61,13 +61,17 @@ def _walk(fn: Callable, tree: Any, path: tuple[str, ...] = ()) -> Any:
 
 def placements(spec: PartitionSpec, mesh) -> tuple:
     """``DTensor`` placements of ``spec`` on ``mesh``: ``Shard(d)`` on
-    every mesh dim that shards tensor dim d (a dim sharded over several
-    axes gets one on each), ``Replicate()`` on the rest."""
+    every mesh dim of more than one rank that shards tensor dim d (a dim
+    sharded over several axes gets one on each), ``Replicate()`` on the
+    rest."""
     from torch.distributed.tensor import Replicate, Shard
     by_axis = {}
+    sizes = axis_sizes(mesh)
     for d, part in enumerate(spec):
         for name in ((part,) if isinstance(part, str) else part or ()):
-            by_axis[name] = Shard(d)
+            # A split over one rank is that rank's whole tensor.
+            if sizes[name] > 1:
+                by_axis[name] = Shard(d)
     return tuple(by_axis.get(a, Replicate()) for a in axis_names(mesh))
 
 
@@ -222,3 +226,82 @@ class Partitioner:
         """``DTensor`` placements of every cache leaf on the mesh."""
         return _walk(lambda path, spec: placements(spec, self.mesh),
                      self.cache_specs(cache, shard_batch=shard_batch))
+
+
+# -- trees to and from ``DTensor`` ------------------------------------------
+
+def shard_tensor(t, mesh, placement: tuple):
+    """``t`` (the whole tensor, on every rank) as a ``DTensor`` with
+    ``placement`` on ``mesh``: each rank keeps its own shard, cut locally
+    (no collective), so a ``meta`` tensor on a fake group stays on
+    ``meta``.  A ``DTensor`` comes back as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(t, DTensor):
+        return t
+    return distribute_tensor(t, mesh, placement, src_data_rank=None)
+
+
+def _shard_tree(tree, placed, mesh):
+    return _walk2(lambda t, pl: shard_tensor(t, mesh, pl), tree, placed)
+
+
+def _walk2(fn: Callable, tree: Any, other: Any) -> Any:
+    """``fn(leaf, other_leaf)`` over two trees of the same dicts and
+    lists."""
+    if isinstance(tree, dict):
+        return {k: _walk2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_walk2(fn, v, o) for v, o in zip(tree, other, strict=True)]
+    return fn(tree, other)
+
+
+def shard_params(params: Params, part: Partitioner) -> Params:
+    """The parameter tree as ``DTensor``s under ``part.params_specs``
+    (serving: a ``Partitioner(fsdp=False)``, tensor-parallel only;
+    training: ``fsdp=True``)."""
+    return _shard_tree(params, part.params_shardings(params), part.mesh)
+
+
+def shard_cache(cache: Params, part: Partitioner, *,
+                shard_batch: bool = True) -> Params:
+    """The cache tree as ``DTensor``s under ``part.cache_specs``."""
+    return _shard_tree(cache, part.cache_shardings(
+        cache, shard_batch=shard_batch), part.mesh)
+
+
+def shard_opt_state(state, params: Params, part: Partitioner):
+    """AdamW state with the moments under the parameters' placements (the
+    moments follow the parameters: with FSDP that is ZeRO); the step
+    count stays a host scalar."""
+    placed = part.params_shardings(params)
+    return type(state)(state.step, _shard_tree(state.mu, placed, part.mesh),
+                       _shard_tree(state.nu, placed, part.mesh))
+
+
+def shard_batch(x, mesh, dp_axes: tuple[str, ...]):
+    """A batch-major tensor as a ``DTensor`` with its rows over the data
+    axes (replicated where the rows do not divide them), as JAX's
+    ``in_shardings`` give a step's batch inputs."""
+    from repro_torch.sharding.mesh import axis_sizes
+    sizes = axis_sizes(mesh)
+    ways = 1
+    for a in dp_axes:
+        ways *= sizes[a]
+    rows = dp_axes if x.shape[0] % ways == 0 else None
+    return shard_tensor(x, mesh, placements(
+        P(rows, *([None] * (x.dim() - 1))), mesh))
+
+
+def full_tensor(tree: Any) -> Any:
+    """Every ``DTensor`` of a tree of dicts, lists and tuples gathered
+    whole (a collective on every rank); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: full_tensor(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(full_tensor(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_tensor(v) for v in tree)
+    return tree

@@ -42,8 +42,7 @@ class AdamW(NamedTuple):
     clip_norm: float = 1.0
 
     def init(self, params: Params) -> AdamWState:
-        z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+        z = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return AdamWState(step=torch.zeros((), dtype=torch.int32),
                           mu=tree.map(z, params), nu=tree.map(z, params))
 

@@ -24,6 +24,26 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gradient under its parameter's placements (FSDP's
+    reduce-scatter of a partial sum); a plain one as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Rows [i·B/n, (i+1)·B/n) of a batch leaf: a contiguous part, as
+    JAX's reshape to [n, B/n, ...] takes it.  A ``DTensor`` batch keeps
+    its placements (the part is resharded over the data axes)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(v, DTensor):
+        b = v.shape[0] // n
+        return v[i * b:(i + 1) * b].redistribute(v.device_mesh, v.placements)
+    return v.reshape(n, -1, *v.shape[1:])[i]
+
+
 def make_train_step(cfg: ModelConfig, opt: AdamW, *, impl: str = "ref",
                     remat: bool = True, microbatches: int = 1,
                     aux_weight: float = 0.01):
@@ -37,7 +57,8 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, impl: str = "ref",
     def grads_of(params, leaves, mb):
         loss, metrics = lm.loss_fn(params, cfg, mb, impl=impl,
                                    aux_weight=aux_weight, remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = [_placed_as(g, p)
+                 for g, p in zip(torch.autograd.grad(loss, leaves), leaves)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
@@ -47,11 +68,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, impl: str = "ref",
         if microbatches == 1:
             loss, metrics, grads = grads_of(params, leaves, batch)
         else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             for i in range(microbatches):
-                mb = {k: v.reshape(microbatches, -1, *v.shape[1:])[i]
+                mb = {k: _microbatch(v, i, microbatches)
                       for k, v in batch.items()}
                 l, metrics, g = grads_of(params, leaves, mb)
                 for a, gi in zip(acc, g):

@@ -16,16 +16,24 @@ port's side.  Held:
 * ``flops_per_device`` within a measured band of JAX's
   ``extrapolated_costs`` FLOPs on a reduced OLMo-1B (4 layers) train cell
   (64 tokens × 8) and decode cell (8 rows over 128 positions) on a 2 × 2
-  host mesh.  FlopCounterMode counts the products (matmuls, attention);
-  XLA's cost analysis also counts elementwise work (norms, softmax, RoPE,
-  the optimizer), which at these narrow widths is most of a decode step:
-  measured 0.872 of JAX's (train) and 0.311 (decode).
-* The records: status, the null collective bytes naming ROADMAP item 24,
-  incremental writes and ``--force``, a step counted once a process for
-  both meshes and keyed on the cell's config, the CLI's flags (JAX's, and a flag
-  that cannot apply raises), ``lm.abstract_params`` (``init``'s tree on
-  ``meta`` tensors), the no-op ``lm.unrolled_scans``, and
-  ``benchmarks.run``'s roofline rows where no record exists yet.
+  mesh: the port's count is what rank 0 of a fake 4-rank group runs in
+  the sharded step.  FlopCounterMode's formulas count the products
+  (matmuls, attention); XLA's cost analysis also counts elementwise work
+  (norms, softmax, RoPE, the optimizer), which at these narrow widths is
+  most of a decode step: measured 0.872 of JAX's (train) and 0.311
+  (decode).
+* The counter: a product sharded 16 ways counts its global FLOPs over 16
+  (a ``DTensor`` op is counted at its local shapes); a recurrent scan
+  counted step by step and counted once × T give equal FLOPs, bytes and
+  op counts (``_scan`` and ``linear_scan``), and the shortcut refuses a
+  tensor that is not on ``meta``.
+* The records: status, collective bytes in JAX's layout (per op kind and
+  a ``total``), incremental writes and ``--force``, a step counted once a
+  process for each mesh and keyed on the cell's config, the CLI's flags
+  (JAX's; ``--mla-cache`` moves the MLA cells' counts), ``lm
+  .abstract_params`` (``init``'s tree on ``meta`` tensors), the no-op
+  ``lm.unrolled_scans``, and ``benchmarks.run``'s roofline rows where no
+  record exists yet.
 """
 from __future__ import annotations
 
@@ -43,9 +51,9 @@ torch = pytest.importorskip("torch")
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable  # noqa: E402
 from repro_torch.core import tree  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import counting, dryrun  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.sharding.mesh import StackedMesh  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = ("single", "multi")
@@ -54,8 +62,10 @@ CELLS = [f"{a}|{s}|{m}" for m in MESHES for a in sorted(tconfigs.ARCHS)
 APPLICABLE = [c for c in CELLS if applicable(
     tconfigs.get(c.split("|")[0]), SHAPES[c.split("|")[1]])[0]]
 # The reduced cells of the FLOP band: (shape, band of port / JAX).
-BAND_CELLS = {"train": (ShapeSpec("t", 64, 8, "train"), (0.75, 1.0)),
+BAND_CELLS = {"train": (ShapeSpec("t", 64, 8, "train"), (0.8, 1.0)),
               "decode": (ShapeSpec("d", 128, 8, "decode"), (0.25, 0.45))}
+JAX_KINDS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute", "total"}
 
 JAX_SCRIPT = """
 import json
@@ -88,8 +98,8 @@ print(json.dumps(out))
 def _port_flops(name: str) -> float:
     shape = BAND_CELLS[name][0]
     cfg = tconfigs.reduced(tconfigs.get("olmo-1b"), layers=4)
-    mesh = StackedMesh((2, 2), ("data", "model"))
-    return dryrun.count_cell(cfg, shape, mesh)["flops"] / 4
+    with tmesh.debug_counting_mesh(2, 2) as mesh:
+        return dryrun.count_cell(cfg, shape, mesh)["flops"]
 
 
 @pytest.fixture(scope="module")
@@ -151,9 +161,11 @@ def test_records(tmp_path):
     kw = dict(out_dir=tmp_path)
     rec = dryrun.run_cell("olmo-1b", "decode_32k", "multi", **kw)
     assert rec["status"] == "ok" and rec["n_devices"] == 512
-    assert rec["collective_bytes_per_device"] is None
-    assert "item 24" in rec["collective_method"]
-    assert "unfused eager" in rec["cost_method"]
+    coll = rec["collective_bytes_per_device"]
+    assert set(coll) <= JAX_KINDS and coll["total"] > 0
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+    assert "ring model" in rec["collective_method"]
+    assert "rank 0" in rec["cost_method"]
     assert rec["memory_analytic"] == dryrun.analytic_memory(
         tconfigs.get("olmo-1b"), SHAPES["decode_32k"],
         dryrun.production_mesh("multi"))
@@ -166,27 +178,110 @@ def test_records(tmp_path):
                            **kw)["marker"] == 1
     assert "marker" not in dryrun.run_cell("olmo-1b", "decode_32k", "multi",
                                            force=True, **kw)
-    # One process counts the step once for both meshes.
+    # One process counts a step once a mesh: a rank of the multi-pod mesh
+    # holds half the rows of a single-pod rank, the same weight shards.
     counts: dict = {}
     multi = dryrun.run_cell("olmo-1b", "decode_32k", "multi", force=True,
                             counts=counts, **kw)
     single = dryrun.run_cell("olmo-1b", "decode_32k", "single",
                              counts=counts, **kw)
-    assert len(counts) == 1
-    assert single["flops_per_device"] == 2 * multi["flops_per_device"]
-    # The fused step counts the coordination on top of the decode.
+    assert len(counts) == 2
+    assert 1.5 < single["flops_per_device"] / multi["flops_per_device"] <= 2
+    dryrun.run_cell("olmo-1b", "decode_32k", "single", force=True,
+                    counts=counts, **kw)
+    assert len(counts) == 2
+    # The fused step counts the coordination on top of the decode, and
+    # its merge's collectives.
     fused = dryrun.run_cell("olmo-1b", "decode_32k", "single",
                             variant="fused_delta", fused_coord=True,
                             merge_strategy="delta", counts=counts, **kw)
-    assert len(counts) == 2
+    assert len(counts) == 3
     assert fused["bytes_per_device"] > single["bytes_per_device"]
     assert fused["options"]["merge_strategy"] == "delta"
+    assert (fused["collective_bytes_per_device"]["collective-permute"]
+            > 0)
+
+
+def test_mla_cache_flag_moves_the_counts(tmp_path):
+    """``--mla-cache`` picks the latent cache's layout: ``seq`` splits its
+    positions over model instead of its features, so a decode step reads
+    and sends other bytes; the analytic memory keeps JAX's default rule."""
+    arch = "deepseek-v2-lite-16b"
+    recs = {mode: dryrun.run_cell(arch, "decode_32k", "single",
+                                  variant=mode, mla_cache=mode,
+                                  out_dir=tmp_path)
+            for mode in ("latent", "seq")}
+    assert all(r["status"] == "ok" for r in recs.values())
+    assert recs["seq"]["options"]["mla_cache"] == "seq"
+    assert (recs["seq"]["bytes_per_device"]
+            != recs["latent"]["bytes_per_device"])
+    assert (recs["seq"]["collective_bytes_per_device"]
+            != recs["latent"]["collective_bytes_per_device"])
+    assert recs["seq"]["memory_analytic"] == recs["latent"]["memory_analytic"]
+
+
+def test_sharded_product_counts_its_shard():
+    """A [64, 2048] @ [2048, 8192] product with rows over data and columns
+    over model on a 4 × 4 mesh: rank 0's FLOPs are the global ones / 16
+    (``FlopCounterMode`` alone counts the global product)."""
+    from repro_torch.sharding.partition import P, placements, shard_tensor
+    with tmesh.counting_mesh((4, 4), ("data", "model")) as mesh:
+        x = shard_tensor(torch.ones((64, 2048), device="meta"), mesh,
+                         placements(P("data", None), mesh))
+        w = shard_tensor(torch.ones((2048, 8192), device="meta"), mesh,
+                         placements(P(None, "model"), mesh))
+        got = counting.count(lambda: x @ w)
+    assert got["flops"] == 2 * 64 * 2048 * 8192 / 16
+    assert got["collectives"] == {}
+
+
+def _scan_cases():
+    """Each scan of the port at 12 steps on ``meta`` inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import xlstm
+    cfg = tconfigs.reduced(tconfigs.get("xlstm-125m"))
+    cells = [layer["cell"] for layer in lm.abstract_params(cfg)["layers"]]
+    b, t = 2, 12
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    x = meta(b, t, cfg.d_model, dtype=torch.bfloat16)
+    return {
+        "linear_scan": lambda: ref.linear_scan(meta(b, t, 16),
+                                               meta(b, t, 16), meta(b, 16)),
+        "slstm": lambda: xlstm.slstm_forward(cells[0], cfg, x),
+        "mlstm": lambda: xlstm.mlstm_forward(cells[1], cfg, x),
+    }
+
+
+@pytest.mark.parametrize("case", ["linear_scan", "slstm", "mlstm"])
+def test_scan_counted_once_equals_step_by_step(case):
+    fn = _scan_cases()[case]
+    steps = counting.count(fn, scans_once=False)
+    once = counting.count(fn, scans_once=True)
+    assert once == steps
+    assert once["ops"] > 12
+
+
+def test_scan_shortcut_refuses_real_tensors():
+    from repro_torch.kernels import ref
+    from repro_torch.models import scan
+    a = torch.zeros((1, 3, 4))
+    with pytest.raises(ValueError, match="only on meta"):
+        counting.count(lambda: ref.linear_scan(a, a, a[:, 0]),
+                       device=None)
+    with pytest.raises(RuntimeError, match="dry run's counter"):
+        with scan.counted_once(None):
+            pass
+    # Outside the counter a scan runs every step, on any device.
+    assert ref.linear_scan(a + 1, a + 1, a[:, 0]).shape == (1, 3, 4)
 
 
 def test_counts_are_keyed_on_the_cell_config(tmp_path, monkeypatch):
-    """A step's counts are reused only for the same config, shape and
-    options: another MoE dispatch counts anew, and so does every process
-    (no record on disk lends its counts, ``--force`` or not)."""
+    """A step's counts are reused only for the same config, shape,
+    options and mesh: another MoE dispatch counts anew, and so does every
+    process (no record on disk lends its counts, ``--force`` or not)."""
     calls = []
 
     def fake(cfg, shape, mesh, **options):
@@ -200,13 +295,16 @@ def test_counts_are_keyed_on_the_cell_config(tmp_path, monkeypatch):
     counts: dict = {}
     first = dryrun.run_cell(arch, "decode_32k", "single", counts=counts,
                             out_dir=tmp_path)
+    # Each mesh is counted once: its ranks hold other shards.
     dryrun.run_cell(arch, "decode_32k", "multi", counts=counts,
                     out_dir=tmp_path)
-    assert calls == [dispatch]
+    dryrun.run_cell(arch, "decode_32k", "single", variant="same",
+                    counts=counts, out_dir=tmp_path)
+    assert calls == [dispatch, dispatch]
     moved = dryrun.run_cell(arch, "decode_32k", "multi", variant=other,
                             moe_dispatch=other, counts=counts,
                             out_dir=tmp_path)
-    assert calls == [dispatch, other]
+    assert calls == [dispatch, dispatch, other]
     assert moved["flops_per_device"] != first["flops_per_device"] / 2
     # A new process (no ``counts``) counts again, beside the other mesh's
     # record of the same cell, and so does ``--force``.
@@ -214,7 +312,7 @@ def test_counts_are_keyed_on_the_cell_config(tmp_path, monkeypatch):
                     out_dir=tmp_path)
     dryrun.run_cell(arch, "decode_32k", "single", force=True,
                     out_dir=tmp_path)
-    assert calls == [dispatch, other, dispatch, dispatch]
+    assert calls == [dispatch, dispatch, other, dispatch, dispatch]
 
 
 def test_cli_flags_are_jaxs():
@@ -223,8 +321,6 @@ def test_cli_flags_are_jaxs():
                               path.read_text()))
     assert flags(Path(dryrun.__file__)) == flags(
         ROOT / "src" / "repro" / "launch" / "dryrun.py")
-    with pytest.raises(SystemExit, match="mla-cache"):
-        dryrun.main(["--arch", "olmo-1b", "--mla-cache", "seq"])
     assert dryrun.OUT_DIR.parts[-2:] == ("experiments", "dryrun_torch")
 
 

@@ -116,10 +116,20 @@ def test_unmeasured_collective_term_is_not_zero():
     cell = _cell("decode", None)
     r = troof.roofline(cell)
     assert r["t_collective"] is None
-    assert "item 24" in r["collective_term"]
+    assert "no collective bytes" in r["collective_term"]
     assert r["dominant"] == "memory"
     assert r["t_memory"] == cell["bytes_per_device"] / 3.35e12
     assert r["t_compute"] == cell["flops_per_device"] / 989e12
+
+
+def test_collective_term_is_measured_from_the_records_bytes():
+    """A record of the sharded dry run carries collective bytes: the term
+    is their total over NVLink, and it can dominate."""
+    cell = _cell("train", {"all-reduce": 4e12, "total": 4e12})
+    r = troof.roofline(cell)
+    assert r["t_collective"] == 4e12 / 450e9
+    assert "collective_term" not in r
+    assert r["dominant"] == "collective"
 
 
 def test_h100_constants_and_no_tpu_constant():

@@ -166,8 +166,194 @@ def _sharding(inputs, rank, world):
     return out
 
 
+def _worst(ref, got) -> float:
+    """The largest share of the 1e-5 abs + rel rule that ``got`` uses
+    against ``ref`` (<= 1 passes); +inf on a shape or dtype mismatch."""
+    from repro_torch.core import tree
+    worst = 0.0
+    for a, b in zip(tree.leaves(ref), tree.leaves(got), strict=True):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf")
+        if not a.is_floating_point():
+            worst = max(worst, 0.0 if torch.equal(a, b) else float("inf"))
+            continue
+        err = (a.double() - b.double()).abs()
+        worst = max(worst, float((err / (1e-5 + 1e-5 * a.double().abs()))
+                                 .max()))
+    return worst
+
+
+def _greedy(ref_logits, got_logits) -> bool:
+    """Greedy tokens equal wherever the reference's top-2 gap exceeds
+    twice the 1e-5 rule."""
+    top2 = ref_logits.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2e-5 * (1 + top2[..., 0].abs())
+    same = ref_logits.argmax(-1) == got_logits.argmax(-1)
+    return bool((same | ~clear).all())
+
+
+def _tp_decode(case, mesh, plain, sharded, rows):
+    """``steps`` decode steps from ``pos`` on the prefilled cache, the
+    reference's tokens fed to both runs: logits each step, the cache at
+    the end, greedy tokens."""
+    from repro_torch.models import lm
+    from repro_torch.sharding.partition import full_tensor
+    cfg, params, cache = plain
+    sp, sc = sharded
+    token, pos = case["token"], case["pos"]
+    ref_l, got_l = [], []
+    for _ in range(case["steps"]):
+        logits, cache = lm.decode_step(params, cfg, token, cache, pos,
+                                       impl="ref")
+        with _bound():
+            sl, sc = lm.decode_step(sp, cfg, rows(token), sc, rows(pos),
+                                    impl="ref")
+        ref_l.append(logits)
+        got_l.append(full_tensor(sl))
+        token, pos = logits.argmax(-1).to(torch.int32), pos + 1
+    ref_l, got_l = torch.stack(ref_l), torch.stack(got_l)
+    return {"logits": _worst(ref_l, got_l),
+            "cache": _worst(cache, full_tensor(sc)),
+            "greedy": _greedy(ref_l, got_l)}
+
+
+def _bound():
+    from repro_torch.sharding import activation
+    return activation.bind(activation.standard_binding(("data",)))
+
+
+def _tp_case(case, mesh):
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.models import lm
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.partition import Partitioner, full_tensor
+    cfg = configs.reduced(configs.get(case["arch"]), **case["reduced"])
+    params = tree.map(lambda x: x.float(),
+                      lm.init(cfg, seed=case["seed"], device="cpu"))
+    rows = lambda x: partition.shard_batch(x, mesh, ("data",))
+    kind = case["kind"]
+    if kind == "train":
+        from repro_torch.training.optimizer import AdamW
+        from repro_torch.training.train_step import make_train_step
+        part = Partitioner(mesh, fsdp=True)
+        # eps 1e-3: AdamW's first step is ±lr wherever |g| << eps fails to
+        # hold, so with the default 1e-8 a near-zero gradient's last-bit
+        # difference (another reduction order) moves a parameter by up to
+        # lr; the moments, compared too, carry the gradients themselves.
+        opt = AdamW(warmup=1, eps=1e-3)
+        sp = partition.shard_params(tree.map(torch.clone, params), part)
+        sst = partition.shard_opt_state(opt.init(params), params, part)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, microbatches=case["microbatches"])
+        batch = case["batch"]
+        params, state, m = step(params, state, batch)
+        with _bound():
+            sp, sst, sm = step(sp, sst, {k: rows(v) for k, v in
+                                         batch.items()})
+        return {"metrics": _worst([m["loss"], m["grad_norm"]],
+                                  [full_tensor(sm["loss"]),
+                                   full_tensor(sm["grad_norm"])]),
+                "params": _worst(tree.map(lambda x: x.detach(), params),
+                                 full_tensor(tree.map(lambda x: x.detach(),
+                                                      sp))),
+                "moments": _worst([state.mu, state.nu],
+                                  full_tensor([sst.mu, sst.nu]))}
+    part = Partitioner(mesh, fsdp=False, mla_cache=case.get("mla_cache",
+                                                            "latent"))
+    b, max_len = case["token"].shape[0], case["max_len"]
+    paged = kind == "paged"
+    cache = lm.init_cache(cfg, b, max_len, torch.float32, paged=paged,
+                          page_size=4, device="cpu")
+    if paged:
+        from repro_torch.models.attention import default_block_tables
+        cache = lm.set_block_tables(cache, default_block_tables(
+            b, max_len, 4))
+    sp = partition.shard_params(params, part)
+    sc = partition.shard_cache(tree.map(torch.clone, cache), part)
+    out = {}
+    with torch.no_grad():
+        if "prompt" in case:
+            logits, cache = lm.prefill(params, cfg, case["prompt"], cache,
+                                       impl="ref")
+            with _bound():
+                sl, sc = lm.prefill(sp, cfg, rows(case["prompt"]), sc,
+                                    impl="ref")
+            out["prefill"] = _worst(logits, full_tensor(sl))
+            out["prefill_cache"] = _worst(cache, full_tensor(sc))
+        if case["steps"]:
+            out.update(_tp_decode(case, mesh, (cfg, params, cache),
+                                  (sp, sc), rows))
+    return out
+
+
+def _tp_fused(case, mesh):
+    """The fused decode + delta merge on the sharded model against the
+    stacked step (both data replicas in one process, plain tensors)."""
+    from repro_torch import configs
+    from repro_torch.core import doc as doc_mod
+    from repro_torch.core import gset, tree
+    from repro_torch.models import lm
+    from repro_torch.serving import engine
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.mesh import StackedMesh
+    from repro_torch.sharding.partition import Partitioner, full_tensor
+    cfg = configs.reduced(configs.get("olmo-1b"), **case["reduced"])
+    params = tree.map(lambda x: x.float(),
+                      lm.init(cfg, seed=case["seed"], device="cpu"))
+    rows = lambda x: partition.shard_batch(x, mesh, ("data",))
+    b = case["token"].shape[0]
+    me = mesh.get_local_rank("data")
+
+    def coord(r):
+        c = {"doc": doc_mod.empty(*case["doc"], device="cpu"),
+             "heartbeats": gset.GCounter.zeros(2, device="cpu")}
+        return engine.replicate_coord(engine.with_delta_frontier(c), r)
+
+    kw = dict(merge_strategy="delta", delta_capacity=case["capacity"],
+              impl="ref")
+    stacked = engine.make_fused_serve_step(
+        cfg, StackedMesh((2, 1), ("data", "model")), ("data",), **kw)
+    sharded = engine.make_fused_serve_step(cfg, mesh, ("data",), **kw)
+    part = Partitioner(mesh, fsdp=False)
+    sp = partition.shard_params(params, part)
+    cache = lm.init_cache(cfg, b, case["max_len"], torch.float32,
+                          device="cpu")
+    sc = partition.shard_cache(tree.map(torch.clone, cache), part)
+    token, pos = case["token"], torch.zeros((b,), dtype=torch.int32)
+    st, spos = rows(token), rows(pos)
+    c_ref, c_got = coord(2), coord(1)
+    ok_tokens = True
+    with torch.no_grad():
+        for t in range(case["steps"]):
+            token, cache, pos, c_ref = stacked(
+                params, cache, token, pos, case["slots"], case["active"],
+                c_ref, t)
+            with _bound():
+                st, sc, spos, c_got = sharded(
+                    sp, sc, st, spos, rows(case["slots"]),
+                    rows(case["active"]), c_got, t)
+            ok_tokens &= bool(torch.equal(full_tensor(st), token))
+            st = rows(token)
+    mine = tree.map(lambda x: x[me:me + 1], c_ref)
+    return {"tokens": ok_tokens, "coord": _worst(mine, c_got),
+            "cache": _worst(cache, full_tensor(sc)),
+            "pos": bool(torch.equal(full_tensor(spos), pos))}
+
+
+def _tp(inputs, rank, world):
+    """Each case's sharded step on a 2 x 2 ("data", "model") mesh of
+    ``DTensor``s against the same step on plain tensors in this process:
+    the largest share of the 1e-5 rule a result uses, and booleans."""
+    from repro_torch.launch import mesh as mesh_mod
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    return {name: (_tp_fused(case, mesh) if case["kind"] == "fused"
+                   else _tp_case(case, mesh))
+            for name, case in inputs.items()}
+
+
 TASKS = {"collectives": _collectives, "fused": _fused,
-         "sharding": _sharding}
+         "sharding": _sharding, "tp": _tp}
 
 
 def _main(task: str, rank: int, world: int, tmp: str) -> None:
