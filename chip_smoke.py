@@ -196,6 +196,17 @@ the sweeps: their dense rows run the mixed step's masked path, as JAX's
 do); then the three examples run as subprocesses with ``--device
 cuda``, each exiting 0.
 
+After the fused coordination step, the sharded phase (``sharded_phase``,
+the plain versions under ``impl="ref"``, no kernel launch): on
+``DTensor`` weights on a one-rank NCCL (1, 1) mesh, OLMo-1B's prefill,
+dense and paged decode and one FSDP train step, xlstm-125m's prefill and
+dense decode at full depth, and DeepSeek-V2-Lite's prefill into bf16
+latent pages and paged decode with its depth cut to 2 layers, each
+bitwise the same calls on plain tensors; the kernel wrappers refuse a
+``DTensor``; and the dry run's records of olmo-1b (plain and with the
+fused delta step) and xlstm-125m at ``decode_32k`` on the single mesh,
+each ``ok`` with collective bytes.
+
 The trials hash (task, TODO) pairs into their prompts, so the script runs
 itself again under ``PYTHONHASHSEED=0`` when the variable is not ``0``:
 every run's prompts, and so its trial digests, repeat.
@@ -251,7 +262,15 @@ TRIAL_TASK = "dashboard"
 STEP_VALVE = 20_000
 
 
-def emit(obj) -> None:
+T_START = time.perf_counter()
+
+
+def emit(obj, stamp: bool = True) -> None:
+    """One JSON line; ``stamp`` adds ``at_s``, the seconds since the script
+    started, so that the lines of a run give each phase's time (the last
+    three lines, fixed by their readers, carry none)."""
+    if stamp:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -4120,34 +4139,39 @@ def fused_coord_phase(cfg, params, card) -> dict:
 
 
 SHARDED = dict(rows=8, prompt_len=128, max_len=256, page_size=16, steps=8)
+# (arch, variant, flags) of the dry-run records, each decode_32k on the
+# single mesh.
 DRYRUN_CELLS = (
-    ("baseline", []),
-    ("fused_delta", ["--fused-coord", "--merge-strategy", "delta"]))
+    ("olmo-1b", "baseline", []),
+    ("olmo-1b", "fused_delta", ["--fused-coord", "--merge-strategy",
+                                "delta"]),
+    (workload.XLSTM_ARCH, "baseline", []))
 
 
 def _dryrun_records() -> dict:
     """The dry run of olmo-1b x decode_32k on the single mesh, plain and
-    with the fused delta step, each in its own process (the fake group of
-    256 ranks is that process's default group): both records must carry
+    with the fused delta step, and of xlstm-125m x decode_32k (its cells
+    use ``activation.einsum``), each in its own process (the fake group of
+    256 ranks is that process's default group): every record must carry
     collective bytes with a positive total."""
     from repro_torch.launch import dryrun
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    procs = {v: subprocess.Popen(
+    procs = {(arch, v): subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "olmo-1b", "--shape", "decode_32k", "--mesh", "single", "--force",
+         arch, "--shape", "decode_32k", "--mesh", "single", "--force",
          "--variant", v, *flags], cwd=HERE, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for v, flags in DRYRUN_CELLS}
+        stderr=subprocess.PIPE, text=True) for arch, v, flags in DRYRUN_CELLS}
     out = {}
-    for v, p in procs.items():
+    for (arch, v), p in procs.items():
         _, err = p.communicate(timeout=300)
-        path = dryrun.OUT_DIR / "single" / f"olmo-1b__decode_32k__{v}.json"
+        path = dryrun.OUT_DIR / "single" / f"{arch}__decode_32k__{v}.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
         coll = rec.get("collective_bytes_per_device") or {}
         if p.returncode or rec.get("status") != "ok" or not (
                 coll.get("total", 0) > 0):
-            fail(f"dry run {v}: rc {p.returncode}, status "
+            fail(f"dry run {arch} {v}: rc {p.returncode}, status "
                  f"{rec.get('status')}, collectives {coll}: {err[-2000:]}")
-        out[v] = {"count_s": rec["count_s"],
+        out[f"{arch}/{v}"] = {"count_s": rec["count_s"],
                   "flops_per_device": rec["flops_per_device"],
                   "bytes_per_device": rec["bytes_per_device"],
                   "collective_bytes_per_device": coll}
@@ -4163,7 +4187,8 @@ def _refuses(fn) -> bool:
     return False
 
 
-def _sharded_serve(cfg, params, sp, rows, paged: bool) -> dict:
+def _sharded_serve(cfg, params, sp, rows, paged: bool,
+                   label: str = "") -> dict:
     """Prefill SHARDED rows and decode SHARDED["steps"] tokens on plain
     tensors and on the ``DTensor`` model (``impl="ref"``, the plain path
     a sharded run takes), the plain run's tokens fed to both: logits each
@@ -4218,7 +4243,7 @@ def _sharded_serve(cfg, params, sp, rows, paged: bool) -> dict:
             pos = pos + 1
         cache_equal = all(torch.equal(a, b) for a, b in zip(
             tree.leaves(cache), tree.leaves(partition.full_tensor(sc))))
-    label = "paged" if paged else "dense"
+    label = f"{label} {'paged' if paged else 'dense'}"
     if not (all(equal) and cache_equal):
         fail(f"sharded {label}: logits equal a step {equal}, cache equal "
              f"{cache_equal}")
@@ -4270,6 +4295,49 @@ def _sharded_train(cfg, params, mesh, rows) -> dict:
             "loss": float(m["loss"]), "bitwise": checks}
 
 
+def _dsv2_two_layers():
+    """DeepSeek-V2-Lite at full width with its depth cut to 2 layers: its
+    dense first layer (MLA and the dense FFN of 10,944, as the published
+    model's layer 0; ``workload.mla_config``'s) and one MLA + MoE layer as
+    configured (64 routed experts, top 6, 2 shared)."""
+    from repro_torch import configs
+    return configs.get(workload.MOE_ARCH).replace(
+        name="deepseek-v2-lite-16b-2l", num_layers=2,
+        block_pattern=("mla", "mla_moe"), d_ff=workload.MLA_DENSE_FFN)
+
+
+def _sharded_families(rows) -> dict:
+    """The sharded serve check of ``_sharded_serve`` on two more families,
+    seeded random bf16 weights at full width: xlstm-125m at full depth
+    (12 layers; prefill and dense decode on its recurrent states, whose
+    cells contract through ``activation.einsum``) and DeepSeek-V2-Lite cut
+    to 2 layers (prefill into bf16 latent pages and paged decode; its
+    latent rows through ``activation.last_whole``)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.sharding import partition
+    dev = rows.mesh.device_type
+    out = {}
+    for name, cfg, paged, depth in (
+            ("xlstm", configs.get(workload.XLSTM_ARCH), False,
+             "full depth"),
+            ("dsv2", _dsv2_two_layers(), True,
+             "depth cut to 2 layers: the dense first layer and one MoE "
+             "layer")):
+        t = time.perf_counter()
+        params = lm.init(cfg, seed=0, device=dev)
+        sp = partition.shard_params(
+            params, partition.Partitioner(rows.mesh, fsdp=False))
+        res = _sharded_serve(cfg, params, sp, rows, paged, label=name)
+        out[name] = dict(res, arch=cfg.name, layers=cfg.num_layers,
+                         depth=depth, phase_s=time.perf_counter() - t)
+        del params, sp
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def sharded_phase(cfg, params, card) -> dict:
     """OLMo-1B at full width on ``DTensor`` parameters: a one-rank NCCL
     group (file store) and a (1, 1) ("data", "model") ``DeviceMesh``, the
@@ -4278,7 +4346,9 @@ def sharded_phase(cfg, params, card) -> dict:
     decode steps, and one train step of the training phase's shape, each
     bitwise the same call on plain tensors (one rank runs the same local
     ops); the kernel wrappers refuse a ``DTensor`` under
-    ``impl="kernel"``; then the dry run's two records."""
+    ``impl="kernel"``; the same serve check on xlstm-125m and on
+    DeepSeek-V2-Lite cut to 2 layers (``_sharded_families``); then the dry
+    run's three records."""
     import functools
     import tempfile
 
@@ -4322,13 +4392,16 @@ def sharded_phase(cfg, params, card) -> dict:
             out["refused"] = refused
             del sp
             out["train"] = _sharded_train(cfg, params, mesh, rows)
+            t = time.perf_counter()
+            out.update(_sharded_families(rows))
+            out["families_s"] = time.perf_counter() - t
         finally:
             dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     out["dryrun"] = _dryrun_records()
     out["phase_s"] = time.perf_counter() - t0
-    emit({"sharded": out, "card": card})
+    emit({"sharded": out, "card": card, "torch": torch.__version__})
     return out
 
 
@@ -4582,11 +4655,12 @@ def main() -> int:
           "sharded_phase_s": sharded["phase_s"],
           "serving_bench_phase_s": bench_serving["phase_s"],
           "total_s": time.perf_counter() - t0})
-    emit({"card": card})
-    emit({"kernels": kernels})
+    emit({"card": card}, stamp=False)
+    emit({"kernels": kernels}, stamp=False)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": torch.cuda.device_count()}},
+         stamp=False)
     return 0
 
 

@@ -95,9 +95,12 @@ def _out(p, cfg, ctx, dtype):
 
 
 def _latent_rows(ckv, krope, dp):
-    """concat([ckv; krope]) zero-padded to the pool width Dp."""
-    lat = torch.cat([ckv, krope], dim=-1)
-    return F.pad(lat, (0, dp - lat.shape[-1]))
+    """concat([ckv; krope]) zero-padded to the pool width Dp (on
+    ``DTensor``s, on each rank's rows with the features whole)."""
+    def rows(c, k):
+        lat = torch.cat([c, k], dim=-1)
+        return F.pad(lat, (0, dp - lat.shape[-1]))
+    return activation.last_whole(rows, ckv, krope)
 
 
 def forward(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -94,8 +94,10 @@ def slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
 def _slstm_cell(p: Params, cfg: ModelConfig, wx_t: torch.Tensor,
                 state: dict) -> tuple[dict, torch.Tensor]:
     """wx_t: [B, 4d] input contribution; state: dict of [B, d] float32."""
-    h_heads = activation.split_last(state["h"], cfg.num_heads).float()
-    rh = activation.merge_last(torch.einsum(
+    # On DTensors: each rank's rows and heads, the contracted d whole.
+    h_heads = activation.whole_dim(
+        activation.split_last(state["h"], cfg.num_heads), -1).float()
+    rh = activation.merge_last(activation.einsum(
         "bhd,hde->bhe", h_heads, p["r"].float()), 2)            # [B, 4d]
     pre = wx_t.float() + rh
     i_p, f_p, z_p, o_p = torch.chunk(pre, 4, dim=-1)
@@ -176,8 +178,12 @@ def _mlstm_cell(state: dict, q_t, k_t, v_t, i_p, f_p
     c = f_g[..., None] * state["C"] + i_g[..., None] * (
         vf[..., :, None] * kf[..., None, :])                      # [B,H,dh,dh]
     n = f_g * state["n"] + i_g * kf
-    denom = torch.clamp(torch.einsum("bhd,bhd->bh", n, qf).abs(), min=1.0)
-    h_t = torch.einsum("bhde,bhe->bhd", c, qf) / denom[..., None]
+    # On DTensors: each rank's rows and heads, the contracted dim whole.
+    qw = activation.whole_dim(qf, -1)
+    denom = torch.clamp(activation.einsum(
+        "bhd,bhd->bh", activation.whole_dim(n, -1), qw).abs(), min=1.0)
+    h_t = activation.einsum("bhde,bhe->bhd", activation.whole_dim(c, -1),
+                            qw) / denom[..., None]
     return {"C": c, "n": n, "m": m_new}, h_t
 
 

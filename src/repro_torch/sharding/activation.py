@@ -236,6 +236,74 @@ def matmul(x, w, model_axis: str = "model"):
     return _wrap(xl @ wl, mesh, op, tuple(x.shape[:-1]) + (w.shape[1],))
 
 
+def einsum(eq: str, *operands):
+    """``torch.einsum(eq, *operands)``.  On ``DTensor``s (``eq`` with an
+    explicit ``->``, no ellipsis) each rank runs the same call on its local
+    shards, and the output is split where its indices were: on each mesh
+    dim the index that the first operand split there (a batch index such
+    as b or h), the other operands split the same way, or whole where
+    they lack it (their gradients then a partial sum).  A contracted index
+    split on a mesh dim is refused: a rank's sum would be a partial one.
+    ``DTensor``'s own einsum flattens the batch indices into one dim,
+    which PyTorch 2.11 refuses when two of them are split."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not any(isinstance(t, DTensor) for t in operands):
+        return torch.einsum(eq, *operands)
+    subs, out = eq.replace(" ", "").split("->")
+    subs = subs.split(",")
+    if "." in eq or len(subs) != len(operands):
+        raise ValueError(f"activation.einsum: {eq!r} on {len(operands)} "
+                         f"operands")
+    mesh = next(t for t in operands if isinstance(t, DTensor)).device_mesh
+    ts = [_as_dtensor(t, mesh) for t in operands]
+    size = {}
+    for sub, t in zip(subs, ts):
+        for c, n in zip(sub, t.shape):
+            size[c] = max(size.get(c, 1), n)
+    pls, grads, out_pl = [[] for _ in ts], [[] for _ in ts], []
+    for i in range(mesh.ndim):
+        split = [sub[p.dim] for sub, t in zip(subs, ts)
+                 for p in (t.placements[i],) if isinstance(p, Shard)]
+        summed = [c for c in split if c not in out]
+        if summed:
+            raise ValueError(
+                f"activation.einsum: {eq!r} contracts index {summed[0]!r}, "
+                f"split over mesh dim {mesh.mesh_dim_names[i]!r}")
+        c = split[0] if split else None
+        for k, sub in enumerate(subs):
+            if c is not None and c in sub:
+                pls[k].append(Shard(sub.index(c)))
+                grads[k].append(Shard(sub.index(c)))
+            else:
+                pls[k].append(Replicate())
+                grads[k].append(Partial() if c is not None else Replicate())
+        out_pl.append(Shard(out.index(c)) if c is not None else Replicate())
+    local = torch.einsum(eq, *(t.redistribute(mesh, pl).to_local(
+        grad_placements=g) for t, pl, g in zip(ts, pls, grads)))
+    return _wrap(local.contiguous(), mesh, out_pl, [size[c] for c in out])
+
+
+def last_whole(fn, *xs):
+    """``fn(*xs)`` for a function that works along the last dim only (a
+    concat, a pad) of operands with the same leading dims.  On
+    ``DTensor``s each rank runs it on its own rows (the first operand's
+    splits of the leading dims) with every last dim whole, and the output
+    keeps those rows (for an op ``DTensor`` refuses, such as ``F.pad`` on
+    PyTorch 2.11)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not any(isinstance(x, DTensor) for x in xs):
+        return fn(*xs)
+    mesh = next(x for x in xs if isinstance(x, DTensor)).device_mesh
+    xs = [_as_dtensor(x, mesh) for x in xs]
+    n = xs[0].dim()
+    pl = tuple(p if isinstance(p, Shard) and p.dim < n - 1 else Replicate()
+               for p in xs[0].placements)
+    out = fn(*(x.redistribute(mesh, pl).to_local(grad_placements=pl)
+               for x in xs))
+    return _wrap(out, mesh, pl, tuple(xs[0].shape[:-1]) + (out.shape[-1],))
+
+
 def by_heads(fn, q, *heads, mask=None):
     """``fn(q, *heads, mask)`` for attention-like work that is independent
     per batch row and head: ``q`` and ``heads`` [B, H, ...]; ``mask``

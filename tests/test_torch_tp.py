@@ -14,7 +14,11 @@ a 2 × 2 ("data", "model") mesh against the same step on plain tensors:
   recurrentgemma-2b and xlstm-125m decode; the fused decode + delta merge
   against the stacked step.  Logits and every cache leaf (``full_tensor``) within
   1e-5 abs + rel; greedy tokens equal wherever the reference's top-2 gap
-  exceeds twice that.
+  exceeds twice that.  Every sharded call runs under
+  ``torch_ranks.refusals_of_2_11``, which raises on the ``DTensor`` ops
+  PyTorch 2.11 refuses (a ``_StridedShard``, a pad), so these cases also
+  hold the path to what 2.11 runs; ``-k sharded_step`` needs no JAX and is
+  the check to run on a machine with 2.11.
 * **Collective bytes against JAX's.**  JAX lowers and compiles the same
   programs on a (2, 2) mesh of host devices and parses the collectives of
   its HLO (``repro.launch.dryrun.collective_bytes``); the port counts them
@@ -195,8 +199,9 @@ CASES = list(_cases())
 
 
 @pytest.fixture(scope="module")
-def results(tmp_path_factory):
-    """(the ranks' results, JAX's collective bytes, the port's)."""
+def counters():
+    """JAX's and the port's counting subprocesses, started before the
+    gloo spawn so that they run beside it."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
@@ -206,20 +211,31 @@ def results(tmp_path_factory):
                               stderr=subprocess.PIPE, text=True)
              for script in (JAX_SCRIPT, PORT_SCRIPT)]
     try:
-        ranks = run_ranks("tp", _cases(), tmp_path_factory.mktemp("tp"))
-        outs = [p.communicate(timeout=300) for p in procs]
+        yield procs
     finally:
         for p in procs:
             p.kill()
-    for p, (_, err) in zip(procs, outs):
+            p.communicate()
+
+
+@pytest.fixture(scope="module")
+def ranks(counters, tmp_path_factory):
+    """Each rank's results of the sharded cases (no JAX: ``-k
+    sharded_step`` runs where JAX is not installed)."""
+    return run_ranks("tp", _cases(), tmp_path_factory.mktemp("tp"))
+
+
+@pytest.fixture(scope="module")
+def results(counters):
+    """(JAX's collective bytes, the port's)."""
+    outs = [p.communicate(timeout=300) for p in counters]
+    for p, (_, err) in zip(counters, outs):
         assert p.returncode == 0, err[-3000:]
-    jax_side, port = (json.loads(out.splitlines()[-1]) for out, _ in outs)
-    return ranks, jax_side, port
+    return tuple(json.loads(out.splitlines()[-1]) for out, _ in outs)
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_sharded_step_matches_unsharded(results, case):
-    ranks, _, _ = results
+def test_sharded_step_matches_unsharded(ranks, case):
     for rank, out in enumerate(ranks):
         got = out[case]
         assert got == ranks[0][case], (rank, got)
@@ -232,24 +248,24 @@ def test_sharded_step_matches_unsharded(results, case):
 
 @pytest.mark.parametrize("probe", ["row_parallel", "vocab_logits"])
 def test_probe_collectives_equal_jax(results, probe):
-    _, jax_side, port = results
+    jax_side, port = results
     assert port["probes"][probe] == jax_side["probes"][probe]
     assert port["probes"][probe]["total"] > 0
 
 
 @pytest.mark.parametrize("strategy", ["pmax", "allgather", "delta"])
 def test_coord_merge_collectives_equal_jax(results, strategy):
-    _, jax_side, port = results
+    jax_side, port = results
     assert port["merge"][strategy] == jax_side["merge"][strategy]
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_cell_collectives_within_band_of_jax(results, cell):
-    _, jax_side, port = results
+    jax_side, port = results
     ratio = port["cells"][cell]["total"] / jax_side["cells"][cell]["total"]
     assert CELL_BAND[0] <= ratio <= CELL_BAND[1], ratio
 
 
 def test_kernel_wrapper_refuses_a_dtensor(results):
-    _, _, port = results
+    _, port = results
     assert port["refused"] and "impl='ref'" in port["refused"]

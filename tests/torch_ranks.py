@@ -12,6 +12,7 @@ The rank processes import the port and torch only, never JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -217,9 +218,55 @@ def _tp_decode(case, mesh, plain, sharded, rows):
             "greedy": _greedy(ref_l, got_l)}
 
 
+class RefusedBy211(RuntimeError):
+    """A ``DTensor`` op that PyTorch 2.11's ``DTensor`` refuses."""
+
+
+def refusals_of_2_11():
+    """A dispatch mode that raises ``RefusedBy211`` on the ``DTensor`` ops
+    PyTorch 2.11 refuses and later versions accept, so that a CPU run on a
+    later version holds the sharded path to what 2.11 runs:
+
+    * any op that takes or yields a ``DTensor`` placed with a
+      ``_StridedShard`` (how 2.13 flattens two split dims into one; 2.11
+      raises on that flatten);
+    * ``aten.constant_pad_nd`` (``F.pad``) with a ``DTensor`` input (2.11
+      raises inside its redistribute).
+    """
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def strided(tree) -> bool:
+        return any(isinstance(x, DTensor) and any(
+            isinstance(p, _StridedShard) for p in x.placements)
+            for x in tree_leaves(tree))
+
+    class Refusals(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.ops.aten.constant_pad_nd.default and any(
+                    isinstance(x, DTensor) for x in tree_leaves(args)):
+                raise RefusedBy211(f"{func} on a DTensor")
+            if strided((args, kwargs)):
+                raise RefusedBy211(f"{func} takes a _StridedShard")
+            out = func(*args, **kwargs)
+            if strided(out):
+                raise RefusedBy211(f"{func} yields a _StridedShard")
+            return out
+
+    return Refusals()
+
+
+@contextlib.contextmanager
 def _bound():
+    """The sharded run's binding, under 2.11's refusals."""
     from repro_torch.sharding import activation
-    return activation.bind(activation.standard_binding(("data",)))
+    with activation.bind(activation.standard_binding(("data",))), \
+            refusals_of_2_11():
+        yield
 
 
 def _tp_case(case, mesh):
